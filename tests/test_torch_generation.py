@@ -16,10 +16,16 @@ from video_captioning_tpu import generation as j_gen
 from video_captioning_tpu.config import Config
 from video_captioning_tpu.models import init_model
 from video_captioning_tpu_torch import generation as t_gen
+from video_captioning_tpu_torch.config import Config as PortConfig
 from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, encode
 from video_captioning_tpu_torch.models.weights import state_dict_from_jax_params
 
 VOCAB = 31
+
+
+def port(cfg) -> PortConfig:
+    """The port's own Config, built from the JAX config's dict."""
+    return PortConfig.from_dict(cfg.to_dict())
 
 
 def _pair(cfg, seed, sharpen=3.0):
@@ -29,8 +35,9 @@ def _pair(cfg, seed, sharpen=3.0):
     params = init_model(jax.random.PRNGKey(seed), cfg, VOCAB)
     out = params["decoder"]["output_projection"]
     out["kernel"] = out["kernel"] * sharpen
-    model = VideoCaptioningModel(cfg, VOCAB)
-    model.load_state_dict(state_dict_from_jax_params(params, cfg))
+    pcfg = port(cfg)
+    model = VideoCaptioningModel(pcfg, VOCAB)
+    model.load_state_dict(state_dict_from_jax_params(params, pcfg))
     return params, model.eval()
 
 
@@ -49,7 +56,7 @@ def _both(cfg, params, model, feats, mask, method, **kw):
     want = j_gen.generate(params, cfg, jnp.asarray(feats), 1, 2, 8,
                           None if mask is None else jnp.asarray(mask), method=method, **kw)
     with torch.no_grad():
-        got = t_gen.generate(model, cfg, torch.from_numpy(feats), 1, 2, 8,
+        got = t_gen.generate(model, port(cfg), torch.from_numpy(feats), 1, 2, 8,
                              None if mask is None else torch.from_numpy(mask),
                              method=method, **kw)
     return {k: np.asarray(v) for k, v in want.items()}, {k: v.numpy() for k, v in got.items()}
@@ -139,6 +146,7 @@ def test_bahdanau_goldens_through_the_bridge():
     cfg.data.max_vocab_size = 29
     cfg.validate()
     params = init_model(jax.random.PRNGKey(42), cfg, 29)
+    cfg = port(cfg)
     model = VideoCaptioningModel(cfg, 29)
     model.load_state_dict(state_dict_from_jax_params(params, cfg))
     feats = torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(7), (3, 10, 24))))

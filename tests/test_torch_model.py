@@ -13,6 +13,7 @@ from video_captioning_tpu.models import attention as j_attn
 from video_captioning_tpu.models import decoder as j_dec
 from video_captioning_tpu.models import encoder as j_enc
 from video_captioning_tpu.models import init_model
+from video_captioning_tpu_torch.config import Config as PortConfig
 from video_captioning_tpu_torch.models import attention as t_attn
 from video_captioning_tpu_torch.models import decoder as t_dec
 from video_captioning_tpu_torch.models import encoder as t_enc
@@ -25,10 +26,16 @@ VOCAB = 23
 ATOL = 2e-5
 
 
+def port(cfg) -> PortConfig:
+    """The port's own Config, built from the JAX config's dict."""
+    return PortConfig.from_dict(cfg.to_dict())
+
+
 def _pair(cfg, seed=0):
     params = init_model(jax.random.PRNGKey(seed), cfg, VOCAB)
-    model = VideoCaptioningModel(cfg, VOCAB)
-    model.load_state_dict(state_dict_from_jax_params(params, cfg))
+    pcfg = port(cfg)
+    model = VideoCaptioningModel(pcfg, VOCAB)
+    model.load_state_dict(state_dict_from_jax_params(params, pcfg))
     return params, model.eval()
 
 
@@ -59,7 +66,7 @@ def test_encoder_matches_jax(tiny_config, interpret, ragged):
         params["encoder"], cfg, jnp.asarray(feats), None if mask is None else jnp.asarray(mask))
     with torch.no_grad():
         got_enc, got_final = t_enc.apply_encoder(
-            model.encoder, cfg, torch.from_numpy(feats),
+            model.encoder, port(cfg), torch.from_numpy(feats),
             None if mask is None else torch.from_numpy(mask))
     _close(got_enc, want_enc)
     _close(got_final, want_final)
@@ -115,7 +122,7 @@ def test_decoder_step_matches_jax(tiny_config, beam):
         enc_t, mask_t = torch.from_numpy(enc), torch.from_numpy(mask)
         cache_t = t_attn.precompute(dec.attention, enc_t)
         state_t = t_dec.init_hidden_state(
-            dec, cfg, torch.from_numpy(final).repeat_interleave(K, dim=0))
+            dec, port(cfg), torch.from_numpy(final).repeat_interleave(K, dim=0))
         for step in range(3):  # carry the state through a few steps
             tok = tokens if step == 0 else (tokens + step) % VOCAB
             if beam:

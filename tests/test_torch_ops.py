@@ -107,7 +107,8 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     got_o, (got_h, _) = lstm_seq(xproj, w16, mask)
     want_o, (want_h, _) = lstm_seq_reference(xproj, w16, mask)
     assert torch.equal(got_o, want_o) and torch.equal(got_h, want_h)
-    assert launch_counts() == {"lstm_seq": 0, "topk2d_lse": 0}
+    assert launch_counts() == {"lstm_seq": 0, "topk2d_lse": 0, "lstm_seq_train_fwd": 0,
+                               "lstm_seq_train_bwd": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -16,7 +16,7 @@ import argparse
 import logging
 from pathlib import Path
 
-from video_captioning_tpu.utils.logging import setup_logging
+from ..utils.logging import setup_logging
 
 logger = logging.getLogger(__name__)
 

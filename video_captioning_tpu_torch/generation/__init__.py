@@ -2,7 +2,7 @@ from typing import Dict, Optional
 
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 from ..models.captioner import VideoCaptioningModel, encode
 from .beam import beam_search_generate  # noqa: F401

@@ -24,7 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 from ..models.captioner import VideoCaptioningModel
 from ..ops.topk import topk2d_lse, topk_stable

@@ -12,7 +12,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 from ..models import attention as attn_mod
 from ..models import decoder as decoder_mod

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 from ..models.captioner import VideoCaptioningModel
 from .families import make_decode_family

@@ -2,10 +2,11 @@
 
 Counterpart of video_captioning_tpu/inference/predictor.py
 (VideoCaptionPredictor: load, power-of-two batch buckets,
-predict_from_features, predict_batch, greedy and beam). The device is an
-explicit argument. Batches are zero-padded to the next power of two as in
-the JAX package: the padded rows take part in the beam loop's batch-wide
-stop condition, so the padding is part of the result's definition.
+predict_from_features, predict_batch, greedy and beam). It runs on the
+card unless the caller names another device (``device="cpu"``). Batches
+are zero-padded to the next power of two as in the JAX package: the
+padded rows take part in the beam loop's batch-wide stop condition, so
+the padding is part of the result's definition.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 from ..generation.beam import beam_search_generate
 from ..generation.greedy import greedy_generate
@@ -36,7 +37,7 @@ class VideoCaptionPredictor:
         self,
         model_path: Union[str, Path],
         config: Optional[Config] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         compute_dtype: Optional[str] = None,
         decode_int8: str = "off",
     ):

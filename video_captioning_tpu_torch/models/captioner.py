@@ -1,4 +1,5 @@
-"""Composed captioning model (encoder + decoder) and ``encode``.
+"""Composed captioning model (encoder + decoder), ``encode`` and the
+teacher-forced ``apply_model``.
 
 Counterpart of video_captioning_tpu/models/captioner.py for the LSTM
 family. Configurations the port cannot run yet raise here, when the model
@@ -7,14 +8,14 @@ is built, rather than being ignored.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
-from .decoder import Decoder
+from .decoder import Decoder, apply_decoder
 from .encoder import Encoder, apply_encoder
 
 Tensor = torch.Tensor
@@ -53,11 +54,39 @@ def encode(
     config: Config,
     video_features: Tensor,
     video_mask: Optional[Tensor] = None,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Returns (encoder_outputs, final_state, mask); the mask defaults to
     all frames valid."""
-    enc_outs, final = apply_encoder(model.encoder, config, video_features, video_mask)
+    enc_outs, final = apply_encoder(model.encoder, config, video_features, video_mask,
+                                    train=train, generator=generator)
     if video_mask is None:
         video_mask = torch.ones(video_features.shape[:2], dtype=enc_outs.dtype,
                                 device=enc_outs.device)
     return enc_outs, final, video_mask
+
+
+def apply_model(
+    model: VideoCaptioningModel,
+    config: Config,
+    video_features: Tensor,
+    input_tokens: Tensor,
+    video_mask: Optional[Tensor] = None,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, Tensor]:
+    """Training forward pass (teacher forcing): ``logits`` (B, T, V),
+    ``encoder_outputs`` and ``attention_weights``."""
+    enc_outs, final, mask = encode(model, config, video_features, video_mask,
+                                   train=train, generator=generator)
+    dec_out = apply_decoder(model.decoder, config, enc_outs, final, input_tokens, mask,
+                            train=train, generator=generator)
+    return {"logits": dec_out["logits"], "encoder_outputs": enc_outs,
+            "attention_weights": dec_out["attention_weights"]}
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

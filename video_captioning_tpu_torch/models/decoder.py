@@ -5,8 +5,17 @@ decoder_core_step, decoder_step, decoder_step_beam(_core)): embedding ->
 Bahdanau attention over the encoder outputs with the previous top-layer h
 -> LSTM stack on [embedding ; context] -> deep output
 tanh(W [lstm_top ; context ; embedding]) -> vocabulary projection. The
-state is (h, c), each (L, N, H). Teacher forcing (apply_decoder) belongs to
-training and is not ported yet.
+state is (h, c), each (L, N, H).
+
+``apply_decoder`` is teacher forcing for training, with the JAX package's
+hoists: the embeddings and their slice of layer 1's input projection for
+all steps at once, and the deep-output head and vocabulary projection over
+the stacked (B*T, .) states. Dropout (on the embeddings, between LSTM
+layers, and on the attention weights) runs with ``train=True`` and a
+generator. ``training.remat_attention`` recomputes each step's attention
+in the backward pass (``torch.utils.checkpoint``); the dropout multiplier
+of the weights is drawn outside the recomputed function, so values and
+gradients are the same either way.
 """
 
 from __future__ import annotations
@@ -15,11 +24,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
-from .attention import BahdanauAttention, attend, attend_beam
-from .layers import LSTMWeights, lstm_cell
+from .attention import ATTN_DROPOUT, BahdanauAttention, attend, attend_beam, precompute
+from .layers import LSTMWeights, dropout, dropout_mask, gates_tail, lstm_cell
 
 Tensor = torch.Tensor
 State = Tuple[Tensor, Tensor]
@@ -127,3 +137,64 @@ def decoder_step_beam(
         dec, input_tokens, state, encoder_outputs, attn_cache, encoder_mask,
     )
     return dec.output_projection(pre_vocab), new_state, weights
+
+
+def apply_decoder(
+    dec: Decoder,
+    config: Config,
+    encoder_outputs: Tensor,      # (B, S, E)
+    encoder_final_state: Tensor,  # (B, E)
+    target_tokens: Tensor,        # (B, T) input tokens, already shifted
+    encoder_mask: Optional[Tensor] = None,  # (B, S)
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, Tensor]:
+    """Teacher-forcing forward pass: ``logits`` (B, T, V) and
+    ``attention_weights`` (B, T, S)."""
+    B, T = target_tokens.shape
+    S = encoder_outputs.shape[1]
+    p_drop = config.model.decoder_dropout
+    h_prev, c_prev = init_hidden_state(dec, config, encoder_final_state)
+    embedded_all = dropout(dec.embedding(target_tokens), p_drop, generator, train)
+    cache = precompute(dec.attention, encoder_outputs)
+
+    l1 = dec.lstm.layer(0)
+    emb_dim = embedded_all.shape[-1]
+    emb_gates_all = (embedded_all @ l1["w_ih"][:, :emb_dim].T
+                     + l1["b_ih"] + l1["b_hh"])  # (B, T, 4H)
+    w_ctx_t = l1["w_ih"][:, emb_dim:].T          # (E, 4H)
+    w_hh1_t = l1["w_hh"].T
+
+    def attn_step(top_hidden: Tensor, scale: Optional[Tensor]):
+        return attend(dec.attention, cache, encoder_outputs, top_hidden, encoder_mask,
+                      weight_scale=scale)
+
+    remat = train and config.training.remat_attention and torch.is_grad_enabled()
+    tops, contexts, weights = [], [], []
+    for t in range(T):
+        scale = (dropout_mask((B, S), ATTN_DROPOUT, generator, encoder_outputs.device)
+                 if train else None)
+        if remat:
+            context, w = checkpoint(attn_step, h_prev[-1], scale, use_reentrant=False)
+        else:
+            context, w = attn_step(h_prev[-1], scale)
+        gates1 = emb_gates_all[:, t] + context @ w_ctx_t + h_prev[0] @ w_hh1_t
+        h_top, c1 = gates_tail(gates1, c_prev[0])
+        hs, cs = [h_top], [c1]
+        for l in range(1, dec.lstm.num_layers):
+            inp = dropout(hs[-1], p_drop, generator, train)
+            h_l, c_l = lstm_cell(dec.lstm.layer(l), inp, h_prev[l], c_prev[l])
+            hs.append(h_l)
+            cs.append(c_l)
+            h_top = h_l
+        h_prev, c_prev = torch.stack(hs), torch.stack(cs)
+        tops.append(h_top)
+        contexts.append(context)
+        weights.append(w)
+
+    deep_in = torch.cat([torch.stack(tops, dim=1), torch.stack(contexts, dim=1),
+                         embedded_all], dim=-1)
+    pre_vocab = torch.tanh(dec.context_projection(deep_in))
+    return {"logits": dec.output_projection(pre_vocab),
+            "attention_weights": torch.stack(weights, dim=1)}

@@ -1,12 +1,16 @@
-"""LSTM parameters and the eval-time layer functions.
+"""LSTM parameters, the layer functions and dropout.
 
 Counterpart of video_captioning_tpu/models/layers.py (lstm_cell,
-lstm_scan, reverse_sequence). Linears and embeddings are ``nn.Linear`` /
+lstm_scan, reverse_sequence, dropout). Linears and embeddings are ``nn.Linear`` /
 ``nn.Embedding``; an LSTM stack is :class:`LSTMWeights`, which holds its
 parameters under ``torch.nn.LSTM``'s names (``weight_ih_l0``,
 ``bias_hh_l1_reverse``, ...) and (out, in) layout but is not an
 ``nn.LSTM``: the recurrence runs in the functions below or in the
-``lstm_seq`` kernel. Gates are packed [i, f, g, o]. Eval only: no dropout.
+``lstm_seq`` kernels. Gates are packed [i, f, g, o].
+
+Dropout draws its keep mask from an explicit ``torch.Generator``; it cannot
+reproduce ``jax.random``'s bits, so it matches the JAX package in its
+statistics and placement, not in its masks.
 """
 
 from __future__ import annotations
@@ -17,6 +21,27 @@ import torch
 from torch import nn
 
 Tensor = torch.Tensor
+
+
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device: torch.device) -> Optional[Tensor]:
+    """Inverted-dropout multiplier: 0 where dropped, 1/keep where kept;
+    ``None`` when nothing is dropped (no generator or rate <= 0)."""
+    if generator is None or rate <= 0.0:
+        return None
+    keep = 1.0 - rate
+    kept = torch.rand(shape, generator=generator, device=device) < keep
+    return kept.to(torch.float32) / keep
+
+
+def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> Tensor:
+    """Inverted dropout as torch applies it (scale by 1/keep at train
+    time); the identity unless ``train`` with a generator and rate > 0."""
+    if not train:
+        return x
+    scale = dropout_mask(x.shape, rate, generator, x.device)
+    return x if scale is None else x * scale.to(x.dtype)
 
 
 class LSTMWeights(nn.Module):

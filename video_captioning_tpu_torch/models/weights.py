@@ -5,8 +5,10 @@ The port names its parameters as the upstream torch model does
 (``encoder.lstm.weight_hh_l1_reverse``, ``decoder.attention.
 encoder_projection.weight``, ...) in torch's (out, in) layout: the names
 and layout that video_captioning_tpu/models/torch_port.py
-(import_reference_state_dict) reads. So one bridge serves both directions:
-``state_dict_from_jax_params`` here, its inverse there.
+(import_reference_state_dict) reads. ``state_dict_from_jax_params`` maps
+the JAX pytree to the port's ``state_dict``; ``jax_params_from_state_dict``
+is its exact inverse, so the checkpoints and packages the port writes hold
+the JAX pytree and load in the JAX package.
 
 Every inference package stores the JAX pytree as numpy arrays
 (``model_state_dict``); :func:`init_params_numpy` makes such a pytree from a
@@ -23,7 +25,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from video_captioning_tpu.config import Config
+from ..config import Config
 
 Tensor = torch.Tensor
 
@@ -71,6 +73,55 @@ def state_dict_from_jax_params(params: Mapping, config: Config) -> Dict[str, Ten
     if "init_state_projection" in dec:
         _linear(out, "decoder.init_state_projection", dec["init_state_projection"])
     return out
+
+
+def _np(t: Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _linear_back(sd: Mapping[str, Tensor], prefix: str) -> dict:
+    out = {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"]).copy()
+    return out
+
+
+def _lstm_back(sd: Mapping[str, Tensor], prefix: str, layer: int, sfx: str = "") -> dict:
+    def w(name):
+        return np.ascontiguousarray(_np(sd[f"{prefix}.{name}_l{layer}{sfx}"]).T)
+
+    def b(name):
+        return _np(sd[f"{prefix}.{name}_l{layer}{sfx}"]).copy()
+
+    return {"w_ih": w("weight_ih"), "w_hh": w("weight_hh"),
+            "b_ih": b("bias_ih"), "b_hh": b("bias_hh")}
+
+
+def jax_params_from_state_dict(state_dict: Mapping[str, Tensor], config: Config) -> dict:
+    """The port's state_dict -> the JAX parameter pytree as float32 numpy
+    arrays; the exact inverse of :func:`state_dict_from_jax_params`."""
+    sd, m = state_dict, config.model
+    encoder = {
+        "feature_projection": _linear_back(sd, "encoder.feature_projection"),
+        "lstm": [{"fwd": _lstm_back(sd, "encoder.lstm", l),
+                  "bwd": _lstm_back(sd, "encoder.lstm", l, "_reverse")}
+                 for l in range(m.encoder_num_layers)],
+        "output_projection": _linear_back(sd, "encoder.output_projection"),
+    }
+    decoder = {
+        "embedding": {"table": _np(sd["decoder.embedding.weight"]).copy()},
+        "lstm": [_lstm_back(sd, "decoder.lstm", l) for l in range(m.decoder_num_layers)],
+        "output_projection": _linear_back(sd, "decoder.output_projection"),
+    }
+    if "decoder.context_projection.weight" in sd:
+        decoder["attention"] = {
+            name: _linear_back(sd, f"decoder.attention.{name}")
+            for name in ("encoder_projection", "decoder_projection", "attention_linear")
+        }
+        decoder["context_projection"] = _linear_back(sd, "decoder.context_projection")
+    if "decoder.init_state_projection.weight" in sd:
+        decoder["init_state_projection"] = _linear_back(sd, "decoder.init_state_projection")
+    return {"encoder": encoder, "decoder": decoder}
 
 
 # --------------------------------------------------------------------------

@@ -8,9 +8,16 @@ went through the kernels.
 from typing import Dict
 
 from .lstm_seq import lstm_seq, lstm_seq_reference  # noqa: F401
+from .lstm_seq_train import (  # noqa: F401
+    lstm_seq_train,
+    lstm_seq_train_bwd,
+    lstm_seq_train_bwd_reference,
+    lstm_seq_train_fwd,
+    lstm_seq_train_fwd_reference,
+)
 from .topk import topk2d_lse, topk2d_lse_reference, topk_stable  # noqa: F401
 
-KERNEL_WRAPPERS = (lstm_seq, topk2d_lse)
+KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd)
 
 
 def reset_launch_counts() -> None:

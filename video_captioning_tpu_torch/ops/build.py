@@ -17,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
@@ -56,15 +58,20 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # The shared headers are part of every source's hash.
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``. Thread-safe; the
-    library is cached for the life of the process."""
+    """Build (if needed) and load ``csrc/<name>.cu``. Thread-safe, with one
+    lock per source, so different sources build in parallel; the library
+    is cached for the life of the process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -91,6 +98,18 @@ def load_library(name: str) -> ctypes.CDLL:
         lib.vct_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Build and load several sources at once, one ``nvcc`` each, all
+    started together. Returns the seconds each took to be ready."""
+    def one(name: str) -> float:
+        t0 = time.perf_counter()
+        load_library(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(one, names)))
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

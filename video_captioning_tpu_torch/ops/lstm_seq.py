@@ -51,27 +51,29 @@ def lstm_seq_reference(
     return torch.stack(outs), (h.to(dt), c.to(dt))
 
 
-def _check(xproj: Tensor, w_hh: Tensor, mask: Optional[Tensor]) -> None:
+def check_inputs(xproj: Tensor, w_hh: Tensor, mask: Optional[Tensor],
+                 what: str = "lstm_seq") -> None:
+    """Raise on what the recurrence kernels do not take."""
     if xproj.ndim != 4 or xproj.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
-            f"lstm_seq takes xproj (T, ND, B, 4H) float32 or bfloat16, got "
+            f"{what} takes xproj (T, ND, B, 4H) float32 or bfloat16, got "
             f"{xproj.dtype} {tuple(xproj.shape)}"
         )
     T, ND, B, H4 = xproj.shape
     if H4 % 4 or T == 0 or B == 0:
-        raise ValueError(f"lstm_seq: bad xproj shape {tuple(xproj.shape)}")
+        raise ValueError(f"{what}: bad xproj shape {tuple(xproj.shape)}")
     if w_hh.dtype != torch.bfloat16 or tuple(w_hh.shape) != (ND, H4 // 4, H4):
         raise ValueError(
-            f"lstm_seq takes w_hh (ND, H, 4H) = {(ND, H4 // 4, H4)} bfloat16, "
+            f"{what} takes w_hh (ND, H, 4H) = {(ND, H4 // 4, H4)} bfloat16, "
             f"got {w_hh.dtype} {tuple(w_hh.shape)}"
         )
     if mask is not None and tuple(mask.shape) != (B, T):
-        raise ValueError(f"lstm_seq takes mask (B, T) = {(B, T)}, got {tuple(mask.shape)}")
+        raise ValueError(f"{what} takes mask (B, T) = {(B, T)}, got {tuple(mask.shape)}")
     for name, t in (("xproj", xproj), ("w_hh", w_hh), ("mask", mask)):
         if t is not None and t.device != xproj.device:
-            raise ValueError(f"lstm_seq: {name} is on {t.device}, xproj on {xproj.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, xproj on {xproj.device}")
         if t is not None and not t.is_contiguous():
-            raise ValueError(f"lstm_seq takes a contiguous {name}")
+            raise ValueError(f"{what} takes a contiguous {name}")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -93,7 +95,7 @@ def lstm_seq(
     """Full recurrence over T steps. ``w_hh`` must already be bfloat16
     (callers cast it once per model load). CUDA: the kernel, on the current
     stream, no sync. CPU: the plain version."""
-    _check(xproj, w_hh, mask)
+    check_inputs(xproj, w_hh, mask)
     if xproj.device.type == "cpu":
         return lstm_seq_reference(xproj, w_hh, mask)
     if xproj.device.type != "cuda":
