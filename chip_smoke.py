@@ -7,29 +7,38 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: the three CUDA sources compiled with nvcc for sm_90a, one nvcc
+2. build: the six CUDA sources compiled with nvcc for sm_90a, one nvcc
    each, all started together (ptxas report);
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes, with median times from CUDA events, each with its bound
    (bytes over the HBM rate or operations over the peak rate, whichever
    is larger) and the time of the nearest PyTorch library call:
-   ``topk2d_lse`` at (640, 10000), k = 5 and 16, with crafted ties, a
-   constant row, a -inf tail and an all -inf row (values and indices
-   exactly equal, lse within 1e-5 relative), ``lstm_seq`` at
-   (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths;
-4. the served slice: the default full-width ``Config()`` (4096-d
-   features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames)
-   with random weights from ``init_params_numpy(seed=0)``, the vocabulary
-   projection sharpened x3 and END suppressed so every clip decodes 20
-   steps, written as an inference package, loaded by
-   ``VideoCaptionPredictor`` on the card and served by ``CaptionServer``:
-   greedy and beam-5 ``/caption``, a beam ``/caption_batch`` of 8,
-   ``/healthz`` and ``/metrics``. The kernels' launch counters are zeroed
-   just before the requests and read just after. Then ``predict_batch`` at
-   B = 128 beam-5 on the card, and the first 16 clips decoded again on the
-   CPU with ``kernels.interpret`` (the kernels' plain versions, same
-   bf16-operand contract): clip-level token agreement must be at least
-   0.95;
+   ``topk2d_lse`` and ``topk2d`` at (640, 10000), k = 5 and 16, with
+   crafted ties, a constant row, a -inf tail and an all -inf row (values
+   and indices exactly equal, lse within 1e-5 relative), ``lstm_seq`` at
+   (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths,
+   ``lstm_cell`` at N = 640 (In = 1024 and 512) and N = 128,
+   ``bahdanau_attend`` at B = 128, S = 80, D = A = E = 512 with a ragged
+   mask and an all-masked row, ``vocab_topk_lse`` at (640, 512) x
+   (512, 10000) on integer operands (exact) and random ones;
+4. the served slice, twice: the default full-width ``Config()`` (4096-d
+   features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames),
+   then the fused decode step (the same with ``use_pallas_attention``,
+   ``use_pallas_lstm`` and ``use_fused_vocab_topk`` on), each with random
+   weights from ``init_params_numpy(seed=0)``, the vocabulary projection
+   sharpened x3 and END suppressed so every clip decodes 20 steps, written
+   as an inference package, loaded by ``VideoCaptionPredictor`` on the
+   card and served by ``CaptionServer``: greedy and beam-5 ``/caption``, a
+   beam ``/caption_batch`` of 8, ``/healthz`` and ``/metrics``. The
+   kernels' launch counters are zeroed just before the requests and read
+   just after, and each configuration's kernels must have carried them
+   (the fused one: every decoder cell, the greedy attention, every beam
+   expansion, and no ``topk2d_lse``). Then ``predict_batch`` at B = 128
+   beam-5 on the card, a one-off profile of encode + beam-5, and the first
+   16 (default) or 8 (fused) clips decoded again on the CPU with
+   ``kernels.interpret`` (the kernels' plain versions, same contracts; the
+   fused-vocabulary gate evaluated as on the card): clip-level token
+   agreement must be at least 0.95;
 5. ``lstm_seq_train``'s forward (outputs, final state, the three
    residuals) and backward (dxproj, dW_hh, random cotangents) against
    their plain versions at (80, 2, 32, 2048) and (80, 2, 128, 2048);
@@ -65,11 +74,15 @@ import torch
 
 from video_captioning_tpu_torch import Config, Vocabulary
 from video_captioning_tpu_torch.cli import train as cli_train
+from video_captioning_tpu_torch.generation import beam as beam_mod
 from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 from video_captioning_tpu_torch.inference.server import CaptionServer
-from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, apply_model
+from video_captioning_tpu_torch.models.attention import BahdanauAttention, attend
+from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, apply_model, encode
 from video_captioning_tpu_torch.models.weights import init_params_numpy, state_dict_from_jax_params
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
+from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
+from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
 from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
     lstm_seq_train_bwd,
@@ -77,7 +90,17 @@ from video_captioning_tpu_torch.ops.lstm_seq_train import (
     lstm_seq_train_fwd,
     lstm_seq_train_fwd_reference,
 )
-from video_captioning_tpu_torch.ops.topk import topk2d_lse, topk2d_lse_reference
+from video_captioning_tpu_torch.ops.topk import (
+    topk2d,
+    topk2d_lse,
+    topk2d_lse_reference,
+    topk2d_reference,
+)
+from video_captioning_tpu_torch.ops.vocab_topk import (
+    pad_vocab_weights,
+    vocab_topk_lse,
+    vocab_topk_lse_reference,
+)
 from video_captioning_tpu_torch.training.losses import label_smoothed_cross_entropy
 from video_captioning_tpu_torch.training.trainer import VideoCaptioningTrainer
 from video_captioning_tpu_torch.utils.checkpoint import save_model_for_inference
@@ -105,7 +128,19 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
 GRAD_FLOOR = 1e-3
 MIN_CLIP_AGREEMENT = 0.95
-KERNEL_SOURCES = ("topk_lse", "lstm_seq", "lstm_seq_train")
+# lstm_cell: float32 products on both sides, summed in different orders
+# over In + H = 1536 terms of O(1) gates: a few 1e-6 (no bf16 rounding).
+LSTM_CELL_ATOL = 2e-5
+# bahdanau_attend: the JAX kernel test's tolerance
+# (tests/test_pallas_kernels.py:45); float32, sums in different orders.
+ATTN_TOL = 1e-5
+# vocab_topk_lse on random operands: the kernel and the plain version sum
+# the 512 exact bf16 products in different orders, so a logit may differ
+# by float32 rounding of the sum; values are held within VOCAB_RTOL of the
+# largest |logit|, indices where the neighbouring values are further apart.
+VOCAB_RTOL = 1e-5
+KERNEL_SOURCES = ("topk_lse", "lstm_seq", "lstm_seq_train", "lstm_cell", "bahdanau_attend",
+                  "vocab_topk")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor cores,
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -322,6 +357,212 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     return out
 
 
+def check_topk2d(device: str, card: str) -> dict:
+    """The k-only top-k against its plain version at the beam step's shape,
+    crafted ties included: values and indices exactly equal."""
+    x = topk_inputs(device)
+    N, V = x.shape
+    result = {}
+    for k in (5, 16):
+        vals, idx = topk2d(x, k)
+        rv, ri = topk2d_reference(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(vals, rv) and torch.equal(idx, ri)):
+            bad = (vals != rv).any(dim=1) | (idx != ri).any(dim=1)
+            raise AssertionError(f"topk2d k={k}: values/indices differ in rows "
+                                 f"{bad.nonzero().flatten()[:10].tolist()}")
+        ms = time_ms(lambda: topk2d(x, k), calls=50)
+        plain_ms = time_ms(lambda: topk2d_reference(x, k), calls=20)
+        print(f"[kernels] topk2d (640, 10000) k={k}: values/indices exact; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms ({card})")
+        if "main" not in result:
+            lib_ms = time_ms(lambda: torch.topk(x, k, dim=-1), calls=50)
+            result["main"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  **bound(nbytes=4 * N * V + N * k * 8, flops=N * V,
+                                          peak_flops=F32_FLOPS))
+            print(f"[kernels] topk2d k={k}: bound {result['main']['bound_ms']:.4f} ms "
+                  f"({result['main']['bound_by']}), torch.topk {lib_ms:.4f} ms")
+    return result["main"]
+
+
+def lstm_cell_inputs(device: str, N: int, In: int, H: int = 512, seed: int = 7):
+    """A decoder layer's weights as torch initialises an LSTM, in their
+    stored (4H, In) layout, and (x, h, c) at decode-time scales."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = 1.0 / H ** 0.5
+
+    def u(*shape):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * r).to(device)
+
+    layer = {"w_ih": u(4 * H, In), "w_hh": u(4 * H, H), "b_ih": u(4 * H), "b_hh": u(4 * H)}
+    x = torch.randn((N, In), generator=g).to(device)
+    h = torch.tanh(torch.randn((N, H), generator=g)).to(device)
+    c = torch.randn((N, H), generator=g).to(device)
+    return layer, x, h, c
+
+
+def check_lstm_cell(device: str, card: str) -> dict:
+    """The cell kernel against its plain version at the beam step's rows
+    (N = B*K = 640) for both decoder layers (In = emb + E = 1024 and
+    In = H = 512), and at the greedy step's N = 128; h and c, which the
+    beam loop still reads, must come back untouched."""
+    results = {}
+    for N, In in ((640, 1024), (640, 512), (128, 1024)):
+        layer, x, h, c = lstm_cell_inputs(device, N, In)
+        h0, c0 = h.clone(), c.clone()
+        got = lstm_cell_fused(layer, x, h, c)
+        want = lstm_cell_reference(layer, x, h, c)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if err > LSTM_CELL_ATOL or not (torch.equal(h, h0) and torch.equal(c, c0)):
+            raise AssertionError(f"lstm_cell N={N} In={In}: max abs err {err:.3g} > "
+                                 f"{LSTM_CELL_ATOL}, or an input was written")
+        H = h.shape[1]
+        res = dict(max_abs_err=err, ms=time_ms(lambda: lstm_cell_fused(layer, x, h, c), 50),
+                   plain_ms=time_ms(lambda: lstm_cell_reference(layer, x, h, c), 50),
+                   library_ms=time_ms(lambda: torch.lstm_cell(
+                       x, [h, c], layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"]),
+                       50),
+                   **bound(nbytes=4 * (N * In + 4 * N * H + 4 * H * (In + H) + 8 * H),
+                           flops=2 * N * 4 * H * (In + H), peak_flops=F32_FLOPS))
+        results[(N, In)] = res
+        print(f"[kernels] lstm_cell N={N} In={In} H={H}: max abs err {err:.3g} (tol "
+              f"{LSTM_CELL_ATOL}), inputs untouched; kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, torch.lstm_cell {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+    return results[(640, 1024)]
+
+
+def attention_inputs(device: str, B: int = 128, S: int = 80, D: int = 512, A: int = 512,
+                     E: int = 512, seed: int = 8):
+    """One decode step's attention operands; ragged frame counts, row 1
+    all masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = 1.0 / D ** 0.5
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1) * r
+
+    h = torch.tanh(torch.randn((B, D), generator=g))
+    enc_outs = torch.randn((B, S, E), generator=g) * 0.5
+    enc_proj = torch.randn((B, S, A), generator=g) * 0.5
+    lengths = torch.randint(1, S + 1, (B,), generator=g)
+    lengths[0] = S
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).to(torch.float32)
+    mask[1] = 0.0
+    args = (h, u(A, D), u(A), enc_proj, enc_outs, u(A), u(1), mask)
+    return tuple(a.to(device) for a in args)
+
+
+def check_attention(device: str, card: str) -> dict:
+    """The attention step against its plain version at B = 128 (the greedy
+    batch), D = A = E = 512, S = 80: context and weights within ATTN_TOL,
+    the all-masked row uniform."""
+    args = attention_inputs(device)
+    h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask = args
+    got = bahdanau_attend(*args)
+    want = bahdanau_attend_reference(*args)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    rel = max(((a - b).abs() / b.abs().clamp_min(1.0)).max().item() for a, b in zip(got, want))
+    S = mask.shape[1]
+    uniform = (got[1][1] - 1.0 / S).abs().max().item()
+    if rel > ATTN_TOL or uniform > 1e-7 or not torch.isfinite(got[0]).all():
+        raise AssertionError(f"bahdanau_attend: max err {err:.3g} (rel {rel:.3g}) > {ATTN_TOL}, "
+                             f"or the all-masked row is {uniform:.3g} from uniform")
+    B, D = h.shape
+    A, E = enc_proj.shape[2], enc_outs.shape[2]
+    cfg = Config()
+    attn = BahdanauAttention(cfg).to(device)
+    with torch.no_grad():
+        attn.decoder_projection.weight.copy_(w_d)
+        attn.decoder_projection.bias.copy_(b_d)
+        attn.attention_linear.weight.copy_(v[None])
+        attn.attention_linear.bias.copy_(b_v)
+        cache = {"enc_proj": enc_proj}
+        res = dict(max_abs_err=err, ms=time_ms(lambda: bahdanau_attend(*args), 50),
+                   plain_ms=time_ms(lambda: bahdanau_attend_reference(*args), 50),
+                   library_ms=time_ms(lambda: attend(cfg, attn, cache, enc_outs, h, mask), 50),
+                   **bound(nbytes=4 * (B * D + A * D + 2 * A + 1 + B * S * (A + E)
+                                       + 2 * B * S + B * E),
+                           flops=2 * B * A * D + 3 * B * S * A + 2 * B * S * E,
+                           peak_flops=F32_FLOPS))
+    print(f"[kernels] bahdanau_attend B={B} S={S} D=A=E={D}: max abs err {err:.3g} (tol "
+          f"{ATTN_TOL}), all-masked row uniform within {uniform:.3g}; kernel {res['ms']:.4f} ms, "
+          f"plain {res['plain_ms']:.4f} ms, eager attend (a 7-call composite) "
+          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) "
+          f"({card})")
+    return res
+
+
+def check_vocab_topk(device: str, card: str) -> dict:
+    """The fused vocabulary kernel against its plain version at the beam
+    step's shape (N = 640, H = 512, V = 10000). Integer-valued operands
+    make every product and sum exact in float32, so values and indices
+    must be equal, crafted cross-tile ties included; on random operands
+    values are held within VOCAB_RTOL of the largest |logit| and indices
+    where neighbouring values are further apart than that."""
+    N, H, V = 640, 512, 10000
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randint(-3, 4, (N, H), generator=g).float()
+    W = torch.randint(-3, 4, (H, V), generator=g).float()
+    b = torch.randint(-8, 9, (V,), generator=g).float()
+    x[0] = 0.0
+    x[0, 0] = 1.0
+    W[0, [5, 130, 131, 4000, 9999]] = 100.0  # row 0: a five-way tie across tiles
+    b[[5, 130, 131, 4000, 9999]] = 0.0
+    x, W, b = x.to(device), W.to(device), b.to(device)
+    w_pad, b_pad, _ = pad_vocab_weights(W, b)
+    for k in (5, 16):
+        vals, idx, lse = vocab_topk_lse(x, w_pad, b_pad, k)
+        rv, ri, rl = vocab_topk_lse_reference(x, w_pad, b_pad, k)
+        torch.cuda.synchronize()
+        rel = ((lse - rl).abs() / rl.abs().clamp_min(1e-30)).max().item()
+        if not (torch.equal(vals, rv) and torch.equal(idx, ri)) or rel > TOPK_LSE_RTOL:
+            bad = (vals != rv).any(dim=1) | (idx != ri).any(dim=1)
+            raise AssertionError(f"vocab_topk_lse integer operands k={k}: values/indices differ "
+                                 f"in rows {bad.nonzero().flatten()[:10].tolist()} or lse rel "
+                                 f"err {rel:.3g} > {TOPK_LSE_RTOL}")
+        if idx[0, :5].tolist() != [5, 130, 131, 4000, 9999]:
+            raise AssertionError(f"vocab_topk_lse: cross-tile tie order {idx[0, :5].tolist()}")
+    print(f"[kernels] vocab_topk_lse (640, 512) x (512, 10000) integer operands, k=5 and 16: "
+          f"values/indices exact, cross-tile ties in order, lse max rel err {rel:.3g}")
+
+    x = torch.randn((N, H), generator=g).to(device)
+    W = (torch.randn((H, V), generator=g) * 0.05).to(device)
+    b = (torch.randn((V,), generator=g) * 0.1).to(device)
+    w_pad, b_pad, v_pad = pad_vocab_weights(W, b)
+    k = 5
+    vals, idx, lse = vocab_topk_lse(x, w_pad, b_pad, k)
+    rv, ri, rl = vocab_topk_lse_reference(x, w_pad, b_pad, k + 1)
+    torch.cuda.synchronize()
+    logits = x.to(torch.bfloat16).float() @ w_pad.float() + b_pad
+    tol = VOCAB_RTOL * logits[:, :V].abs().max().item()
+    val_err = (vals - rv[:, :k]).abs().max().item()
+    separated = (rv[:, :-1] - rv[:, 1:] > tol).all(dim=1)
+    idx_ok = (idx == ri[:, :k]).all(dim=1) | ~separated
+    rel = ((lse - rl).abs() / rl.abs()).max().item()
+    if val_err > tol or not idx_ok.all() or rel > TOPK_LSE_RTOL:
+        raise AssertionError(f"vocab_topk_lse random operands: value err {val_err:.3g} > {tol:.3g}"
+                             f", index mismatch in separated rows "
+                             f"{(~idx_ok).nonzero().flatten()[:10].tolist()}, lse rel {rel:.3g}")
+    x16, b16 = x.to(torch.bfloat16), b_pad.to(torch.bfloat16)
+    res = dict(max_abs_err=val_err, ms=time_ms(lambda: vocab_topk_lse(x, w_pad, b_pad, k), 20),
+               plain_ms=time_ms(lambda: vocab_topk_lse_reference(x, w_pad, b_pad, k), 10),
+               library_ms=time_ms(lambda: (lambda z: (torch.topk(z, k, dim=-1),
+                                                      torch.logsumexp(z, dim=-1)))(
+                   torch.addmm(b16, x16, w_pad)), 20),
+               **bound(nbytes=4 * N * H + 2 * H * v_pad + 4 * v_pad + N * k * 8 + 4 * N,
+                       flops=2 * N * H * v_pad, peak_flops=BF16_FLOPS))
+    print(f"[kernels] vocab_topk_lse random operands k={k}: value err {val_err:.3g} (tol "
+          f"{tol:.3g}), indices equal in all {int(separated.sum())} rows whose top {k + 1} are "
+          f"separated by more than the tol (of {N}), lse max rel err {rel:.3g}; kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bf16 torch.addmm + torch.topk + "
+          f"torch.logsumexp (a 3-call composite) {res['library_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+    return res
+
+
 def smoke_package(directory: str, config: Config, seed: int = 0) -> str:
     """A full-width inference package with random weights: vocabulary
     projection sharpened x3 (trained-model logit margins), END suppressed
@@ -353,6 +594,74 @@ def _check_caption(res: dict, V: int, what: str) -> None:
         raise AssertionError(f"{what}: no caption in {str(res)[:200]}")
     if not all(0 <= t < V for t in res["tokens"]):
         raise AssertionError(f"{what}: token out of range in {res['tokens']}")
+
+
+def fused_config() -> Config:
+    """``Config()`` with the fused decode step: the attention, LSTM-cell and
+    fused vocabulary kernels on."""
+    config = Config()
+    for flag in ("use_pallas_attention", "use_pallas_lstm", "use_fused_vocab_topk"):
+        setattr(config.kernels, flag, True)
+    return config
+
+
+def expected_launches(config: Config, batches: int, steps: int = 20) -> dict:
+    """Fewest launches of each kernel the served requests must make: one
+    greedy decode and ``batches - 1`` beam decodes of ``steps`` steps."""
+    k, layers = config.kernels, config.model.decoder_num_layers
+    want = {"lstm_seq": config.model.encoder_num_layers * batches}
+    if k.use_pallas_lstm:
+        want["lstm_cell_fused"] = layers * steps * batches
+    if k.use_pallas_attention:
+        want["bahdanau_attend"] = steps
+    if k.use_fused_vocab_topk:
+        want["vocab_topk_lse"] = steps * (batches - 1)
+    elif k.use_pallas_topk:
+        want["topk2d_lse"] = steps * (batches - 1)
+    return want
+
+
+GATE = beam_mod.fused_vocab_eligible
+
+
+def gate_as_on_card(config, device, B, K, V):
+    """The fused-vocabulary gate evaluated as if the tensors were on the
+    card, so a CPU reference run takes the card's branch."""
+    return GATE(config, torch.device("cuda"), B, K, V)
+
+
+def profile_decode(predictor: VideoCaptionPredictor, batch: list, card: str) -> dict:
+    """One-off, not a benchmark: encode + beam-5 on features already on the
+    card, CUDA-event time (median of 3) and torch.profiler's device time of
+    one more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    feats = torch.from_numpy(np.stack([predictor._prepare_features(c) for c in batch])).cuda()
+    vocab, config, model = predictor.vocabulary, predictor.config, predictor.model
+
+    @torch.inference_mode()
+    def window():
+        enc, final, mask = encode(model, config, feats)
+        return beam_mod.beam_search_generate(model, config, enc, final, vocab.start_idx,
+                                             vocab.end_idx, 20, mask, beam_size=5)
+
+    window_ms = time_ms(window, calls=1, runs=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        window()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[profile] encode + beam-5 at B={len(batch)} on the card (one-off, not a "
+          f"benchmark; {card}): {window_ms:.3f} ms from CUDA events; device busy {busy:.3f} ms "
+          f"in the profiled window, idle share {1 - busy / window_ms:.3f}; top device time:")
+    for e in rows[:14]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    return {"window_ms": window_ms, "device_busy_ms": busy}
 
 
 def run_slice(device: str, config: Config, clips: np.ndarray, cpu_clips: int,
@@ -395,11 +704,15 @@ def run_slice(device: str, config: Config, clips: np.ndarray, cpu_clips: int,
         finally:
             server.close()
 
-        # Both kernels must have carried the served requests: lstm_seq twice
-        # per encode (2 layers), topk2d_lse once per beam step (20 steps).
+        # The configuration's kernels must have carried the served requests;
+        # the fused vocabulary kernel replaces topk2d_lse.
         n = out["launches"]
-        if n["lstm_seq"] < 2 * metrics["batches"] or n["topk2d_lse"] < 2 * 20:
-            raise AssertionError(f"kernel launch counts too low: {n}")
+        want = expected_launches(config, metrics["batches"])
+        low = {name: (n[name], m) for name, m in want.items() if n[name] < m}
+        if device == "cuda" and (low or (config.kernels.use_fused_vocab_topk
+                                         and n["topk2d_lse"])):
+            raise AssertionError(f"kernel launch counts (got, fewest) too low: {low}, or "
+                                 f"topk2d_lse ran beside the fused vocabulary kernel: {n}")
 
         batch = list(clips)
         predictor.predict_batch(batch[:8], method="beam", beam_size=5)  # warm
@@ -414,11 +727,17 @@ def run_slice(device: str, config: Config, clips: np.ndarray, cpu_clips: int,
             _check_caption(r, V, f"predict_batch clip {i}")
         print(f"[slice] predict_batch B={len(batch)} beam-5 on {device}: "
               f"{out['beam_wall_s']:.3f} s wall ({card}; one call, not a benchmark)")
+        if device == "cuda":
+            out["profile"] = profile_decode(predictor, batch, card)
 
         cpu_config = Config.from_dict(predictor.config.to_dict())
         cpu_config.kernels.interpret = True  # plain versions, same contract
         cpu_pred = VideoCaptionPredictor(pkg, config=cpu_config, device="cpu")
-        cpu_results = cpu_pred.predict_batch(batch[:cpu_clips], method="beam", beam_size=5)
+        beam_mod.fused_vocab_eligible = gate_as_on_card
+        try:
+            cpu_results = cpu_pred.predict_batch(batch[:cpu_clips], method="beam", beam_size=5)
+        finally:
+            beam_mod.fused_vocab_eligible = GATE
         same = [a["tokens"] == b["tokens"] for a, b in zip(results, cpu_results)]
         out["agreement"] = sum(same) / len(same)
         print(f"[slice] beam-5 tokens, card vs CPU plain versions, first {cpu_clips} "
@@ -638,34 +957,52 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"[card] nvidia-smi: {smi}; torch: {name}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
     build_kernels()
     topk = check_topk("cuda", smi)
+    topk_k = check_topk2d("cuda", smi)
     lstm = check_lstm("cuda", smi)
+    cell = check_lstm_cell("cuda", smi)
+    attn = check_attention("cuda", smi)
+    vocab = check_vocab_topk("cuda", smi)
     config = Config()
     clips = np.random.default_rng(1).standard_normal(
         (128, config.model.video_sequence_length, config.model.cnn_feature_dim),
         dtype=np.float32)
     sl = run_slice("cuda", config, clips, cpu_clips=16, card=smi)
+    fsl = run_slice("cuda", fused_config(), clips, cpu_clips=8, card=smi)
     train = check_lstm_train("cuda", smi, B=32)
     check_lstm_train("cuda", smi, B=128)
     tr = run_training(smi, config)
     check_step_parity(smi, config)
     check_overfit_and_profile(smi, config)
-    launches = {k: sl["launches"][k] + tr["launches"][k] for k in sl["launches"]}
+    launches = {k: sl["launches"][k] + fsl["launches"][k] + tr["launches"][k]
+                for k in sl["launches"]}
     kernels = []
     train_src = "video_captioning_tpu_torch/csrc/lstm_seq_train.cu"
-    for name_, src, replaces, res in (
-        ("topk2d_lse", "video_captioning_tpu_torch/csrc/topk_lse.cu",
+    for name_, counter, src, replaces, res in (
+        ("topk2d_lse", "topk2d_lse", "video_captioning_tpu_torch/csrc/topk_lse.cu",
          "video_captioning_tpu/ops/topk_pallas.py:55", topk),
-        ("lstm_seq", "video_captioning_tpu_torch/csrc/lstm_seq.cu",
+        ("lstm_seq", "lstm_seq", "video_captioning_tpu_torch/csrc/lstm_seq.cu",
          "video_captioning_tpu/ops/lstm_seq_pallas.py:49", lstm),
-        ("lstm_seq_train_fwd", train_src, "video_captioning_tpu/ops/lstm_seq_pallas.py:180",
-         train["fwd"]),
-        ("lstm_seq_train_bwd", train_src, "video_captioning_tpu/ops/lstm_seq_pallas.py:244",
-         train["bwd"]),
+        ("lstm_seq_train_fwd", "lstm_seq_train_fwd", train_src,
+         "video_captioning_tpu/ops/lstm_seq_pallas.py:180", train["fwd"]),
+        ("lstm_seq_train_bwd", "lstm_seq_train_bwd", train_src,
+         "video_captioning_tpu/ops/lstm_seq_pallas.py:244", train["bwd"]),
+        # No caller on any path, in either package: launched by the kernel
+        # phase only, so its main-path count is 0.
+        ("topk2d", "topk2d", "video_captioning_tpu_torch/csrc/topk_lse.cu",
+         "video_captioning_tpu/ops/topk_pallas.py:37", topk_k),
+        ("bahdanau_attend", "bahdanau_attend",
+         "video_captioning_tpu_torch/csrc/bahdanau_attend.cu",
+         "video_captioning_tpu/ops/attention_pallas.py:38", attn),
+        ("lstm_cell", "lstm_cell_fused", "video_captioning_tpu_torch/csrc/lstm_cell.cu",
+         "video_captioning_tpu/ops/lstm_pallas.py:32", cell),
+        ("vocab_topk_lse", "vocab_topk_lse", "video_captioning_tpu_torch/csrc/vocab_topk.cu",
+         "video_captioning_tpu/ops/vocab_topk_pallas.py:69", vocab),
     ):
         kernels.append({"name": name_, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name_], **res})
+                        "launches": launches[counter], **res})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -94,9 +94,12 @@ def test_bahdanau_attention_matches_jax(tiny_config, beam):
     attn = model.decoder.attention
     with torch.no_grad():
         tcache = t_attn.precompute(attn, torch.from_numpy(enc))
-        tfn = t_attn.attend_beam if beam else t_attn.attend
-        got_ctx, got_w = tfn(attn, tcache, torch.from_numpy(enc), torch.from_numpy(hid),
-                             torch.from_numpy(mask))
+        args = (attn, tcache, torch.from_numpy(enc), torch.from_numpy(hid),
+                torch.from_numpy(mask))
+        if beam:
+            got_ctx, got_w = t_attn.attend_beam(*args)
+        else:
+            got_ctx, got_w = t_attn.attend(port(cfg), *args)
     _close(tcache["enc_proj"], jcache["enc_proj"])
     _close(got_ctx, want_ctx)
     _close(got_w, want_w)
@@ -129,12 +132,12 @@ def test_decoder_step_matches_jax(tiny_config, beam):
                 want_logits, state_j, want_w = j_dec.decoder_step_beam(
                     dp, cfg, jnp.asarray(tok, jnp.int32), state_j, enc_j, cache_j, mask_j)
                 got_logits, state_t, got_w = t_dec.decoder_step_beam(
-                    dec, torch.from_numpy(tok), state_t, enc_t, cache_t, mask_t)
+                    dec, port(cfg), torch.from_numpy(tok), state_t, enc_t, cache_t, mask_t)
             else:
                 want_logits, state_j, want_w = j_dec.decoder_step(
                     dp, cfg, jnp.asarray(tok, jnp.int32), state_j, enc_j, cache_j, mask_j)
                 got_logits, state_t, got_w = t_dec.decoder_step(
-                    dec, torch.from_numpy(tok), state_t, enc_t, cache_t, mask_t)
+                    dec, port(cfg), torch.from_numpy(tok), state_t, enc_t, cache_t, mask_t)
             _close(got_logits, want_logits)
             _close(got_w, want_w)
             _close(state_t[0], state_j[0])

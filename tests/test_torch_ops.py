@@ -13,8 +13,20 @@ import jax.numpy as jnp
 from video_captioning_tpu.ops.lstm_seq_pallas import lstm_seq_pallas
 from video_captioning_tpu.ops.topk_pallas import topk2d_lse_pallas
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
+from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
+from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
 from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
-from video_captioning_tpu_torch.ops.topk import topk2d_lse, topk2d_lse_reference
+from video_captioning_tpu_torch.ops.topk import (
+    topk2d,
+    topk2d_lse,
+    topk2d_lse_reference,
+    topk2d_reference,
+)
+from video_captioning_tpu_torch.ops.vocab_topk import (
+    pad_vocab_weights,
+    vocab_topk_lse,
+    vocab_topk_lse_reference,
+)
 
 
 def _lstm_inputs(T=7, B=5, H=16, seed=0, ragged=True):
@@ -107,8 +119,28 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     got_o, (got_h, _) = lstm_seq(xproj, w16, mask)
     want_o, (want_h, _) = lstm_seq_reference(xproj, w16, mask)
     assert torch.equal(got_o, want_o) and torch.equal(got_h, want_h)
+    for g, w in zip(topk2d(x, 5), topk2d_reference(x, 5)):
+        assert torch.equal(g, w)
+    g = torch.Generator().manual_seed(0)
+    layer = {n: torch.randn(s, generator=g) for n, s in (
+        ("w_ih", (64, 12)), ("w_hh", (64, 16)), ("b_ih", (64,)), ("b_hh", (64,)))}
+    xs, h, c = (torch.randn((3, n), generator=g) for n in (12, 16, 16))
+    for a, b in zip(lstm_cell_fused(layer, xs, h, c), lstm_cell_reference(layer, xs, h, c)):
+        assert torch.equal(a, b)
+    attn_args = (torch.randn((2, 16), generator=g), torch.randn((8, 16), generator=g),
+                 torch.randn((8,), generator=g), torch.randn((2, 5, 8), generator=g),
+                 torch.randn((2, 5, 6), generator=g), torch.randn((8,), generator=g),
+                 torch.randn((1,), generator=g), torch.ones((2, 5)))
+    for a, b in zip(bahdanau_attend(*attn_args), bahdanau_attend_reference(*attn_args)):
+        assert torch.equal(a, b)
+    w_pad, b_pad, _ = pad_vocab_weights(torch.randn((16, 30), generator=g),
+                                        torch.randn((30,), generator=g))
+    for a, b in zip(vocab_topk_lse(h, w_pad, b_pad, 4),
+                    vocab_topk_lse_reference(h, w_pad, b_pad, 4)):
+        assert torch.equal(a, b)
     assert launch_counts() == {"lstm_seq": 0, "topk2d_lse": 0, "lstm_seq_train_fwd": 0,
-                               "lstm_seq_train_bwd": 0}
+                               "lstm_seq_train_bwd": 0, "topk2d": 0, "bahdanau_attend": 0,
+                               "lstm_cell_fused": 0, "vocab_topk_lse": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

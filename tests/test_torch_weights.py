@@ -147,6 +147,15 @@ with torch.inference_mode():
         g = generation.generate(model, cfg, x, 1, 2, 6, method="greedy")
         b = generation.generate(model, cfg, x, 1, 2, 6, method="beam", beam_size=3)
         assert g["generated_tokens"].shape == (2, 6) and b["all_tokens"].shape == (2, 3, 7)
+    # The fused decode-step configuration, its vocabulary gate forced.
+    from video_captioning_tpu_torch.generation import beam as beam_mod
+    fused = Config.from_dict(cfg.to_dict())
+    for flag in ("use_pallas_attention", "use_pallas_lstm", "use_fused_vocab_topk"):
+        setattr(fused.kernels, flag, True)
+    beam_mod.fused_vocab_eligible = lambda *a: True
+    g = generation.generate(model, fused, x, 1, 2, 6, method="greedy")
+    b = generation.generate(model, fused, x, 1, 2, 6, method="beam", beam_size=3)
+    assert g["generated_tokens"].shape == (2, 6) and b["all_tokens"].shape == (2, 3, 7)
 # A CPU training step on each encoder path, a save and a resume.
 rs = np.random.RandomState(0)
 batch = {"video_features": rs.randn(2, 10, 24).astype(np.float32),
@@ -174,6 +183,41 @@ def test_port_runs_without_importing_jax():
     assert "JAX_PACKAGE_MODULES=\n" in proc.stdout
 
 
+DECODE_KERNEL_FLAGS = ("use_pallas_attention", "use_pallas_lstm", "use_fused_vocab_topk")
+
+
+@pytest.mark.parametrize("flags", [(f,) for f in DECODE_KERNEL_FLAGS] + [DECODE_KERNEL_FLAGS])
+def test_decode_kernel_flags_build_and_leave_training_unchanged(tiny_config, tmp_path, flags):
+    """Each decode-step kernel flag builds the model; in training
+    (``train=True``) the flags change nothing, as in the JAX package: one
+    trainer step with them on equals the step with them off exactly."""
+    from video_captioning_tpu_torch.training.trainer import VideoCaptioningTrainer
+
+    rs = np.random.RandomState(0)
+    batch = {"video_features": rs.randn(2, 10, 24).astype(np.float32),
+             "input_tokens": rs.randint(0, 20, (2, 6)).astype(np.int32),
+             "target_tokens": rs.randint(0, 20, (2, 6)).astype(np.int32)}
+    sd = state_dict_from_jax_params(init_params_numpy(port(tiny_config), 20, seed=1),
+                                    port(tiny_config))
+    results = []
+    for on in (False, True):
+        cfg = port(tiny_config)
+        cfg.experiment.checkpoint_dir = tmp_path / str(on)
+        cfg.experiment.use_tensorboard = False
+        for flag in flags:
+            setattr(cfg.kernels, flag, on)
+        model = VideoCaptioningModel(cfg, 20)
+        model.load_state_dict(sd)
+        trainer = VideoCaptioningTrainer(model, cfg, PortVocabulary(cfg), None, None,
+                                         device="cpu")
+        loss = trainer.train_step(batch)
+        results.append((loss, {k: v.clone() for k, v in model.state_dict().items()}))
+    (loss_off, sd_off), (loss_on, sd_on) = results
+    assert torch.isfinite(loss_on) and torch.equal(loss_on, loss_off)
+    for k in sd_off:
+        assert torch.equal(sd_on[k], sd_off[k]), k
+
+
 def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 
@@ -182,11 +226,6 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         cfg = port(tiny_config)
         setattr(cfg.model, field, value)
         with pytest.raises(NotImplementedError, match="not ported"):
-            VideoCaptioningModel(cfg, 20)
-    for flag in ("use_pallas_attention", "use_pallas_lstm", "use_fused_vocab_topk"):
-        cfg = port(tiny_config)
-        setattr(cfg.kernels, flag, True)
-        with pytest.raises(NotImplementedError, match=flag):
             VideoCaptioningModel(cfg, 20)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         VideoCaptionPredictor(tmp_path / "m.pth", compute_dtype="bfloat16")

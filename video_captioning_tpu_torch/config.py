@@ -7,7 +7,8 @@ checkpoints and inference packages move between the two. The tree keeps
 every knob of the JAX package, including the ``KernelConfig`` gates that
 only steer the TPU's lowering; the port reads the gates it has a kernel
 for (``use_pallas_lstm_seq``, ``use_pallas_lstm_seq_train``,
-``use_pallas_topk``, ``interpret``) and refuses the others where they
+``use_pallas_topk``, ``use_pallas_attention``, ``use_pallas_lstm``,
+``use_fused_vocab_topk``, ``interpret``) and refuses the others where they
 would change what runs (``models/captioner.py:check_supported``).
 
 Plain Python: nothing here imports torch or jax.

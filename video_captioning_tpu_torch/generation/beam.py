@@ -1,9 +1,11 @@
 """Batched beam search on the device, without a host sync per step.
 
-Counterpart of video_captioning_tpu/generation/beam.py (the path without
-the fused vocabulary kernel): per step, the top-K tokens of each live beam
-over the raw logits (the ``topk2d_lse`` kernel, which also gives the row
-logsumexp for the log-softmax), the top-K of the K*K candidates, a
+Counterpart of video_captioning_tpu/generation/beam.py: per step, the
+top-K tokens of each live beam over the raw logits (the ``topk2d_lse``
+kernel, which also gives the row logsumexp for the log-softmax) or, where
+``fused_vocab_eligible`` holds, straight from the pre-vocab state (the
+``vocab_topk_lse`` kernel: projection, top-K and logsumexp without the
+logits ever reaching device memory), the top-K of the K*K candidates, a
 completed-hypothesis register merged with the step's END candidates under
 the length penalty score / (t+1)^alpha, and at the end the best completed
 sequence per clip or, where none completed, the best live beam.
@@ -28,11 +30,27 @@ from ..config import Config
 
 from ..models.captioner import VideoCaptioningModel
 from ..ops.topk import topk2d_lse, topk_stable
+from ..ops.vocab_topk import pad_vocab_weights, vocab_topk_lse
 from .families import make_decode_family
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e9
+# Rows the JAX kernel's VMEM budget takes; kept so both packages take the
+# fused path for the same batches.
+FUSED_VOCAB_MAX_ROWS = 2560
+
+
+def fused_vocab_eligible(config: Config, device: torch.device, B: int, K: int, V: int) -> bool:
+    """The JAX gate of the fused vocabulary path (beam.py:88-94): the flag is
+    set, B*K <= 2560 and min(K, V) <= 16, and where the JAX package asks for
+    a TPU backend, the tensors are on CUDA; elsewhere the hierarchical
+    float32 path runs, as the JAX package's does off the TPU. (Its other
+    condition, an unquantized vocabulary projection, always holds: the port
+    has no int8 decode.) Tests force the fused path on the CPU by patching
+    this function."""
+    return (config.kernels.use_fused_vocab_topk and device.type == "cuda"
+            and B * K <= FUSED_VOCAB_MAX_ROWS and min(K, V) <= 16)
 
 
 def beam_search_generate(
@@ -58,6 +76,10 @@ def beam_search_generate(
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
                                 encoder_mask, num_beams=K)
     state = family.state0
+    use_fused_vocab = fused_vocab_eligible(config, dev, B, K, V)
+    if use_fused_vocab:  # once per call, outside the loop
+        out_proj = model.decoder.output_projection
+        w_pad, b_pad, _ = pad_vocab_weights(out_proj.weight.T, out_proj.bias)
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -73,11 +95,16 @@ def beam_search_generate(
 
     for t in range(max_length):
         active = (scores > NEG_INF / 2).any()
-        logits, new_state, _ = family.step_beam(last_tokens, state)
-        logits32 = logits.float().reshape(B * K, -1)
-        if config.kernels.use_pallas_topk:
+        if use_fused_vocab:
+            pre_vocab, new_state, _ = family.step_beam_core(last_tokens, state)
+            top_logits, top_tokens, lse = vocab_topk_lse(pre_vocab, w_pad, b_pad, kk)
+        elif config.kernels.use_pallas_topk:
+            logits, new_state, _ = family.step_beam(last_tokens, state)
+            logits32 = logits.float().reshape(B * K, -1)
             top_logits, top_tokens, lse = topk2d_lse(logits32, kk)
         else:
+            logits, new_state, _ = family.step_beam(last_tokens, state)
+            logits32 = logits.float().reshape(B * K, -1)
             top_logits, top_tokens = topk_stable(logits32, kk)
             row_max = top_logits[:, 0]
             lse = row_max + torch.log(torch.sum(torch.exp(logits32 - row_max[:, None]), dim=-1))

@@ -2,7 +2,8 @@
 
 Counterpart of video_captioning_tpu/generation/families.py (_lstm_family):
 the initial state for B*K rows, the greedy and beam steps over the shared
-attention cache, and the rebeam of the (h, c) state. The transformer
+attention cache (the beam step also stopped at the pre-vocab state, for
+the fused vocabulary kernel), and the rebeam of the (h, c) state. The transformer
 family is not ported yet.
 """
 
@@ -25,12 +26,14 @@ class DecodeFamily(NamedTuple):
     """state0: decode state for B*K rows.
     step:      (tokens (N,), state) -> (logits (N, V), state, weights (N, S))
     step_beam: (tokens (B, K), state) -> (logits (B*K, V), state, weights)
+    step_beam_core: the same, stopped at the pre-vocab state (B*K, H)
     rebeam:    (state, beam_idx (B, K) old-beam index per new beam) -> state
     """
 
     state0: decoder_mod.State
     step: Callable
     step_beam: Callable
+    step_beam_core: Callable
     rebeam: Callable
 
 
@@ -49,11 +52,15 @@ def make_decode_family(
 
     def step(tokens, state):
         return decoder_mod.decoder_step(
-            dec, tokens, state, encoder_outputs, attn_cache, encoder_mask)
+            dec, config, tokens, state, encoder_outputs, attn_cache, encoder_mask)
 
     def step_beam(tokens_bk, state):
         return decoder_mod.decoder_step_beam(
-            dec, tokens_bk, state, encoder_outputs, attn_cache, encoder_mask)
+            dec, config, tokens_bk, state, encoder_outputs, attn_cache, encoder_mask)
+
+    def step_beam_core(tokens_bk, state):
+        return decoder_mod.decoder_step_beam_core(
+            dec, config, tokens_bk, state, encoder_outputs, attn_cache, encoder_mask)
 
     def rebeam(state, beam_idx):
         # Selects whole rows, so the values are exactly the JAX package's
@@ -67,4 +74,4 @@ def make_decode_family(
 
         return rb(state[0]), rb(state[1])
 
-    return DecodeFamily(state0, step, step_beam, rebeam)
+    return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam)

@@ -8,8 +8,12 @@ cache is shared by the K beams, never copied K times). Masked frames get
 the additive -1e9 fill before the softmax. In training, ``attend`` applies
 dropout (rate ``ATTN_DROPOUT``, the JAX package's ``_ATTN_DROPOUT``) to the
 weights before the context sum; the multiplier can be drawn by the caller
-(``weight_scale``) so that a recomputed step sees the same mask. Luong and
-multi-head attention are not ported yet.
+(``weight_scale``) so that a recomputed step sees the same mask. With
+``kernels.use_pallas_attention`` set and ``train`` false, ``attend`` runs
+the fused step of ``ops/attention.py`` (the kernel on CUDA tensors), as the
+JAX package routes it to ``bahdanau_attend_pallas``; ``attend_beam`` has
+no kernel in either package. Luong and multi-head attention are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops.attention import bahdanau_attend
 from .layers import dropout_mask
 
 Tensor = torch.Tensor
@@ -56,6 +61,7 @@ def _softmax_context(scores: Tensor, encoder_outputs: Tensor,
 
 
 def attend(
+    config: Config,
     attn: BahdanauAttention,
     cache: Dict[str, Tensor],
     encoder_outputs: Tensor,   # (B, S, E)
@@ -70,6 +76,13 @@ def attend(
     dropout in training. ``weight_scale`` is a multiplier drawn by the
     caller (``layers.dropout_mask``); otherwise one is drawn from
     ``generator`` when ``train``."""
+    if config.kernels.use_pallas_attention and not train:
+        lin = attn.attention_linear
+        return bahdanau_attend(
+            decoder_hidden.contiguous(), attn.decoder_projection.weight,
+            attn.decoder_projection.bias, cache["enc_proj"], encoder_outputs,
+            lin.weight[0], lin.bias,
+            None if encoder_mask is None else encoder_mask.to(torch.float32).contiguous())
     dec_proj = attn.decoder_projection(decoder_hidden)  # (B, A)
     combined = torch.tanh(cache["enc_proj"] + dec_proj[:, None, :])  # (B, S, A)
     scores = attn.attention_linear(combined)[..., 0]  # (B, S)

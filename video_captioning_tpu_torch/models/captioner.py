@@ -28,9 +28,6 @@ def check_supported(config: Config) -> None:
         (m.architecture != "lstm", f"architecture={m.architecture!r}"),
         (not m.use_attention, "use_attention=False"),
         (m.attention_type != "bahdanau", f"attention_type={m.attention_type!r}"),
-        (k.use_pallas_attention, "kernels.use_pallas_attention"),
-        (k.use_pallas_lstm, "kernels.use_pallas_lstm"),
-        (k.use_fused_vocab_topk, "kernels.use_fused_vocab_topk"),
         (k.attention_score_bf16, "kernels.attention_score_bf16"),
         (config.parallel.context_axis is not None, "parallel.context_axis"),
     ]

@@ -12,7 +12,14 @@ hoists: the embeddings and their slice of layer 1's input projection for
 all steps at once, and the deep-output head and vocabulary projection over
 the stacked (B*T, .) states. Dropout (on the embeddings, between LSTM
 layers, and on the attention weights) runs with ``train=True`` and a
-generator. ``training.remat_attention`` recomputes each step's attention
+generator.
+
+The decode steps take the ``Config`` as the JAX functions do: with
+``kernels.use_pallas_lstm`` every decoder cell runs the fused cell of
+``ops/lstm_cell.py``, and with ``kernels.use_pallas_attention`` the greedy
+step's and eval-mode teacher forcing's attention runs ``ops/attention.py``
+(each the kernel on CUDA tensors, its plain version on the CPU). Teacher
+forcing's own LSTM layers stay unfused, as in the JAX package. ``training.remat_attention`` recomputes each step's attention
 in the backward pass (``torch.utils.checkpoint``); the dropout multiplier
 of the weights is drawn outside the recomputed function, so values and
 gradients are the same either way.
@@ -28,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 
+from ..ops.lstm_cell import lstm_cell_fused
 from .attention import ATTN_DROPOUT, BahdanauAttention, attend, attend_beam, precompute
 from .layers import LSTMWeights, dropout, dropout_mask, gates_tail, lstm_cell
 
@@ -58,12 +66,19 @@ def init_hidden_state(dec: Decoder, config: Config, encoder_final_state: Tensor)
     return h, torch.zeros_like(h)
 
 
-def _lstm_stack_step(dec: Decoder, x: Tensor, state: State) -> Tuple[Tensor, State]:
+def _lstm_stack_step(dec: Decoder, config: Config, x: Tensor,
+                     state: State) -> Tuple[Tensor, State]:
+    """One decode step through the LSTM layers (eval only: the port's
+    decode steps take no dropout)."""
     h_prev, c_prev = state
     hs, cs = [], []
     inp = x
     for l in range(dec.lstm.num_layers):
-        h_new, c_new = lstm_cell(dec.lstm.layer(l), inp, h_prev[l], c_prev[l])
+        if config.kernels.use_pallas_lstm:
+            h_new, c_new = lstm_cell_fused(dec.lstm.layer(l), inp.contiguous(),
+                                           h_prev[l].contiguous(), c_prev[l].contiguous())
+        else:
+            h_new, c_new = lstm_cell(dec.lstm.layer(l), inp, h_prev[l], c_prev[l])
         hs.append(h_new)
         cs.append(c_new)
         inp = h_new
@@ -72,6 +87,7 @@ def _lstm_stack_step(dec: Decoder, x: Tensor, state: State) -> Tuple[Tensor, Sta
 
 def decoder_core_step(
     dec: Decoder,
+    config: Config,
     embedded: Tensor,          # (B, emb)
     state: State,
     encoder_outputs: Tensor,   # (B, S, E)
@@ -79,15 +95,17 @@ def decoder_core_step(
     encoder_mask: Optional[Tensor],
 ) -> Tuple[Tensor, State, Tensor]:
     """Returns the pre-vocab state (B, H), the new state, weights (B, S)."""
-    context, weights = attend(dec.attention, attn_cache, encoder_outputs,
+    context, weights = attend(config, dec.attention, attn_cache, encoder_outputs,
                               state[0][-1], encoder_mask)
-    lstm_top, new_state = _lstm_stack_step(dec, torch.cat([embedded, context], dim=-1), state)
+    lstm_top, new_state = _lstm_stack_step(dec, config, torch.cat([embedded, context], dim=-1),
+                                           state)
     pre_vocab = torch.tanh(dec.context_projection(torch.cat([lstm_top, context, embedded], dim=-1)))
     return pre_vocab, new_state, weights
 
 
 def decoder_step(
     dec: Decoder,
+    config: Config,
     input_token: Tensor,       # (B,) token ids
     state: State,
     encoder_outputs: Tensor,
@@ -96,13 +114,15 @@ def decoder_step(
 ) -> Tuple[Tensor, State, Tensor]:
     """One decode step: logits (B, V), new state, attention weights."""
     pre_vocab, new_state, weights = decoder_core_step(
-        dec, dec.embedding(input_token), state, encoder_outputs, attn_cache, encoder_mask,
+        dec, config, dec.embedding(input_token), state, encoder_outputs, attn_cache,
+        encoder_mask,
     )
     return dec.output_projection(pre_vocab), new_state, weights
 
 
 def decoder_step_beam_core(
     dec: Decoder,
+    config: Config,
     input_tokens: Tensor,      # (B, K)
     state: State,              # (L, B*K, H)
     encoder_outputs: Tensor,   # (B, S, E), not beam-expanded
@@ -117,7 +137,7 @@ def decoder_step_beam_core(
     context, weights = attend_beam(dec.attention, attn_cache, encoder_outputs,
                                    top_hidden, encoder_mask)  # (B, K, E)
     lstm_in = torch.cat([embedded, context], dim=-1).reshape(B * K, -1)
-    lstm_top, new_state = _lstm_stack_step(dec, lstm_in, state)
+    lstm_top, new_state = _lstm_stack_step(dec, config, lstm_in, state)
     deep_in = torch.cat(
         [lstm_top, context.reshape(B * K, -1), embedded.reshape(B * K, -1)], dim=-1
     )
@@ -126,6 +146,7 @@ def decoder_step_beam_core(
 
 def decoder_step_beam(
     dec: Decoder,
+    config: Config,
     input_tokens: Tensor,
     state: State,
     encoder_outputs: Tensor,
@@ -134,7 +155,7 @@ def decoder_step_beam(
 ) -> Tuple[Tensor, State, Tensor]:
     """Beam step -> logits (B*K, V)."""
     pre_vocab, new_state, weights = decoder_step_beam_core(
-        dec, input_tokens, state, encoder_outputs, attn_cache, encoder_mask,
+        dec, config, input_tokens, state, encoder_outputs, attn_cache, encoder_mask,
     )
     return dec.output_projection(pre_vocab), new_state, weights
 
@@ -167,8 +188,8 @@ def apply_decoder(
     w_hh1_t = l1["w_hh"].T
 
     def attn_step(top_hidden: Tensor, scale: Optional[Tensor]):
-        return attend(dec.attention, cache, encoder_outputs, top_hidden, encoder_mask,
-                      weight_scale=scale)
+        return attend(config, dec.attention, cache, encoder_outputs, top_hidden, encoder_mask,
+                      train=train, weight_scale=scale)
 
     remat = train and config.training.remat_attention and torch.is_grad_enabled()
     tops, contexts, weights = [], [], []

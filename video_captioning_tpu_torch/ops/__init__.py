@@ -7,6 +7,8 @@ went through the kernels.
 
 from typing import Dict
 
+from .attention import bahdanau_attend, bahdanau_attend_reference  # noqa: F401
+from .lstm_cell import lstm_cell_fused, lstm_cell_reference  # noqa: F401
 from .lstm_seq import lstm_seq, lstm_seq_reference  # noqa: F401
 from .lstm_seq_train import (  # noqa: F401
     lstm_seq_train,
@@ -15,9 +17,21 @@ from .lstm_seq_train import (  # noqa: F401
     lstm_seq_train_fwd,
     lstm_seq_train_fwd_reference,
 )
-from .topk import topk2d_lse, topk2d_lse_reference, topk_stable  # noqa: F401
+from .topk import (  # noqa: F401
+    topk2d,
+    topk2d_lse,
+    topk2d_lse_reference,
+    topk2d_reference,
+    topk_stable,
+)
+from .vocab_topk import (  # noqa: F401
+    pad_vocab_weights,
+    vocab_topk_lse,
+    vocab_topk_lse_reference,
+)
 
-KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd)
+KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd, topk2d,
+                   bahdanau_attend, lstm_cell_fused, vocab_topk_lse)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,102 @@
+"""One Bahdanau attention decode step: ``attend`` under
+``kernels.use_pallas_attention``.
+
+Counterpart of video_captioning_tpu/ops/attention_pallas.py
+(bahdanau_attend_pallas), with the port's linear layouts: ``w_d`` is
+``decoder_projection.weight`` (A, D), ``v`` the (A,) row of
+``attention_linear.weight`` and ``b_v`` its (1,) bias, kept on the device
+so nothing syncs for it. Inputs h (B, D), enc_proj (B, S, A), enc_outs
+(B, S, E), mask (B, S) or None (all frames valid, as the JAX wrapper
+does); returns (context (B, E), weights (B, S)) in float32. On a CUDA
+tensor ``bahdanau_attend`` launches the kernel in
+``csrc/bahdanau_attend.cu``; on a CPU tensor it runs
+``bahdanau_attend_reference``, the eager ``attend`` math.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .build import check_launch, load_library
+
+Tensor = torch.Tensor
+
+MASK_FILL = -1e9
+
+
+def bahdanau_attend_reference(h: Tensor, w_d: Tensor, b_d: Tensor, enc_proj: Tensor,
+                              enc_outs: Tensor, v: Tensor, b_v: Tensor,
+                              mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Plain version: the projections, tanh, masked softmax and context sum."""
+    dec_proj = h @ w_d.T + b_d                                   # (B, A)
+    scores = torch.tanh(enc_proj + dec_proj[:, None, :]) @ v + b_v  # (B, S)
+    if mask is not None:
+        scores = torch.where(mask > 0, scores, torch.full_like(scores, MASK_FILL))
+    weights = torch.softmax(scores, dim=-1)
+    return (weights[:, None, :] @ enc_outs)[:, 0], weights
+
+
+def _check(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask) -> None:
+    B, S, A = enc_proj.shape
+    D, E = h.shape[-1], enc_outs.shape[-1]
+    want = {"h": (B, D), "w_d": (A, D), "b_d": (A,), "enc_proj": (B, S, A),
+            "enc_outs": (B, S, E), "v": (A,), "b_v": (1,), "mask": (B, S)}
+    tensors = {"h": h, "w_d": w_d, "b_d": b_d, "enc_proj": enc_proj, "enc_outs": enc_outs,
+               "v": v, "b_v": b_v, "mask": mask}
+    for name, shape in want.items():
+        t = tensors[name]
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"bahdanau_attend takes {name} {shape} float32, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != h.device:
+            raise ValueError(f"bahdanau_attend: {name} is on {t.device}, h on {h.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"bahdanau_attend takes a contiguous {name}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = load_library("bahdanau_attend")
+    fn = lib.vct_bahdanau_attend_f32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def bahdanau_attend(h: Tensor, w_d: Tensor, b_d: Tensor, enc_proj: Tensor,
+                    enc_outs: Tensor, v: Tensor, b_v: Tensor,
+                    mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Context (B, E) and weights (B, S). CUDA: the kernel, on the current
+    stream, no sync. CPU: the plain version."""
+    _check(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask)
+    if h.device.type == "cpu":
+        return bahdanau_attend_reference(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask)
+    if h.device.type != "cuda":
+        raise ValueError(f"bahdanau_attend runs on cpu or cuda, got {h.device}")
+    lib = _kernel_lib()
+    B, S, A = enc_proj.shape
+    D, E = h.shape[-1], enc_outs.shape[-1]
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    dec_proj = torch.empty((B, A), dtype=torch.float32, device=h.device)
+    context = torch.empty((B, E), dtype=torch.float32, device=h.device)
+    weights = torch.empty((B, S), dtype=torch.float32, device=h.device)
+    if B == 0:
+        return context, weights
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = lib.vct_bahdanau_attend_f32(
+            h.data_ptr(), w_d.data_ptr(), b_d.data_ptr(), enc_proj.data_ptr(),
+            enc_outs.data_ptr(), v.data_ptr(), b_v.data_ptr(), mask.data_ptr(),
+            dec_proj.data_ptr(), context.data_ptr(), weights.data_ptr(), B, S, D, A, E, stream,
+        )
+    check_launch(lib, rc, "bahdanau_attend")
+    bahdanau_attend.launches += 1
+    return context, weights
+
+
+bahdanau_attend.launches = 0

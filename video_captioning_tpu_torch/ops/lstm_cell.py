@@ -1,0 +1,82 @@
+"""One fused LSTM cell step: the decoder's cell under ``kernels.use_pallas_lstm``.
+
+Counterpart of video_captioning_tpu/ops/lstm_pallas.py (lstm_cell_pallas),
+a drop-in for ``models.layers.lstm_cell``: the same layer dict (``w_ih``
+(4H, In), ``w_hh`` (4H, H), ``b_ih``, ``b_hh``, in their stored layout) and
+(x (N, In), h (N, H), c (N, H)) -> (h', c'), float32. On a CUDA tensor
+``lstm_cell_fused`` launches the kernel in ``csrc/lstm_cell.cu``; on a CPU
+tensor it runs ``lstm_cell_reference``, the plain version. The kernel
+writes new tensors and never its ``h``/``c`` arguments, which the beam
+loop's ``torch.where(active, new, old)`` still reads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from ..models.layers import lstm_cell
+from .build import check_launch, load_library
+
+Tensor = torch.Tensor
+
+
+lstm_cell_reference = lstm_cell  # the plain version: float32 products and sums
+
+
+def _check(layer: Dict[str, Tensor], x: Tensor, h: Tensor, c: Tensor) -> None:
+    N, In = x.shape
+    H = h.shape[-1]
+    want = {"x": (N, In), "h": (N, H), "c": (N, H), "w_ih": (4 * H, In),
+            "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
+    tensors = {"x": x, "h": h, "c": c, **layer}
+    for name, shape in want.items():
+        t = tensors[name]
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"lstm_cell takes {name} {shape} float32, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"lstm_cell: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_cell takes a contiguous {name}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = load_library("lstm_cell")
+    fn = lib.vct_lstm_cell_f32
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def lstm_cell_fused(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
+                    c: Tensor) -> Tuple[Tensor, Tensor]:
+    """One cell step. CUDA: the kernel, on the current stream, no sync.
+    CPU: the plain version."""
+    _check(layer, x, h, c)
+    if x.device.type == "cpu":
+        return lstm_cell_reference(layer, x, h, c)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_cell runs on cpu or cuda, got {x.device}")
+    lib = _kernel_lib()
+    N, In = x.shape
+    H = h.shape[-1]
+    h_out = torch.empty((N, H), dtype=torch.float32, device=x.device)
+    c_out = torch.empty_like(h_out)
+    if N == 0:
+        return h_out, c_out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.vct_lstm_cell_f32(
+            x.data_ptr(), h.data_ptr(), c.data_ptr(), layer["w_ih"].data_ptr(),
+            layer["w_hh"].data_ptr(), layer["b_ih"].data_ptr(), layer["b_hh"].data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), N, In, H, stream,
+        )
+    check_launch(lib, rc, "lstm_cell")
+    lstm_cell_fused.launches += 1
+    return h_out, c_out
+
+
+lstm_cell_fused.launches = 0
