@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: the six CUDA sources compiled with nvcc for sm_90a, one nvcc
+2. build: the seven CUDA sources compiled with nvcc for sm_90a, one nvcc
    each, all started together (ptxas report);
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes, with median times from CUDA events, each with its bound
@@ -20,8 +20,13 @@ exits non-zero without printing the final result line:
    ``lstm_cell`` at N = 640 (In = 1024 and 512) and N = 128,
    ``bahdanau_attend`` at B = 128, S = 80, D = A = E = 512 with a ragged
    mask and an all-masked row, ``vocab_topk_lse`` at (640, 512) x
-   (512, 10000) on integer operands (exact) and random ones;
-4. the served slice, twice: the default full-width ``Config()`` (4096-d
+   (512, 10000) on integer operands (exact) and random ones,
+   ``beam_self_attention`` at the transformer's beam step (B = 128, K = 5,
+   D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches) and
+   ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, ragged mask
+   with an all-masked row), each also at small odd shapes, with the
+   profiler's device time beside the CUDA-event time;
+4. the served slice, four times: the default full-width ``Config()`` (4096-d
    features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames),
    then the fused decode step (the same with ``use_pallas_attention``,
    ``use_pallas_lstm`` and ``use_fused_vocab_topk`` on), each with random
@@ -33,9 +38,14 @@ exits non-zero without printing the final result line:
    kernels' launch counters are zeroed just before the requests and read
    just after, and each configuration's kernels must have carried them
    (the fused one: every decoder cell, the greedy attention, every beam
-   expansion, and no ``topk2d_lse``). Then ``predict_batch`` at B = 128
+   expansion, and no ``topk2d_lse``), then the transformer family at full
+   width (``transformer_config()``: d_model 512, 2 + 2 blocks, 8 heads,
+   MLP 2048, V = 10000, 80 frames) and with its fused beam attention
+   (``fused_transformer_config()``: both kernels once per decoder block in
+   every beam step, 2 x 20 launches of each per beam batch). Each slice
+   then runs ``predict_batch`` at B = 128
    beam-5 on the card, a one-off profile of encode + beam-5, and the first
-   16 (default) or 8 (fused) clips decoded again on the CPU with
+   16 (LSTM default) or 8 (the others) clips decoded again on the CPU with
    ``kernels.interpret`` (the kernels' plain versions, same contracts; the
    fused-vocabulary gate evaluated as on the card): clip-level token
    agreement must be at least 0.95;
@@ -96,6 +106,13 @@ from video_captioning_tpu_torch.ops.topk import (
     topk2d_lse_reference,
     topk2d_reference,
 )
+from video_captioning_tpu_torch.ops.transformer_attn import (
+    beam_cross_attention,
+    beam_cross_attention_reference,
+    beam_self_attention,
+    beam_self_attention_reference,
+    gather_beam_prefix,
+)
 from video_captioning_tpu_torch.ops.vocab_topk import (
     pad_vocab_weights,
     vocab_topk_lse,
@@ -139,8 +156,13 @@ ATTN_TOL = 1e-5
 # by float32 rounding of the sum; values are held within VOCAB_RTOL of the
 # largest |logit|, indices where the neighbouring values are further apart.
 VOCAB_RTOL = 1e-5
+# beam_self_attention / beam_cross_attention: float32 sums in different
+# orders (the self kernel's online softmax rescales as it goes) over at
+# most 80 terms of O(1) values; bfloat16 caches are widened exactly on
+# both sides, so the same tolerance holds.
+BEAM_ATTN_ATOL = 1e-5
 KERNEL_SOURCES = ("topk_lse", "lstm_seq", "lstm_seq_train", "lstm_cell", "bahdanau_attend",
-                  "vocab_topk")
+                  "vocab_topk", "transformer_attn")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor cores,
 # float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -563,6 +585,175 @@ def check_vocab_topk(device: str, card: str) -> dict:
     return res
 
 
+def device_ms(fn, calls: int, keys: tuple) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``keys``, from torch.profiler over ``calls`` calls after a warm-up: the
+    card's own time, where a CUDA-event time of a call shorter than its
+    host-side issue is the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in keys))
+    return total / 1e3 / calls
+
+
+def time_layers_ms(fn, layers: list, calls: int) -> float:
+    """Per-call time of ``fn`` over inputs that alternate between
+    ``layers`` (one input set per decoder layer, as the beam step calls
+    it), so repeated calls do not find one layer's operands in L2."""
+    return time_ms(lambda: [fn(*a) for a in layers], calls) / len(layers)
+
+
+def beam_self_inputs(device: str, B: int, K: int, D: int, T: int, t: int, dtype: torch.dtype,
+                     seed: int):
+    """One layer's operands at step t: q, caches with rows 0..t written
+    (zeros after), a random ancestry with column t the identity."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N = B * K
+    q = torch.randn((N, D), generator=g)
+    caches = torch.randn((2, T, N, D), generator=g)
+    caches[:, t + 1:] = 0.0
+    anc = torch.randint(0, K, (B, K, T), generator=g, dtype=torch.int32)
+    anc[:, :, t] = torch.arange(K, dtype=torch.int32)
+    return (q.to(device), caches[0].to(dtype).to(device), caches[1].to(dtype).to(device),
+            anc.to(device))
+
+
+def check_beam_self_attention(device: str, card: str) -> dict:
+    """The ancestry-select self-attention kernel against its plain version
+    at the fused beam step's shape (B = 128, K = 5, D = 512, 8 heads, T = 21,
+    t = 19; float32 and bfloat16 caches) and at a small odd shape (B = 3,
+    K = 2, D = 64, 4 heads, T = 9, t = 0, 4 and 8)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (0, 4, 8):
+            q, k, v, anc = beam_self_inputs(device, 3, 2, 64, 9, t, dtype, seed=10 + t)
+            err = (beam_self_attention(q, k, v, anc, t, 4, 2)
+                   - beam_self_attention_reference(q, k, v, anc, t, 4, 2)).abs().max().item()
+            if not err <= BEAM_ATTN_ATOL:
+                raise AssertionError(f"beam_self_attention B=3 K=2 D=64 t={t} {dtype}: max abs "
+                                     f"err {err:.3g}")
+    print(f"[kernels] beam_self_attention B=3 K=2 D=64 h=4 T=9, t = 0, 4, 8, float32 and "
+          f"bfloat16 caches: within {BEAM_ATTN_ATOL}")
+    B, K, D, H, T, t = 128, 5, 512, 8, 21, 19
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        layers = [beam_self_inputs(device, B, K, D, T, t, dtype, seed=20 + i) for i in range(2)]
+        q, k, v, anc = layers[0]
+        got = beam_self_attention(q, k, v, anc, t, H, K)
+        want = beam_self_attention_reference(q, k, v, anc, t, H, K)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= BEAM_ATTN_ATOL:
+            raise AssertionError(f"beam_self_attention {dtype}: max abs err {err:.3g} > "
+                                 f"{BEAM_ATTN_ATOL}")
+        ms = time_layers_ms(lambda *a: beam_self_attention(*a, t, H, K), layers, calls=50)
+        dev = device_ms(lambda: [beam_self_attention(*a, t, H, K) for a in layers], 20,
+                        ("beam_self_attn_kernel",)) / len(layers)
+        plain_ms = time_layers_ms(lambda *a: beam_self_attention_reference(*a, t, H, K),
+                                  layers, calls=20)
+
+        def library(q, k, v, anc):
+            N, dh = B * K, D // H
+            kh, vh = (gather_beam_prefix(c, anc, t).float().reshape(t + 1, N, H, dh)
+                      .permute(1, 2, 0, 3) for c in (k, v))
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(N, H, 1, dh), kh, vh)
+
+        lib_ms = time_layers_ms(library, layers, calls=20)
+        # Bytes the step needs: the distinct physical rows the beams select
+        # (both caches), the ancestry prefix, q and the context.
+        rows = (torch.arange(B, device=device)[:, None, None] * K + anc[:, :, :t + 1].long())
+        distinct = sum(torch.unique(rows[:, :, tau]).numel() for tau in range(t + 1))
+        esize = k.element_size()
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound(nbytes=2 * distinct * D * esize + 4 * B * K * (t + 1)
+                           + 2 * 4 * B * K * D,
+                           flops=4 * B * K * (t + 1) * D, peak_flops=F32_FLOPS))
+        print(f"[kernels] beam_self_attention B={B} K={K} D={D} h={H} T={T} t={t} {dtype} "
+              f"caches: max abs err {err:.3g} (tol {BEAM_ATTN_ATOL}); kernel {ms:.4f} ms "
+              f"(device time {dev:.4f} ms, profiler), plain "
+              f"{plain_ms:.4f} ms, torch.gather + SDPA {lib_ms:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {distinct} distinct rows of "
+              f"{(t + 1) * B * K}); two layers' inputs alternate ({card})")
+        result.setdefault("main", res)
+    return result["main"]
+
+
+def beam_cross_inputs(device: str, B: int, K: int, S: int, D: int, seed: int,
+                      dtype: torch.dtype = torch.float32):
+    """q, un-expanded keys and values, a ragged mask with row 1 fully masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B * K, D), generator=g)
+    ck = torch.randn((B, S, D), generator=g).to(dtype)
+    cv = torch.randn((B, S, D), generator=g).to(dtype)
+    lengths = torch.randint(1, S + 1, (B,), generator=g)
+    lengths[0] = S
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).to(torch.float32)
+    mask[1] = 0.0
+    return tuple(x.to(device) for x in (q, ck, cv, mask))
+
+
+def check_beam_cross_attention(device: str, card: str) -> dict:
+    """The one-query cross-attention kernel against its plain version at
+    the fused beam step's shape (B = 128, K = 5, S = 80, D = 512, 8 heads)
+    and at small odd shapes (B = 3, K = 2, S = 9 and 41, D = 64, 4 heads;
+    float32 and bfloat16 keys and values), each with a ragged mask whose
+    row 1 is fully masked (uniform weights), and with no mask."""
+    shapes = [(3, 2, S, 64, 4, dt) for S in (9, 41) for dt in (torch.float32, torch.bfloat16)]
+    result = {}
+    for B, K, S, D, H, dtype in shapes + [(128, 5, 80, 512, 8, torch.float32)]:
+        layers = [beam_cross_inputs(device, B, K, S, D, seed=30 + i, dtype=dtype)
+                  for i in range(2)]
+        q, ck, cv, mask = layers[0]
+        err = 0.0
+        for m in (mask, None):
+            got = beam_cross_attention(q, ck, cv, m, H, K)
+            want = beam_cross_attention_reference(q, ck, cv, m, H, K)
+            torch.cuda.synchronize()
+            err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
+            if m is not None:
+                uniform = (got[1][K:2 * K] - 1.0 / S).abs().max().item()
+        if not (err <= BEAM_ATTN_ATOL and uniform <= 1e-7):
+            raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D}: max abs err "
+                                 f"{err:.3g}, fully masked row {uniform:.3g} from uniform")
+        if B == 3:
+            print(f"[kernels] beam_cross_attention B=3 K=2 S={S} D=64 h=4 {dtype}: within "
+                  f"{BEAM_ATTN_ATOL}, ragged mask and none, masked row uniform")
+            continue
+        ms = time_layers_ms(lambda *a: beam_cross_attention(*a, H, K), layers, calls=50)
+        dev = device_ms(lambda: [beam_cross_attention(*a, H, K) for a in layers], 20,
+                        ("beam_cross_attn_kernel", "head_mean_kernel")) / len(layers)
+        plain_ms = time_layers_ms(lambda *a: beam_cross_attention_reference(*a, H, K),
+                                  layers, calls=20)
+
+        def library(q, ck, cv, mask):
+            dh = D // H
+            add = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(B, K, H, dh).transpose(1, 2), ck.reshape(B, S, H, dh).transpose(1, 2),
+                cv.reshape(B, S, H, dh).transpose(1, 2), attn_mask=add)
+
+        lib_ms = time_layers_ms(library, layers, calls=50)
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound(nbytes=4 * (2 * B * S * D + B * S + 2 * B * K * D + B * K * S),
+                           flops=4 * B * K * S * D, peak_flops=F32_FLOPS))
+        print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} float32: max abs "
+              f"err {err:.3g} (tol {BEAM_ATTN_ATOL}), masked row uniform within {uniform:.3g}; "
+              f"kernel {ms:.4f} ms (device time {dev:.4f} ms, profiler, both launches), plain "
+              f"{plain_ms:.4f} ms, SDPA (context only) {lib_ms:.4f} "
+              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); two layers' inputs "
+              f"alternate ({card})")
+        result["main"] = res
+    return result["main"]
+
+
 def smoke_package(directory: str, config: Config, seed: int = 0) -> str:
     """A full-width inference package with random weights: vocabulary
     projection sharpened x3 (trained-model logit margins), END suppressed
@@ -605,10 +796,39 @@ def fused_config() -> Config:
     return config
 
 
+def transformer_config() -> Config:
+    """``Config()`` with the transformer family: d_model 512, 2 + 2 blocks,
+    8 heads, MLP 2048, V = 10000, 80 frames; every kernel flag at its
+    default (the beam step's top-k through ``topk2d_lse``)."""
+    config = Config()
+    config.model.architecture = "transformer"
+    config.validate()
+    return config
+
+
+def fused_transformer_config() -> Config:
+    """The transformer with ``kernels.transformer_fused_beam_attn``: every
+    beam step runs ``beam_self_attention`` and ``beam_cross_attention`` once
+    per decoder block."""
+    config = transformer_config()
+    config.kernels.transformer_fused_beam_attn = True
+    return config
+
+
 def expected_launches(config: Config, batches: int, steps: int = 20) -> dict:
     """Fewest launches of each kernel the served requests must make: one
     greedy decode and ``batches - 1`` beam decodes of ``steps`` steps."""
-    k, layers = config.kernels, config.model.decoder_num_layers
+    k = config.kernels
+    if config.model.architecture == "transformer":
+        want = {}
+        if k.transformer_fused_beam_attn:
+            per_batch = config.model.transformer_decoder_layers * steps
+            want["beam_self_attention"] = per_batch * (batches - 1)
+            want["beam_cross_attention"] = per_batch * (batches - 1)
+        if k.use_pallas_topk:
+            want["topk2d_lse"] = steps * (batches - 1)
+        return want
+    layers = config.model.decoder_num_layers
     want = {"lstm_seq": config.model.encoder_num_layers * batches}
     if k.use_pallas_lstm:
         want["lstm_cell_fused"] = layers * steps * batches
@@ -619,6 +839,13 @@ def expected_launches(config: Config, batches: int, steps: int = 20) -> dict:
     elif k.use_pallas_topk:
         want["topk2d_lse"] = steps * (batches - 1)
     return want
+
+
+def describe(config: Config) -> str:
+    k = config.kernels
+    if config.model.architecture == "transformer":
+        return f"transformer, {'fused' if k.transformer_fused_beam_attn else 'default'}"
+    return f"lstm, {'fused' if k.use_pallas_lstm else 'default'}"
 
 
 GATE = beam_mod.fused_vocab_eligible
@@ -655,8 +882,9 @@ def profile_decode(predictor: VideoCaptionPredictor, batch: list, card: str) -> 
             and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[profile] encode + beam-5 at B={len(batch)} on the card (one-off, not a "
-          f"benchmark; {card}): {window_ms:.3f} ms from CUDA events; device busy {busy:.3f} ms "
+    print(f"[profile] {describe(config)}: encode + beam-5 at B={len(batch)} on the card "
+          f"(one-off, not a benchmark; {card}): {window_ms:.3f} ms from CUDA events; device "
+          f"busy {busy:.3f} ms "
           f"in the profiled window, idle share {1 - busy / window_ms:.3f}; top device time:")
     for e in rows[:14]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
@@ -672,7 +900,7 @@ def run_slice(device: str, config: Config, clips: np.ndarray, cpu_clips: int,
         t0 = time.perf_counter()
         pkg = smoke_package(tmp, config)
         predictor = VideoCaptionPredictor(pkg, device=device)
-        print(f"[slice] package written and loaded on {device} in "
+        print(f"[slice] {describe(config)}: package written and loaded on {device} in "
               f"{time.perf_counter() - t0:.1f}s")
         server = CaptionServer(predictor, port=0, max_batch=8, max_wait_ms=200.0)
         server.start()
@@ -969,14 +1197,18 @@ def main() -> int:
     clips = np.random.default_rng(1).standard_normal(
         (128, config.model.video_sequence_length, config.model.cnn_feature_dim),
         dtype=np.float32)
+    self_attn = check_beam_self_attention("cuda", smi)
+    cross_attn = check_beam_cross_attention("cuda", smi)
     sl = run_slice("cuda", config, clips, cpu_clips=16, card=smi)
     fsl = run_slice("cuda", fused_config(), clips, cpu_clips=8, card=smi)
+    tsl = run_slice("cuda", transformer_config(), clips, cpu_clips=8, card=smi)
+    tfsl = run_slice("cuda", fused_transformer_config(), clips, cpu_clips=8, card=smi)
     train = check_lstm_train("cuda", smi, B=32)
     check_lstm_train("cuda", smi, B=128)
     tr = run_training(smi, config)
     check_step_parity(smi, config)
     check_overfit_and_profile(smi, config)
-    launches = {k: sl["launches"][k] + fsl["launches"][k] + tr["launches"][k]
+    launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr))
                 for k in sl["launches"]}
     kernels = []
     train_src = "video_captioning_tpu_torch/csrc/lstm_seq_train.cu"
@@ -1000,6 +1232,12 @@ def main() -> int:
          "video_captioning_tpu/ops/lstm_pallas.py:32", cell),
         ("vocab_topk_lse", "vocab_topk_lse", "video_captioning_tpu_torch/csrc/vocab_topk.cu",
          "video_captioning_tpu/ops/vocab_topk_pallas.py:69", vocab),
+        ("beam_self_attention", "beam_self_attention",
+         "video_captioning_tpu_torch/csrc/transformer_attn.cu",
+         "video_captioning_tpu/ops/transformer_attn_pallas.py:90", self_attn),
+        ("beam_cross_attention", "beam_cross_attention",
+         "video_captioning_tpu_torch/csrc/transformer_attn.cu",
+         "video_captioning_tpu/ops/transformer_attn_pallas.py:245", cross_attn),
     ):
         kernels.append({"name": name_, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[counter], **res})

@@ -22,6 +22,12 @@ from video_captioning_tpu_torch.ops.topk import (
     topk2d_lse_reference,
     topk2d_reference,
 )
+from video_captioning_tpu_torch.ops.transformer_attn import (
+    beam_cross_attention,
+    beam_cross_attention_reference,
+    beam_self_attention,
+    beam_self_attention_reference,
+)
 from video_captioning_tpu_torch.ops.vocab_topk import (
     pad_vocab_weights,
     vocab_topk_lse,
@@ -138,9 +144,19 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     for a, b in zip(vocab_topk_lse(h, w_pad, b_pad, 4),
                     vocab_topk_lse_reference(h, w_pad, b_pad, 4)):
         assert torch.equal(a, b)
+    q, caches = torch.randn((6, 16), generator=g), torch.randn((2, 4, 6, 16), generator=g)
+    anc = torch.zeros((3, 2, 4), dtype=torch.int32)
+    assert torch.equal(beam_self_attention(q, caches[0], caches[1], anc, 2, 4, 2),
+                       beam_self_attention_reference(q, caches[0], caches[1], anc, 2, 4, 2))
+    ck, cv = caches[0, :3, :5], caches[1, :3, :5]
+    ck, cv = ck.contiguous(), cv.contiguous()
+    for a, b in zip(beam_cross_attention(q, ck, cv, None, 4, 2),
+                    beam_cross_attention_reference(q, ck, cv, None, 4, 2)):
+        assert torch.equal(a, b)
     assert launch_counts() == {"lstm_seq": 0, "topk2d_lse": 0, "lstm_seq_train_fwd": 0,
                                "lstm_seq_train_bwd": 0, "topk2d": 0, "bahdanau_attend": 0,
-                               "lstm_cell_fused": 0, "vocab_topk_lse": 0}
+                               "lstm_cell_fused": 0, "vocab_topk_lse": 0,
+                               "beam_self_attention": 0, "beam_cross_attention": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -385,10 +385,14 @@ def test_trainer_freeze_encoder_updates_the_decoder_only(tiny_config, tmp_path):
         assert torch.equal(after[k], v) == k.startswith("encoder."), k
 
 
-@pytest.mark.parametrize("option", ["orbax", "profile_dir", "wandb", "bfloat16", "mesh"])
+@pytest.mark.parametrize("option", ["orbax", "profile_dir", "wandb", "bfloat16", "mesh",
+                                    "transformer"])
 def test_trainer_refuses_unported_options(tiny_config, tmp_path, option):
     cfg = _tiny_port_config(tiny_config, tmp_path)
-    if option == "orbax":
+    if option == "transformer":
+        cfg.model.architecture = "transformer"
+        cfg.model.embedding_dim = cfg.model.decoder_hidden_dim
+    elif option == "orbax":
         cfg.experiment.checkpoint_backend = "orbax"
     elif option == "profile_dir":
         cfg.experiment.profile_dir = tmp_path

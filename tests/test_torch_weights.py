@@ -156,6 +156,33 @@ with torch.inference_mode():
     g = generation.generate(model, fused, x, 1, 2, 6, method="greedy")
     b = generation.generate(model, fused, x, 1, 2, 6, method="beam", beam_size=3)
     assert g["generated_tokens"].shape == (2, 6) and b["all_tokens"].shape == (2, 3, 7)
+# The transformer family, default and fused beam attention: a package
+# written and served over HTTP.
+from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
+from video_captioning_tpu_torch.inference.server import CaptionServer
+from video_captioning_tpu_torch.utils.checkpoint import save_model_for_inference
+import json, urllib.request
+tcfg = Config.from_dict(cfg.to_dict())
+tcfg.model.architecture = "transformer"
+tcfg.model.embedding_dim, tcfg.model.transformer_num_heads = 16, 4
+vocab = Vocabulary(tcfg)
+vocab.build_vocabulary(["a man rides a horse"])
+with tempfile.TemporaryDirectory() as tmp:
+    pkg = save_model_for_inference(init_params_numpy(tcfg, len(vocab)), vocab, tcfg, tmp)
+    for fused in (False, True):
+        tcfg.kernels.transformer_fused_beam_attn = fused
+        server = CaptionServer(VideoCaptionPredictor(pkg, config=tcfg, device="cpu"), port=0)
+        server.start()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/caption",
+                data=json.dumps({"features": x[0].tolist(), "method": "beam",
+                                 "beam_size": 3, "max_length": 6}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert isinstance(json.loads(resp.read())["caption"], str)
+        finally:
+            server.close()
 # A CPU training step on each encoder path, a save and a resume.
 rs = np.random.RandomState(0)
 batch = {"video_features": rs.randn(2, 10, 24).astype(np.float32),
@@ -221,11 +248,21 @@ def test_decode_kernel_flags_build_and_leave_training_unchanged(tiny_config, tmp
 def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 
-    for field, value in (("attention_type", "luong"), ("architecture", "transformer"),
-                         ("use_attention", False)):
+    for field, value in (("attention_type", "luong"), ("use_attention", False)):
         cfg = port(tiny_config)
         setattr(cfg.model, field, value)
         with pytest.raises(NotImplementedError, match="not ported"):
+            VideoCaptioningModel(cfg, 20)
+    # The transformer family builds; its bfloat16 cross keys/values and
+    # context parallelism do not.
+    for section, field, value in (("kernels", "transformer_cross_kv_bf16", True),
+                                  ("parallel", "context_axis", "model")):
+        cfg = port(tiny_config)
+        cfg.model.architecture = "transformer"
+        cfg.model.embedding_dim = cfg.model.decoder_hidden_dim
+        VideoCaptioningModel(cfg, 20)
+        setattr(getattr(cfg, section), field, value)
+        with pytest.raises(NotImplementedError, match=f"not ported.*{field}"):
             VideoCaptioningModel(cfg, 20)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         VideoCaptionPredictor(tmp_path / "m.pth", compute_dtype="bfloat16")

@@ -14,10 +14,14 @@ Every top-k here uses ``lax.top_k``'s tie order (ops.topk.topk_stable);
 the completed register is full of equal -1e9 entries whose slot order
 decides ``all_tokens``. The JAX loop stops when no beam in the whole batch
 is live (or at max_length). Here the loop runs max_length steps without a
-host sync and freezes the carry with ``torch.where(active, new, old)``
-once nothing is live, so the carry and the step count ``t_final`` are the
-JAX loop's. (With K >= 2 a live beam always proposes K - 1 candidates
-other than END, so only K = 1 can end early.)
+host sync and freezes every output of the carry with
+``torch.where(active, new, old)`` once nothing is live, so they and the
+step count ``t_final`` are the JAX loop's. The decode state is not frozen:
+once ``active`` is false it stays false, so a later state only feeds
+outputs that are thrown away (the transformer's caches are written in
+place, where a ``where`` would copy them whole). (With K >= 2 a live beam
+always proposes K - 1 candidates other than END, so only K = 1 can end
+early.)
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def beam_search_generate(
     L = max_length + 1
     kk = min(K, V)
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
-                                encoder_mask, num_beams=K)
+                                encoder_mask, num_beams=K, max_length=max_length)
     state = family.state0
     use_fused_vocab = fused_vocab_eligible(config, dev, B, K, V)
     if use_fused_vocab:  # once per call, outside the loop
@@ -96,14 +100,14 @@ def beam_search_generate(
     for t in range(max_length):
         active = (scores > NEG_INF / 2).any()
         if use_fused_vocab:
-            pre_vocab, new_state, _ = family.step_beam_core(last_tokens, state)
+            pre_vocab, new_state, _ = family.step_beam_core(last_tokens, state, t)
             top_logits, top_tokens, lse = vocab_topk_lse(pre_vocab, w_pad, b_pad, kk)
         elif config.kernels.use_pallas_topk:
-            logits, new_state, _ = family.step_beam(last_tokens, state)
+            logits, new_state, _ = family.step_beam(last_tokens, state, t)
             logits32 = logits.float().reshape(B * K, -1)
             top_logits, top_tokens, lse = topk2d_lse(logits32, kk)
         else:
-            logits, new_state, _ = family.step_beam(last_tokens, state)
+            logits, new_state, _ = family.step_beam(last_tokens, state, t)
             logits32 = logits.float().reshape(B * K, -1)
             top_logits, top_tokens = topk_stable(logits32, kk)
             row_max = top_logits[:, 0]
@@ -117,7 +121,7 @@ def beam_search_generate(
 
         gathered = torch.gather(sequences, 1, beam_idx[..., None].expand(B, K, L))
         new_sequences = torch.where(positions == t + 1, token_idx[..., None], gathered)
-        new_state = family.rebeam(new_state, beam_idx)
+        state = family.rebeam(new_state, beam_idx)
 
         is_end = token_idx == end_token_id
         gen_len = torch.tensor(float(t + 1), dtype=torch.float32, device=dev)
@@ -133,7 +137,6 @@ def beam_search_generate(
         last_tokens = torch.where(active, token_idx, last_tokens)
         sequences = torch.where(active, new_sequences, sequences)
         scores = torch.where(active, new_scores, scores)
-        state = tuple(torch.where(active, n, o) for n, o in zip(new_state, state))
         fin_seqs = torch.where(active, new_fin_seqs, fin_seqs)
         fin_scores = torch.where(active, new_fin_scores, fin_scores)
 

@@ -3,8 +3,9 @@
 Counterpart of video_captioning_tpu/generation/greedy.py. The JAX loop
 stops once every row has emitted END (or at max_length). Here the loop
 runs max_length steps and a step taken after that point changes nothing:
-the carry is frozen with ``torch.where(active, new, old)``, so the result
-is the JAX loop's, including PAD (0) in the positions it never reached.
+the outputs are frozen with ``torch.where(active, new, old)``, so the
+result is the JAX loop's, including PAD (0) in the positions it never
+reached. The decode state is not frozen (see generation/beam.py).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def greedy_generate(
     B, S, _ = encoder_outputs.shape
     dev = encoder_outputs.device
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
-                                encoder_mask, num_beams=1)
+                                encoder_mask, num_beams=1, max_length=max_length)
     state = family.state0
     tokens = torch.zeros((B, max_length), dtype=torch.int64, device=dev)
     weights = torch.zeros((B, max_length, S), dtype=encoder_outputs.dtype, device=dev)
@@ -46,13 +47,12 @@ def greedy_generate(
 
     for t in range(max_length):
         active = ~ended.all()
-        logits, new_state, w = family.step(input_tok, state)
+        logits, state, w = family.step(input_tok, state, t)
         if temperature != 1.0:
             logits = logits / temperature
         next_tok = torch.argmax(logits, dim=-1)
         tokens[:, t] = torch.where(active, next_tok, tokens[:, t])
         weights[:, t] = torch.where(active, w, weights[:, t])
-        state = tuple(torch.where(active, n, o) for n, o in zip(new_state, state))
         ended = torch.where(active, ended | (next_tok == end_token_id), ended)
         input_tok = torch.where(active, next_tok, input_tok)
 

@@ -1,8 +1,9 @@
 """Composed captioning model (encoder + decoder), ``encode`` and the
 teacher-forced ``apply_model``.
 
-Counterpart of video_captioning_tpu/models/captioner.py for the LSTM
-family. Configurations the port cannot run yet raise here, when the model
+Counterpart of video_captioning_tpu/models/captioner.py for both model
+families, dispatched on ``model.architecture`` in :func:`is_transformer`
+alone. Configurations the port cannot run yet raise here, when the model
 is built, rather than being ignored.
 """
 
@@ -15,22 +16,35 @@ from torch import nn
 
 from ..config import Config
 
+from . import transformer as transformer_mod
 from .decoder import Decoder, apply_decoder
 from .encoder import Encoder, apply_encoder
 
 Tensor = torch.Tensor
 
 
+def is_transformer(config: Config) -> bool:
+    return config.model.architecture == "transformer"
+
+
 def check_supported(config: Config) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise NotImplementedError for what the port does not run yet.
+
+    The transformer family reads none of the LSTM decoder's options; of its
+    own, ``transformer_cross_kv_bf16`` stores the cross keys and values in
+    bfloat16, which changes results on every backend, so it is refused
+    (the others: generation/families.py:_transformer_family)."""
     m, k = config.model, config.kernels
-    unsupported = [
-        (m.architecture != "lstm", f"architecture={m.architecture!r}"),
-        (not m.use_attention, "use_attention=False"),
-        (m.attention_type != "bahdanau", f"attention_type={m.attention_type!r}"),
-        (k.attention_score_bf16, "kernels.attention_score_bf16"),
-        (config.parallel.context_axis is not None, "parallel.context_axis"),
-    ]
+    if is_transformer(config):
+        unsupported = [(k.transformer_cross_kv_bf16, "kernels.transformer_cross_kv_bf16")]
+    else:
+        unsupported = [
+            (m.architecture != "lstm", f"architecture={m.architecture!r}"),
+            (not m.use_attention, "use_attention=False"),
+            (m.attention_type != "bahdanau", f"attention_type={m.attention_type!r}"),
+            (k.attention_score_bf16, "kernels.attention_score_bf16"),
+        ]
+    unsupported.append((config.parallel.context_axis is not None, "parallel.context_axis"))
     names = [name for bad, name in unsupported if bad]
     if names:
         raise NotImplementedError(
@@ -42,8 +56,12 @@ class VideoCaptioningModel(nn.Module):
     def __init__(self, config: Config, vocab_size: int):
         super().__init__()
         check_supported(config)
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config, vocab_size)
+        if is_transformer(config):
+            self.encoder = transformer_mod.TransformerEncoder(config)
+            self.decoder = transformer_mod.TransformerDecoder(config, vocab_size)
+        else:
+            self.encoder = Encoder(config)
+            self.decoder = Decoder(config, vocab_size)
 
 
 def encode(
@@ -57,8 +75,15 @@ def encode(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Returns (encoder_outputs, final_state, mask); the mask defaults to
     all frames valid."""
-    enc_outs, final = apply_encoder(model.encoder, config, video_features, video_mask,
-                                    train=train, generator=generator)
+    if is_transformer(config):
+        if train:
+            raise NotImplementedError("not ported to video_captioning_tpu_torch yet: "
+                                      "training the transformer family")
+        enc_outs, final = transformer_mod.apply_transformer_encoder(
+            model.encoder, config, video_features, video_mask)
+    else:
+        enc_outs, final = apply_encoder(model.encoder, config, video_features, video_mask,
+                                        train=train, generator=generator)
     if video_mask is None:
         video_mask = torch.ones(video_features.shape[:2], dtype=enc_outs.dtype,
                                 device=enc_outs.device)
@@ -79,8 +104,13 @@ def apply_model(
     ``encoder_outputs`` and ``attention_weights``."""
     enc_outs, final, mask = encode(model, config, video_features, video_mask,
                                    train=train, generator=generator)
-    dec_out = apply_decoder(model.decoder, config, enc_outs, final, input_tokens, mask,
-                            train=train, generator=generator)
+    if is_transformer(config):
+        # As in the JAX package, the decoder sees no mask when none was given.
+        dec_out = transformer_mod.apply_transformer_decoder(
+            model.decoder, config, enc_outs, input_tokens, None if video_mask is None else mask)
+    else:
+        dec_out = apply_decoder(model.decoder, config, enc_outs, final, input_tokens, mask,
+                                train=train, generator=generator)
     return {"logits": dec_out["logits"], "encoder_outputs": enc_outs,
             "attention_weights": dec_out["attention_weights"]}
 

@@ -15,6 +15,11 @@ Every inference package stores the JAX pytree as numpy arrays
 numpy seed with the distributions of the JAX package's ``init_model``
 (models/layers.py), so a package can be written where no JAX is installed.
 The random streams differ from JAX's; only the distributions match.
+
+The transformer family has no upstream torch model, so its names follow
+the JAX pytree paths (``decoder.blocks.0.cross_attn.wq.weight``), with a
+layer norm's ``scale`` as ``weight`` and the embedding ``table`` as
+``decoder.embedding.weight``.
 """
 
 from __future__ import annotations
@@ -47,8 +52,55 @@ def _lstm(out: Dict[str, Tensor], prefix: str, layer: int, p: Mapping, sfx: str 
     out[f"{prefix}.bias_hh_l{layer}{sfx}"] = _t(p["b_hh"])
 
 
+def _layer_norm(out: Dict[str, Tensor], prefix: str, p: Mapping) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+# Sub-modules of a transformer block, in the JAX pytree's names.
+_ENC_BLOCK = (("ln1", "ln"), ("self_attn", "attn"), ("ln2", "ln"), ("mlp", "mlp"))
+_DEC_BLOCK = (("ln1", "ln"), ("self_attn", "attn"), ("ln2", "ln"), ("cross_attn", "attn"),
+              ("ln3", "ln"), ("mlp", "mlp"))
+_LINEARS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("fc1", "fc2")}
+
+
+def _transformer_state_dict(params: Mapping, config: Config) -> Dict[str, Tensor]:
+    enc, dec = params["encoder"], params["decoder"]
+    m = config.model
+    if (len(enc["blocks"]), len(dec["blocks"])) != (m.transformer_num_layers,
+                                                   m.transformer_decoder_layers):
+        raise ValueError(
+            f"parameters hold {len(enc['blocks'])}+{len(dec['blocks'])} transformer blocks, "
+            f"the config {m.transformer_num_layers}+{m.transformer_decoder_layers}"
+        )
+    out: Dict[str, Tensor] = {}
+
+    def blocks(prefix: str, tree: Mapping, layout) -> None:
+        for i, blk in enumerate(tree["blocks"]):
+            for name, kind in layout:
+                sub = f"{prefix}.blocks.{i}.{name}"
+                if kind == "ln":
+                    _layer_norm(out, sub, blk[name])
+                else:
+                    for lin in _LINEARS[kind]:
+                        _linear(out, f"{sub}.{lin}", blk[name][lin])
+
+    _linear(out, "encoder.feature_projection", enc["feature_projection"])
+    out["encoder.pos_embedding"] = _t(enc["pos_embedding"])
+    blocks("encoder", enc, _ENC_BLOCK)
+    _layer_norm(out, "encoder.ln_f", enc["ln_f"])
+    out["decoder.embedding.weight"] = _t(dec["embedding"]["table"])
+    out["decoder.pos_embedding"] = _t(dec["pos_embedding"])
+    blocks("decoder", dec, _DEC_BLOCK)
+    _layer_norm(out, "decoder.ln_f", dec["ln_f"])
+    _linear(out, "decoder.output_projection", dec["output_projection"])
+    return out
+
+
 def state_dict_from_jax_params(params: Mapping, config: Config) -> Dict[str, Tensor]:
     """JAX pytree (numpy or jax arrays) -> the port's float32 state_dict."""
+    if config.model.architecture == "transformer":
+        return _transformer_state_dict(params, config)
     enc, dec = params["encoder"], params["decoder"]
     m = config.model
     if (len(enc["lstm"]), len(dec["lstm"])) != (m.encoder_num_layers, m.decoder_num_layers):
@@ -97,9 +149,45 @@ def _lstm_back(sd: Mapping[str, Tensor], prefix: str, layer: int, sfx: str = "")
             "b_ih": b("bias_ih"), "b_hh": b("bias_hh")}
 
 
+def _layer_norm_back(sd: Mapping[str, Tensor], prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]).copy(), "bias": _np(sd[f"{prefix}.bias"]).copy()}
+
+
+def _transformer_params(sd: Mapping[str, Tensor], config: Config) -> dict:
+    m = config.model
+
+    def blocks(prefix: str, n: int, layout) -> list:
+        out = []
+        for i in range(n):
+            blk = {}
+            for name, kind in layout:
+                sub = f"{prefix}.blocks.{i}.{name}"
+                blk[name] = (_layer_norm_back(sd, sub) if kind == "ln" else
+                             {lin: _linear_back(sd, f"{sub}.{lin}") for lin in _LINEARS[kind]})
+            out.append(blk)
+        return out
+
+    encoder = {
+        "feature_projection": _linear_back(sd, "encoder.feature_projection"),
+        "pos_embedding": _np(sd["encoder.pos_embedding"]).copy(),
+        "blocks": blocks("encoder", m.transformer_num_layers, _ENC_BLOCK),
+        "ln_f": _layer_norm_back(sd, "encoder.ln_f"),
+    }
+    decoder = {
+        "embedding": {"table": _np(sd["decoder.embedding.weight"]).copy()},
+        "pos_embedding": _np(sd["decoder.pos_embedding"]).copy(),
+        "blocks": blocks("decoder", m.transformer_decoder_layers, _DEC_BLOCK),
+        "ln_f": _layer_norm_back(sd, "decoder.ln_f"),
+        "output_projection": _linear_back(sd, "decoder.output_projection"),
+    }
+    return {"encoder": encoder, "decoder": decoder}
+
+
 def jax_params_from_state_dict(state_dict: Mapping[str, Tensor], config: Config) -> dict:
     """The port's state_dict -> the JAX parameter pytree as float32 numpy
     arrays; the exact inverse of :func:`state_dict_from_jax_params`."""
+    if config.model.architecture == "transformer":
+        return _transformer_params(state_dict, config)
     sd, m = state_dict, config.model
     encoder = {
         "feature_projection": _linear_back(sd, "encoder.feature_projection"),
@@ -169,13 +257,52 @@ def _lstm_orthogonal(rng, in_dim: int, hidden: int) -> dict:
             "b_hh": np.zeros((g4,), np.float32)}
 
 
-def init_params_numpy(config: Config, vocab_size: int, seed: int = 0) -> dict:
-    """JAX-layout parameter pytree of the LSTM family with Bahdanau
-    attention, drawn from ``np.random.default_rng(seed)``."""
+def _init_transformer(rng: np.random.Generator, config: Config, vocab_size: int) -> dict:
+    """``init_transformer``'s distributions: xavier-uniform attention, MLP
+    and vocabulary kernels with zero biases, 0.02 N(0, 1) position tables
+    and embedding, layer norms at one and zero, and the feature projection
+    as a torch-default linear."""
     m = config.model
-    if m.architecture != "lstm" or m.attention_type != "bahdanau" or not m.use_attention:
-        raise NotImplementedError("init_params_numpy covers the LSTM family with Bahdanau attention")
+    D, ratio = m.decoder_hidden_dim, m.transformer_mlp_ratio
+    sizes = {"attn": {n: (D, D) for n in _LINEARS["attn"]},
+             "mlp": {"fc1": (D, ratio * D), "fc2": (ratio * D, D)}}
+
+    def normal(*shape):
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def block(layout) -> dict:
+        return {name: ({"scale": np.ones((D,), np.float32), "bias": np.zeros((D,), np.float32)}
+                       if kind == "ln" else
+                       {lin: _xavier_linear(rng, *sizes[kind][lin]) for lin in _LINEARS[kind]})
+                for name, kind in layout}
+
+    ln_f = {"scale": np.ones((D,), np.float32), "bias": np.zeros((D,), np.float32)}
+    encoder = {
+        "feature_projection": _torch_linear(rng, m.cnn_feature_dim, D),
+        "pos_embedding": normal(m.video_sequence_length, D),
+        "blocks": [block(_ENC_BLOCK) for _ in range(m.transformer_num_layers)],
+        "ln_f": ln_f,
+    }
+    decoder = {
+        "embedding": {"table": normal(vocab_size, D)},
+        "pos_embedding": normal(m.max_sequence_length + 1, D),
+        "blocks": [block(_DEC_BLOCK) for _ in range(m.transformer_decoder_layers)],
+        "ln_f": {k: v.copy() for k, v in ln_f.items()},
+        "output_projection": _xavier_linear(rng, D, vocab_size),
+    }
+    return {"encoder": encoder, "decoder": decoder}
+
+
+def init_params_numpy(config: Config, vocab_size: int, seed: int = 0) -> dict:
+    """JAX-layout parameter pytree of the transformer family, or of the LSTM
+    family with Bahdanau attention, drawn from ``np.random.default_rng(seed)``."""
+    m = config.model
     rng = np.random.default_rng(seed)
+    if m.architecture == "transformer":
+        return _init_transformer(rng, config, vocab_size)
+    if m.architecture != "lstm" or m.attention_type != "bahdanau" or not m.use_attention:
+        raise NotImplementedError("init_params_numpy covers the transformer family and the "
+                                  "LSTM family with Bahdanau attention")
     F, E, D = m.cnn_feature_dim, m.encoder_hidden_dim, m.decoder_hidden_dim
     A, emb = m.attention_dim, m.embedding_dim
     encoder = {

@@ -24,6 +24,12 @@ from .topk import (  # noqa: F401
     topk2d_reference,
     topk_stable,
 )
+from .transformer_attn import (  # noqa: F401
+    beam_cross_attention,
+    beam_cross_attention_reference,
+    beam_self_attention,
+    beam_self_attention_reference,
+)
 from .vocab_topk import (  # noqa: F401
     pad_vocab_weights,
     vocab_topk_lse,
@@ -31,7 +37,8 @@ from .vocab_topk import (  # noqa: F401
 )
 
 KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd, topk2d,
-                   bahdanau_attend, lstm_cell_fused, vocab_topk_lse)
+                   bahdanau_attend, lstm_cell_fused, vocab_topk_lse, beam_self_attention,
+                   beam_cross_attention)
 
 
 def reset_launch_counts() -> None:

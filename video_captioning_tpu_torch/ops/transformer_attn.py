@@ -1,0 +1,208 @@
+"""The transformer family's beam-decode attention under
+``kernels.transformer_fused_beam_attn``.
+
+Counterpart of video_captioning_tpu/ops/transformer_attn_pallas.py:
+
+* ``beam_self_attention`` (q (B*K, D), this layer's time-major caches
+  ``k_lyr``/``v_lyr`` (T, B*K, D) with row t already written, the
+  ancestry ``anc`` (B, K, T) int32): beam k of clip b attends over the
+  physical rows (tau, b*K + anc[b, k, tau]) for tau <= t; returns the
+  context (B*K, D) before ``wo``.
+* ``beam_cross_attention`` (q (B*K, D), the un-expanded encoder keys and
+  values ``ck``/``cv`` (B, S, D), the frame mask (B, S) or None for all
+  valid): returns the context (B*K, D) and the softmax weights averaged
+  over the heads (B*K, S).
+
+q and the outputs are float32; the caches and cross keys/values may be
+float32 or bfloat16 (``kernels.transformer_cache_bf16``), and the softmax
+and sums are float32 either way. Masked scores are -1e9, not -inf, so a
+fully masked row gets uniform weights. On a CUDA tensor each wrapper
+launches its kernel in ``csrc/transformer_attn.cu``; on a CPU tensor it
+runs its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .build import check_launch, load_library
+
+Tensor = torch.Tensor
+
+MASK_FILL = -1e9
+MAX_BEAMS = 16
+MAX_HEAD_DIM = 128
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gather_beam_prefix(cache: Tensor, anc: Tensor, t: int) -> Tensor:
+    """Rows 0..t of a (T, B*K, D) physical-slot cache as each beam sees
+    them: out[tau, b*K + k] = cache[tau, b*K + anc[b, k, tau]]."""
+    B, K, _ = anc.shape
+    D = cache.shape[-1]
+    base = torch.arange(B, device=anc.device)[:, None, None] * K
+    rows = (base + anc[:, :, :t + 1].long()).permute(2, 0, 1).reshape(t + 1, B * K)
+    return torch.gather(cache[:t + 1], 1, rows[..., None].expand(t + 1, B * K, D))
+
+
+def beam_self_attention_reference(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor,
+                                  t: int, num_heads: int, num_beams: int) -> Tensor:
+    """Plain version: gather each beam's prefix, float32 scores, softmax
+    and context."""
+    N, D = q.shape
+    dh = D // num_heads
+    kh = gather_beam_prefix(k_lyr, anc, t).float().reshape(t + 1, N, num_heads, dh)
+    vh = gather_beam_prefix(v_lyr, anc, t).float().reshape(t + 1, N, num_heads, dh)
+    qh = q.float().reshape(N, num_heads, dh)
+    scores = torch.einsum("nhd,tnhd->nht", qh, kh) / math.sqrt(dh)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("nht,tnhd->nhd", w, vh).reshape(N, D).to(q.dtype)
+
+
+def beam_cross_attention_reference(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tensor],
+                                   num_heads: int, num_beams: int) -> Tuple[Tensor, Tensor]:
+    """Plain version: the K beams of a clip broadcast over its keys and
+    values; float32 masked softmax, context, and the head-mean weights."""
+    N, D = q.shape
+    B, S, _ = ck.shape
+    K, dh = num_beams, D // num_heads
+    qh = q.float().reshape(B, K, num_heads, dh)
+    kh = ck.float().reshape(B, S, num_heads, dh)
+    vh = cv.float().reshape(B, S, num_heads, dh)
+    scores = torch.einsum("bkhd,bshd->bkhs", qh, kh) / math.sqrt(dh)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :] > 0, scores,
+                             torch.full_like(scores, MASK_FILL))
+    w = torch.softmax(scores, dim=-1)  # (B, K, h, S)
+    ctx = torch.einsum("bkhs,bshd->bkhd", w, vh).reshape(N, D)
+    return ctx.to(q.dtype), w.mean(dim=2).reshape(N, S).to(q.dtype)
+
+
+def _check_common(what: str, q: Tensor, num_heads: int, num_beams: int,
+                  tensors: dict) -> None:
+    N, D = q.shape if q.dim() == 2 else (0, 0)
+    if q.dim() != 2 or q.dtype != torch.float32:
+        raise ValueError(f"{what} takes q (B*K, D) float32, got {q.dtype} {tuple(q.shape)}")
+    if not 1 <= num_beams <= MAX_BEAMS or N % num_beams:
+        raise ValueError(f"{what}: K = {num_beams} must be in [1, {MAX_BEAMS}] and divide "
+                         f"B*K = {N}")
+    if num_heads < 1 or D % num_heads or D // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: {num_heads} heads must divide D = {D} with a head width "
+                         f"of at most {MAX_HEAD_DIM}")
+    for name, x in {"q": q, **tensors}.items():
+        if x is None:
+            continue
+        if x.device != q.device:
+            raise ValueError(f"{what}: {name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what} takes a contiguous {name}")
+
+
+def _check_self(q, k_lyr, v_lyr, anc, t, num_heads, num_beams) -> None:
+    _check_common("beam_self_attention", q, num_heads, num_beams,
+                  {"k_lyr": k_lyr, "v_lyr": v_lyr, "anc": anc})
+    N, D = q.shape
+    T = k_lyr.shape[0] if k_lyr.dim() == 3 else 0
+    for name, c in (("k_lyr", k_lyr), ("v_lyr", v_lyr)):
+        if tuple(c.shape) != (T, N, D) or c.dtype not in CACHE_DTYPES or c.dtype != k_lyr.dtype:
+            raise ValueError(f"beam_self_attention takes {name} ({T}, {N}, {D}) float32 or "
+                             f"bfloat16 like k_lyr, got {c.dtype} {tuple(c.shape)}")
+    if tuple(anc.shape) != (N // num_beams, num_beams, T) or anc.dtype != torch.int32:
+        raise ValueError(f"beam_self_attention takes anc ({N // num_beams}, {num_beams}, {T}) "
+                         f"int32, got {anc.dtype} {tuple(anc.shape)}")
+    if not 0 <= t < T:
+        raise ValueError(f"beam_self_attention: t = {t} outside the cache's {T} rows")
+
+
+def _check_cross(q, ck, cv, mask, num_heads, num_beams) -> None:
+    _check_common("beam_cross_attention", q, num_heads, num_beams,
+                  {"ck": ck, "cv": cv, "mask": mask})
+    N, D = q.shape
+    B = N // num_beams
+    S = ck.shape[1] if ck.dim() == 3 else 0
+    for name, c in (("ck", ck), ("cv", cv)):
+        if tuple(c.shape) != (B, S, D) or c.dtype not in CACHE_DTYPES or c.dtype != ck.dtype:
+            raise ValueError(f"beam_cross_attention takes {name} ({B}, {S}, {D}) float32 or "
+                             f"bfloat16 like ck, got {c.dtype} {tuple(c.shape)}")
+    if mask is not None and (tuple(mask.shape) != (B, S) or mask.dtype != torch.float32):
+        raise ValueError(f"beam_cross_attention takes mask ({B}, {S}) float32, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = load_library("transformer_attn")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vct_beam_self_attention.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.vct_beam_self_attention.restype = i32
+    lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.vct_beam_cross_attention.restype = i32
+    return lib
+
+
+def _on_card(what: str, q: Tensor) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, got {q.device}")
+    return True
+
+
+def beam_self_attention(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor, t: int,
+                        num_heads: int, num_beams: int) -> Tensor:
+    """Context (B*K, D). CUDA: the kernel, on the current stream, no sync.
+    CPU: the plain version."""
+    _check_self(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
+    if not _on_card("beam_self_attention", q):
+        return beam_self_attention_reference(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
+    lib = _kernel_lib()
+    N, D = q.shape
+    ctx = torch.empty_like(q)
+    if N == 0:
+        return ctx
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vct_beam_self_attention(
+            q.data_ptr(), k_lyr.data_ptr(), v_lyr.data_ptr(), anc.data_ptr(), ctx.data_ptr(),
+            int(k_lyr.dtype == torch.bfloat16), N // num_beams, num_beams, num_heads, D,
+            k_lyr.shape[0], t, stream,
+        )
+    check_launch(lib, rc, "beam_self_attention")
+    beam_self_attention.launches += 1
+    return ctx
+
+
+def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tensor],
+                         num_heads: int, num_beams: int) -> Tuple[Tensor, Tensor]:
+    """Context (B*K, D) and head-mean weights (B*K, S). CUDA: the kernel
+    and its head-mean launch, on the current stream, no sync. CPU: the
+    plain version."""
+    _check_cross(q, ck, cv, mask, num_heads, num_beams)
+    if not _on_card("beam_cross_attention", q):
+        return beam_cross_attention_reference(q, ck, cv, mask, num_heads, num_beams)
+    lib = _kernel_lib()
+    N, D = q.shape
+    S = ck.shape[1]
+    ctx = torch.empty_like(q)
+    weights = torch.empty((N, S), dtype=torch.float32, device=q.device)
+    if N == 0 or S == 0:
+        return ctx, weights
+    per_head = torch.empty((N, num_heads, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vct_beam_cross_attention(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+            None if mask is None else mask.data_ptr(), ctx.data_ptr(), per_head.data_ptr(),
+            weights.data_ptr(), int(ck.dtype == torch.bfloat16), N // num_beams, num_beams,
+            num_heads, D, S, stream,
+        )
+    check_launch(lib, rc, "beam_cross_attention")
+    beam_cross_attention.launches += 1
+    return ctx, weights
+
+
+beam_self_attention.launches = 0
+beam_cross_attention.launches = 0

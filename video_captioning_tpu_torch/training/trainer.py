@@ -56,6 +56,7 @@ def check_trainable(config: Config) -> None:
     """Raise NotImplementedError for the training options not ported yet."""
     t, e, p = config.training, config.experiment, config.parallel
     unsupported = [
+        (config.model.architecture == "transformer", "training the transformer family"),
         (e.checkpoint_backend == "orbax", "experiment.checkpoint_backend='orbax'"),
         (e.profile_dir is not None, "experiment.profile_dir"),
         (e.use_wandb, "experiment.use_wandb"),
