@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing the final result line:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: the seven CUDA sources compiled with nvcc for sm_90a, one nvcc
+2. build: the ten CUDA sources compiled with nvcc for sm_90a, one nvcc
    each, all started together (ptxas report);
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes, with median times from CUDA events, each with its bound
@@ -63,7 +63,20 @@ exits non-zero without printing the final result line:
    the CPU with the plain versions (loss and every gradient compared), 10
    steps on one fixed batch that must lower the loss, and a one-off
    profile of one step at B = 32 and B = 128;
-7. a JSON line of the kernels, the nvidia-smi line, then the result line.
+7. the CNN backbones: ``fused_bottleneck`` at every stage's identity
+   block at B = 32 (float32; bfloat16 at stages 1 and 4), ``matmul_bias_act``
+   at stage 1's conv3 with its three epilogues and ``conv1x1`` at stride 2,
+   both int8 kernels at stage 1's 1x1 shapes and the last block's (exactly
+   equal to their plain versions), each also at small odd shapes; then the
+   extraction slice: ``cli.preprocess.VideoFeatureExtractor`` over 2 clips
+   of 80 seeded 224 x 224 frames (standing in for the OpenCV decoder) with
+   VGG16 and ResNet50 ``folded``, ``fused``, ``fused_s2d``, ``int8`` without
+   and with ``int8_conv1x1_pallas`` and ``fused`` in bfloat16, numpy-seeded
+   weights: launch counts read around each run, the first 4 frames held
+   against the CPU plain versions, one B = 32 forward timed, two profiled,
+   the dataset CSV written and one VGG16 clip captioned by the LSTM default
+   predictor;
+8. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -83,15 +96,32 @@ import numpy as np
 import torch
 
 from video_captioning_tpu_torch import Config, Vocabulary
+from video_captioning_tpu_torch.cli import preprocess as cli_preprocess
 from video_captioning_tpu_torch.cli import train as cli_train
+from video_captioning_tpu_torch.data import video as video_mod
 from video_captioning_tpu_torch.generation import beam as beam_mod
 from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 from video_captioning_tpu_torch.inference.server import CaptionServer
 from video_captioning_tpu_torch.models.attention import BahdanauAttention, attend
+from video_captioning_tpu_torch.models.backbones import FeatureExtractor
+from video_captioning_tpu_torch.models.backbones.resnet import _bottleneck_folded
+from video_captioning_tpu_torch.models.backbones.resnet_int8 import feature_error
 from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, apply_model, encode
 from video_captioning_tpu_torch.models.weights import init_params_numpy, state_dict_from_jax_params
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
+from video_captioning_tpu_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
+from video_captioning_tpu_torch.ops.conv1x1 import (
+    conv1x1,
+    matmul_bias_act,
+    matmul_bias_act_reference,
+)
+from video_captioning_tpu_torch.ops.int8_matmul import (
+    int8_matmul_requant,
+    int8_matmul_requant_reference,
+    int8_matmul_residual_requant,
+    int8_matmul_residual_requant_reference,
+)
 from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
 from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
@@ -161,13 +191,29 @@ VOCAB_RTOL = 1e-5
 # most 80 terms of O(1) values; bfloat16 caches are widened exactly on
 # both sides, so the same tolerance holds.
 BEAM_ATTN_ATOL = 1e-5
+# fused_bottleneck and matmul_bias_act: float32 sums of up to 9 * 512
+# products in different orders, held relative to the largest |output|; in
+# bfloat16 the kernel and the plain version round y1 and y2 from sums in
+# different orders, so a value can land one bf16 step (2^-8 relative) away
+# and carry through the next product: 1e-2 of the largest |output|.
+CNN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# The extraction slice, card against the CPU plain versions on the same
+# frames: float32 relative L2; the JAX bf16 contract (mean |d| / mean |f32|,
+# tests/test_backbones.py:436); int8 mean cosine (the JAX cross contract)
+# and int8 against folded float32 (cosine, relative L2; test_backbones.py
+# :461-462).
+FEAT_F32_REL_L2 = 1e-3
+FEAT_BF16_MEAN_REL = 0.15
+FEAT_INT8_COS = 0.995
+INT8_VS_F32 = (0.99, 0.12)
 KERNEL_SOURCES = ("topk_lse", "lstm_seq", "lstm_seq_train", "lstm_cell", "bahdanau_attend",
-                  "vocab_topk", "transformer_attn")
+                  "vocab_topk", "transformer_attn", "fused_bottleneck", "conv1x1", "int8_matmul")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor cores,
-# float32 outside the tensor cores.
+# float32 outside the tensor cores, int8 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
 
 
 def card_line() -> str:
@@ -604,6 +650,22 @@ def device_ms(fn, calls: int, keys: tuple) -> float:
     return total / 1e3 / calls
 
 
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device time per call: ``calls`` calls captured in a CUDA graph, its
+    replay timed with CUDA events (median of 5), so the host's launch path
+    (checks, ctypes) is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, calls=1) / calls
+
+
 def time_layers_ms(fn, layers: list, calls: int) -> float:
     """Per-call time of ``fn`` over inputs that alternate between
     ``layers`` (one input set per decoder layer, as the beam step calls
@@ -752,6 +814,382 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
               f"alternate ({card})")
         result["main"] = res
     return result["main"]
+
+
+# ---------------------------------------------------------------------------
+# The CNN backbones' kernels and the feature-extraction slice.
+
+# ResNet50's identity-block shapes (H = W, C, Cm) by stage.
+RESNET_STAGES = ((56, 256, 64), (28, 512, 128), (14, 1024, 256), (7, 2048, 512))
+
+
+def bottleneck_inputs(device: str, B: int, H: int, W: int, C: int, Cm: int,
+                      dtype: torch.dtype, seed: int):
+    """A block input after a ReLU and folded weights at He-normal scale."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def he(*shape, fan_in):
+        return torch.randn(shape, generator=g) * (2.0 / fan_in) ** 0.5
+
+    x = torch.randn((B, H, W, C), generator=g).abs()
+    ws = [he(Cm, C, fan_in=C), torch.randn(Cm, generator=g) * 0.1,
+          he(Cm, Cm, 3, 3, fan_in=9 * Cm), torch.randn(Cm, generator=g) * 0.1,
+          he(C, Cm, fan_in=Cm) * 0.2, torch.randn(C, generator=g) * 0.1]
+    ws = [w.to(dtype).to(device) for w in ws]
+    ws[2] = ws[2].contiguous(memory_format=torch.channels_last)
+    return x.to(dtype).to(device), ws
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def check_fused_bottleneck(device: str, card: str) -> dict:
+    """The fused block against its plain version at every stage's identity
+    block at B = 32 (float32; bfloat16 at stages 1 and 4) and at small odd
+    shapes; the library call is the unfused block through cuDNN (three
+    convs with their biases, the residual add and the ReLUs), TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    for (B, H, W, C, Cm), dtype in (((2, 5, 7, 24, 8), torch.float32),
+                                    ((1, 9, 9, 64, 16), torch.bfloat16),
+                                    ((3, 11, 4, 40, 12), torch.float32)):
+        x, ws = bottleneck_inputs(device, B, H, W, C, Cm, dtype, seed=40)
+        err = _rel_err(fused_bottleneck(x, *ws), fused_bottleneck_reference(x, *ws))
+        if not err <= CNN_RTOL[dtype]:
+            raise AssertionError(f"fused_bottleneck {(B, H, W, C, Cm)} {dtype}: err {err:.3g}")
+    print(f"[kernels] fused_bottleneck small odd shapes (2, 5, 7, 24 / 8), (1, 9, 9, 64 / 16) "
+          f"bf16, (3, 11, 4, 40 / 12): within {CNN_RTOL}")
+    result = {}
+    for stage, (H, C, Cm) in enumerate(RESNET_STAGES, start=1):
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and stage not in (1, 4):
+                continue
+            B = 32
+            x, ws = bottleneck_inputs(device, B, H, H, C, Cm, dtype, seed=41 + stage)
+            got = fused_bottleneck(x, *ws)
+            want = fused_bottleneck_reference(x, *ws)
+            torch.cuda.synchronize()
+            err = _rel_err(got, want)
+            if not err <= CNN_RTOL[dtype]:
+                raise AssertionError(f"fused_bottleneck stage {stage} {dtype}: max err over the "
+                                     f"largest |output| {err:.3g} > {CNN_RTOL[dtype]}")
+            ms = time_ms(lambda: fused_bottleneck(x, *ws), calls=10)
+            dev = graph_ms(lambda: fused_bottleneck(x, *ws))
+            plain_ms = time_ms(lambda: fused_bottleneck_reference(x, *ws), calls=5)
+            block = {"conv1": {"w": ws[0], "b": ws[1]}, "conv2": {"kernel": ws[2], "b": ws[3]},
+                     "conv3": {"w": ws[4], "b": ws[5]}}
+            xn = x.permute(0, 3, 1, 2)
+            lib_ms = time_ms(lambda: _bottleneck_folded(block, xn, 1, False), calls=10)
+            esize = x.element_size()
+            res = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev,
+                       **bound(nbytes=esize * (2 * x.numel() + sum(w.numel() for w in ws)),
+                               flops=2 * B * H * H * (2 * C * Cm + 9 * Cm * Cm),
+                               peak_flops=F32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+            print(f"[kernels] fused_bottleneck stage {stage} (B={B}, {H}x{H}, C={C}, Cm={Cm}) "
+                  f"{dtype}: max err over the largest |output| {err:.3g} (tol "
+                  f"{CNN_RTOL[dtype]}); kernel {ms:.4f} ms (device {dev:.4f} ms, CUDA graph), "
+                  f"plain {plain_ms:.4f} ms, cuDNN unfused block {lib_ms:.4f} ms, bound "
+                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+            result.setdefault("main", res)
+    return result["main"]
+
+
+def check_conv1x1(device: str, card: str) -> dict:
+    """matmul_bias_act against its plain version at stage 1's conv3 (M =
+    100352, K = 64, N = 256) with a residual, without one, and with
+    relu=False and a residual; conv1x1 at stride 2 (a stage-2 downsample);
+    a small odd shape in float32 and bfloat16."""
+    g = torch.Generator(device="cpu").manual_seed(50)
+
+    def inputs(M, K, N, dtype=torch.float32):
+        t = (torch.randn((M, K), generator=g), torch.randn((N, K), generator=g) / K ** 0.5,
+             torch.randn(N, generator=g) * 0.1, torch.randn((M, N), generator=g))
+        return tuple(a.to(dtype).to(device) for a in t)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b, r = inputs(37, 13, 9, dtype)
+        for res, relu in ((r, True), (None, True), (r, False)):
+            err = _rel_err(matmul_bias_act(x, w, b, res, relu=relu),
+                           matmul_bias_act_reference(x, w, b, res, relu=relu))
+            if not err <= CNN_RTOL[dtype]:
+                raise AssertionError(f"matmul_bias_act (37, 13, 9) {dtype}: err {err:.3g}")
+    x, w, b, r = inputs(100352, 64, 256)
+    result = None
+    for name, res, relu in (("residual + relu", r, True), ("relu", None, True),
+                            ("residual, relu=False", r, False)):
+        got = matmul_bias_act(x, w, b, res, relu=relu)
+        want = matmul_bias_act_reference(x, w, b, res, relu=relu)
+        torch.cuda.synchronize()
+        err = _rel_err(got, want)
+        if not err <= CNN_RTOL[torch.float32] or (not relu and not (got < 0).any()):
+            raise AssertionError(f"matmul_bias_act {name}: err {err:.3g}")
+        ms = time_ms(lambda: matmul_bias_act(x, w, b, res, relu=relu), calls=20)
+        plain_ms = time_ms(lambda: matmul_bias_act_reference(x, w, b, res, relu=relu), calls=20)
+        print(f"[kernels] matmul_bias_act (100352, 64) x (64, 256) {name} float32: max err over "
+              f"the largest |output| {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({card})")
+        if result is None:
+            M, K = x.shape
+            N = w.shape[0]
+            lib_ms = time_ms(lambda: torch.relu(torch.nn.functional.linear(x, w, b) + r),
+                             calls=20)
+            dev = graph_ms(lambda: matmul_bias_act(x, w, b, res, relu=relu))
+            result = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, device_ms=dev,
+                          **bound(nbytes=4 * (M * K + N * K + N + 2 * M * N),
+                                  flops=2 * M * K * N, peak_flops=F32_FLOPS))
+            print(f"[kernels] matmul_bias_act residual + relu: device {dev:.4f} ms (CUDA graph), "
+                  f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}), F.linear + add + "
+                  f"relu (a 3-call composite) {lib_ms:.4f} ms")
+    x4 = torch.randn((32, 56, 56, 256), generator=g).to(device)
+    w4, b4 = (torch.randn((512, 256), generator=g) / 16).to(device), torch.zeros(512, device=device)
+    got = conv1x1(x4, w4, b4, stride=2, relu=False)
+    want = matmul_bias_act_reference(x4[:, ::2, ::2].reshape(-1, 256), w4, b4, relu=False)
+    err = _rel_err(got.reshape(-1, 512), want)
+    if got.shape != (32, 28, 28, 512) or not err <= CNN_RTOL[torch.float32]:
+        raise AssertionError(f"conv1x1 stride 2: {tuple(got.shape)}, err {err:.3g}")
+    print(f"[kernels] conv1x1 stride 2 (32, 56, 56, 256) -> (32, 28, 28, 512): err {err:.3g}; "
+          f"small odd shape (37, 13, 9) float32 and bfloat16, three epilogues: within {CNN_RTOL}")
+    return result
+
+
+def int8_inputs(device: str, M: int, K: int, N: int, seed: int):
+    """Post-ReLU int8 activations, int8 weights, a per-channel scale that
+    puts y within the int8 range of s_out = 0.1, biases, an int8 identity."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xq = torch.randint(0, 128, (M, K), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+    scale = torch.rand(N, generator=g) * 4.0 / (64 * 73 * K ** 0.5)
+    bias = torch.randn(N, generator=g) * 0.5
+    idq = torch.randint(-127, 128, (M, N), generator=g, dtype=torch.int8)
+    return tuple(t.to(device) for t in (xq, wq, scale, bias, idq))
+
+
+def check_int8_matmul(device: str, card: str) -> tuple:
+    """Both int8 kernels against their plain versions, exactly equal: the
+    requant kernel at stage 1's conv1 (M = 100352, K = 256, N = 64) with
+    int8 and float32 out, the residual kernel at stage 1's conv3 (M =
+    100352, K = 64, N = 256) with int8 out and at the last block (M = 1568,
+    K = 512, N = 2048) with float32 out, each also at small odd shapes
+    (K = 13 takes the byte-load path)."""
+    s_out, s_id = 0.1, 0.03
+    for M, K, N in ((37, 13, 9), (70, 16, 72)):
+        xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=60)
+        for so in (s_out, None):
+            for relu in (True, False):
+                if not torch.equal(int8_matmul_requant(xq, wq, scale, bias, so, relu),
+                                   int8_matmul_requant_reference(xq, wq, scale, bias, so, relu)):
+                    raise AssertionError(f"int8_matmul_requant ({M}, {K}, {N}) s_out={so} "
+                                         f"relu={relu}: not equal")
+            if not torch.equal(int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, so),
+                               int8_matmul_residual_requant_reference(xq, wq, scale, bias, idq,
+                                                                      s_id, so)):
+                raise AssertionError(f"int8_matmul_residual_requant ({M}, {K}, {N}): not equal")
+    print("[kernels] int8 kernels at (37, 13, 9) and (70, 16, 72), int8 and float32 out, relu on "
+          "and off: equal to the plain versions")
+    out = {}
+    for name, M, K, N, so in (("requant", 100352, 256, 64, s_out),
+                              ("requant", 100352, 256, 64, None),
+                              ("residual", 100352, 64, 256, s_out),
+                              ("residual", 1568, 512, 2048, None)):
+        xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=61)
+        if name == "requant":
+            fn = lambda: int8_matmul_requant(xq, wq, scale, bias, so)  # noqa: E731
+            ref = lambda: int8_matmul_requant_reference(xq, wq, scale, bias, so)  # noqa: E731
+        else:
+            fn = lambda: int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, so)  # noqa
+            ref = lambda: int8_matmul_residual_requant_reference(  # noqa: E731
+                xq, wq, scale, bias, idq, s_id, so)
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            n_bad = (got != want).sum().item()
+            raise AssertionError(f"int8 {name} ({M}, {K}, {N}) s_out={so}: {n_bad} entries "
+                                 f"differ from the plain version")
+        share = ((got == 127) | (got == -127)).float().mean().item() if so else 0.0
+        ms = time_ms(fn, calls=20)
+        dev = graph_ms(fn)
+        plain_ms = time_ms(ref, calls=10)
+        lib_ms = time_ms(lambda: torch._int_mm(xq, wq.t()), calls=20)
+        res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev,
+                   **bound(nbytes=M * K + N * K + 8 * N + M * N * (1 if so else 4)
+                           + (M * N if name == "residual" else 0),
+                           flops=2 * M * K * N, peak_flops=INT8_OPS))
+        print(f"[kernels] int8_matmul_{name} ({M}, {K}) x ({K}, {N}) "
+              f"{'int8' if so else 'float32'} out: equal to the plain version (saturated share "
+              f"{share:.4f}); kernel {ms:.4f} ms (device {dev:.4f} ms, CUDA graph), plain "
+              f"{plain_ms:.4f} ms, torch._int_mm (no epilogue) {lib_ms:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+        out.setdefault(name, res)
+    return out["requant"], out["residual"]
+
+
+def extraction_variants() -> list:
+    """(label, model_type, variant, compute_dtype, int8_conv1x1_pallas) of
+    the extraction slice."""
+    return [("vgg16 xla", "vgg16", "xla", "float32", False),
+            ("resnet50 folded", "resnet50", "folded", "float32", False),
+            ("resnet50 fused", "resnet50", "fused", "float32", False),
+            ("resnet50 fused_s2d", "resnet50", "fused_s2d", "float32", False),
+            ("resnet50 int8", "resnet50", "int8", "float32", False),
+            ("resnet50 int8 + int8_conv1x1_pallas", "resnet50", "int8", "float32", True),
+            ("resnet50 fused bf16", "resnet50", "fused", "bfloat16", False)]
+
+
+def expected_cnn_launches(variant: str, flag: bool, forwards: int) -> dict:
+    """Launches of the CNN kernels a run of ``forwards`` B = 32 forwards
+    makes: 12 identity blocks a forward fused; 20 1x1 requant convs (16
+    conv1, 4 downsample-block conv3) and 12 residual conv3 with the int8
+    flag; none otherwise."""
+    want = {"fused_bottleneck": 0, "matmul_bias_act": 0, "int8_matmul_requant": 0,
+            "int8_matmul_residual_requant": 0}
+    if variant in ("fused", "fused_s2d"):
+        want["fused_bottleneck"] = 12 * forwards
+    if variant == "int8" and flag:
+        want["int8_matmul_requant"] = 20 * forwards
+        want["int8_matmul_residual_requant"] = 12 * forwards
+    return want
+
+
+def profile_extract(fx: FeatureExtractor, batch: torch.Tensor, label: str, card: str) -> dict:
+    """One-off, not a benchmark: torch.profiler over one B = 32 forward on
+    frames already on the card: device busy, idle share, largest items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fx.extract_tensor(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fx.extract_tensor(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[profile] {label}: one B={len(batch)} forward (one-off, not a benchmark; {card}): "
+          f"{wall_ms:.3f} ms wall under the profiler, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; top device time:")
+    for e in rows[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy}
+
+
+def run_extraction(card: str, device: str = "cuda", n_clips: int = 2, frames_per_video: int = 80,
+                   size: int = 224, batch_size: int = 32, cpu_frames: int = 4) -> dict:
+    """The feature-extraction slice: ``VideoFeatureExtractor`` over a
+    directory of ``n_clips`` clips (seeded uint8 frames stand in for the
+    decoder, which needs OpenCV) in every variant, launch counts read around
+    each run, the first ``cpu_frames`` frames held against a CPU run with
+    the plain versions, the .npy files and the dataset CSV checked, and one
+    VGG16 clip captioned by the LSTM default predictor."""
+    rng = np.random.default_rng(7)
+    frames = {f"clip{i}": rng.integers(0, 256, (frames_per_video, size, size, 3), np.uint8)
+              for i in range(n_clips)}
+    decode = video_mod.extract_frames
+    video_mod.extract_frames = lambda path, *a, **k: frames[Path(path).stem]
+    out = {"launches": {}, "forward_ms": {}}
+    feats = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            videos = Path(tmp) / "videos"
+            videos.mkdir()
+            for stem in frames:
+                (videos / f"{stem}.mp4").write_bytes(b"")
+            (Path(tmp) / "captions.txt").write_text(
+                "".join(f"caption of {stem}\n" for stem in sorted(frames)))
+            forwards = n_clips * -(-frames_per_video // batch_size)
+            for label, model_type, variant, dtype, flag in extraction_variants():
+                config = Config()
+                config.kernels.int8_conv1x1_pallas = flag
+                t0 = time.perf_counter()
+                vfe = cli_preprocess.VideoFeatureExtractor(
+                    model_type, batch_size=batch_size, frames_per_video=frames_per_video,
+                    img_size=(size, size), allow_random_init=True, num_workers=2,
+                    variant=variant, compute_dtype=dtype, device=device, config=config)
+                out_dir = Path(tmp) / label.replace(" ", "_")
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                written = vfe.process_video_directory(videos, out_dir, overwrite=True)
+                sync(device)
+                n = launch_counts()
+                wall = time.perf_counter() - t1
+                want = expected_cnn_launches(variant, flag, forwards)
+                got = {k: n[k] for k in want}
+                out["launches"][label] = got
+                if device == "cuda" and got != want:
+                    raise AssertionError(f"{label}: CNN kernel launches {got}, want {want}")
+                feats[label] = {p.stem: np.load(p) for p in written}
+                F_dim = vfe.backbone.feature_dim
+                for stem, f in feats[label].items():
+                    if f.shape != (frames_per_video, F_dim) or not np.isfinite(f).all():
+                        raise AssertionError(f"{label} {stem}: features {f.shape}, finite "
+                                             f"{np.isfinite(f).all()}")
+                batch = torch.from_numpy(frames["clip0"][:batch_size]).to(device)
+                if device == "cuda":
+                    out["forward_ms"][label] = time_ms(lambda: vfe.backbone.extract_tensor(batch),
+                                                       calls=3)
+                    if label in ("resnet50 fused", "resnet50 int8 + int8_conv1x1_pallas"):
+                        out.setdefault("profiles", {})[label] = profile_extract(
+                            vfe.backbone, batch, label, card)
+                # The first frames again on the CPU with the plain versions and
+                # the same weights (an int8 run loads the card's calibration).
+                kw = {}
+                if variant == "int8":
+                    kw["weights_path"] = Path(tmp) / f"{out_dir.name}.vcw.npz"
+                    vfe.backbone.save_int8(kw["weights_path"])
+                else:
+                    kw["allow_random_init"] = True
+                cpu = FeatureExtractor(model_type, config, batch_size=batch_size, variant=variant,
+                                       compute_dtype="float32" if dtype == "bfloat16" else dtype,
+                                       device="cpu", **kw)
+                ref = cpu.extract(frames["clip0"][:cpu_frames])
+                card_f = feats[label]["clip0"][:cpu_frames]
+                if variant == "int8":
+                    err = feature_error(ref, card_f)
+                    f32 = feats["resnet50 folded"]["clip0"][:cpu_frames]
+                    vs_f32 = feature_error(f32, card_f)
+                    ok = (err["mean_cosine"] > FEAT_INT8_COS
+                          and vs_f32["mean_cosine"] > INT8_VS_F32[0]
+                          and vs_f32["rel_l2"] < INT8_VS_F32[1])
+                    what = f"vs CPU int8 {err}; vs card folded float32 {vs_f32}"
+                elif dtype == "bfloat16":
+                    err = float(np.mean(np.abs(card_f - ref)) / np.mean(np.abs(ref)))
+                    ok, what = err < FEAT_BF16_MEAN_REL, f"mean |d| / mean |f32 CPU| {err:.4g}"
+                else:
+                    err = float(np.linalg.norm(card_f - ref) / np.linalg.norm(ref))
+                    ok, what = err <= FEAT_F32_REL_L2, f"relative L2 vs CPU {err:.3g}"
+                print(f"[extract] {label}: {len(written)} clips x ({frames_per_video}, {F_dim}) "
+                      f"in {wall:.2f} s wall on {device} (built in {t1 - t0:.1f} s; one call, not "
+                      f"a benchmark; {card}); launches {got}; first {cpu_frames} frames {what}; "
+                      f"one B={batch_size} forward "
+                      f"{out['forward_ms'].get(label, float('nan')):.3f} ms (CUDA events)")
+                if not ok:
+                    raise AssertionError(f"{label}: card vs CPU out of tolerance: {what}")
+            vgg_dir = Path(tmp) / "vgg16_xla"
+            csv_path = Path(tmp) / "dataset.csv"
+            cli_preprocess.create_dataset_csv(videos, vgg_dir, Path(tmp) / "captions.txt",
+                                              csv_path)
+            with open(csv_path, newline="") as f:
+                rows = list(csv.DictReader(f))
+            if len(rows) != n_clips or not all(r["caption"] for r in rows):
+                raise AssertionError(f"dataset CSV: {rows}")
+            # The new stage joined to the served path: one VGG16 clip's .npy
+            # captioned by the LSTM default predictor.
+            pkg = smoke_package(tmp, Config())
+            predictor = VideoCaptionPredictor(pkg, device=device)
+            res = predictor.predict_batch([np.load(vgg_dir / "clip0.npy")], method="beam",
+                                          beam_size=5)[0]
+            _check_caption(res, Config().model.vocab_size, "VGG16 clip caption")
+            print(f"[extract] dataset CSV {len(rows)} rows with captions; the LSTM default "
+                  f"predictor captioned clip0's VGG16 features: {res['caption'][:60]!r}...")
+    finally:
+        video_mod.extract_frames = decode
+    return out
 
 
 def smoke_package(directory: str, config: Config, seed: int = 0) -> str:
@@ -1208,7 +1646,12 @@ def main() -> int:
     tr = run_training(smi, config)
     check_step_parity(smi, config)
     check_overfit_and_profile(smi, config)
+    bottleneck = check_fused_bottleneck("cuda", smi)
+    mm = check_conv1x1("cuda", smi)
+    i8, i8_res = check_int8_matmul("cuda", smi)
+    ext = run_extraction(smi)
     launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr))
+                + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}
     kernels = []
     train_src = "video_captioning_tpu_torch/csrc/lstm_seq_train.cu"
@@ -1238,7 +1681,21 @@ def main() -> int:
         ("beam_cross_attention", "beam_cross_attention",
          "video_captioning_tpu_torch/csrc/transformer_attn.cu",
          "video_captioning_tpu/ops/transformer_attn_pallas.py:245", cross_attn),
+        ("fused_bottleneck", "fused_bottleneck",
+         "video_captioning_tpu_torch/csrc/fused_bottleneck.cu",
+         "video_captioning_tpu/ops/bottleneck_pallas.py:61", bottleneck),
+        # No caller on any path, in either package: launched by the kernel
+        # phase only, so its main-path count is 0.
+        ("matmul_bias_act", "matmul_bias_act", "video_captioning_tpu_torch/csrc/conv1x1.cu",
+         "video_captioning_tpu/ops/conv1x1_pallas.py:75", mm),
+        ("int8_matmul_requant", "int8_matmul_requant",
+         "video_captioning_tpu_torch/csrc/int8_matmul.cu",
+         "video_captioning_tpu/ops/int8_matmul_pallas.py:48", i8),
+        ("int8_matmul_residual_requant", "int8_matmul_residual_requant",
+         "video_captioning_tpu_torch/csrc/int8_matmul.cu",
+         "video_captioning_tpu/ops/int8_matmul_pallas.py:58", i8_res),
     ):
+        res = {k: v for k, v in res.items() if k != "device_ms"}
         kernels.append({"name": name_, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[counter], **res})
     print(json.dumps({"kernels": kernels}))

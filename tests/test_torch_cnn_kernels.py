@@ -1,0 +1,177 @@
+"""The CNN backbones' kernels in the port: each plain version against the
+JAX package's Pallas kernel run in interpret mode, on the same
+numpy-seeded inputs (the port's weights in torch's (out, in) layout, the
+JAX ones in theirs). The CUDA kernels are held against these plain
+versions on the card by chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from video_captioning_tpu.ops.bottleneck_pallas import fused_bottleneck as jax_fused_bottleneck
+from video_captioning_tpu.ops.conv1x1_pallas import conv1x1 as jax_conv1x1
+from video_captioning_tpu.ops.conv1x1_pallas import matmul_bias_act as jax_matmul_bias_act
+from video_captioning_tpu.ops.int8_matmul_pallas import (
+    int8_matmul_requant as jax_int8_requant,
+)
+from video_captioning_tpu.ops.int8_matmul_pallas import (
+    int8_matmul_residual_requant as jax_int8_residual,
+)
+from video_captioning_tpu_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
+from video_captioning_tpu_torch.ops.conv1x1 import (
+    conv1x1,
+    matmul_bias_act,
+    matmul_bias_act_reference,
+)
+from video_captioning_tpu_torch.ops.int8_matmul import (
+    int8_matmul_requant,
+    int8_matmul_residual_requant,
+)
+
+# int8 outputs: XLA fuses an FMA into the JAX epilogue where the port rounds
+# the product and the sum apart, so a value at a .5 requant boundary can
+# land one int8 step away; at most this share of entries may.
+INT8_OFF_BY_ONE_SHARE = 1e-3
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _bottleneck_case(B, H, W, C, Cm, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, H, W, C).astype(np.float32)
+    w1 = (rs.randn(C, Cm) * 0.1).astype(np.float32)
+    b1 = rs.randn(Cm).astype(np.float32)
+    w2 = (rs.randn(3, 3, Cm, Cm) * 0.05).astype(np.float32)  # HWIO
+    b2 = rs.randn(Cm).astype(np.float32)
+    w3 = (rs.randn(Cm, C) * 0.1).astype(np.float32)
+    b3 = rs.randn(C).astype(np.float32)
+    return x, (w1, b1, w2, b2, w3, b3)
+
+
+def _port_weights(ws, dtype):
+    w1, b1, w2, b2, w3, b3 = ws
+    w2 = _t(w2.transpose(3, 2, 0, 1), dtype).contiguous(memory_format=torch.channels_last)
+    return (_t(w1.T, dtype), _t(b1, dtype), w2, _t(b2, dtype), _t(w3.T, dtype), _t(b3, dtype))
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 14, 256, 64), (2, 7, 7, 1024, 256)],
+                         ids=["stage1_like", "stage4_like"])
+def test_fused_bottleneck_plain_version_matches_pallas(shape):
+    B, H, W, C, Cm = shape
+    x, ws = _bottleneck_case(B, H, W, C, Cm, seed=1)
+    want = np.asarray(jax_fused_bottleneck(jnp.asarray(x), *map(jnp.asarray, ws),
+                                           interpret=True))
+    got = fused_bottleneck(_t(x), *_port_weights(ws, torch.float32))
+    # float32 sums of up to 9 * Cm products in different orders: within 1e-5
+    # of the output's scale.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    # y1 outside the image is zero after the ReLU, not relu(b1): b1 is large
+    # and positive at the border here, so a relu(b1) halo would show.
+    assert (np.abs(want[:, 0]) > 0).any()
+
+
+def test_fused_bottleneck_bf16_within_one_ulp_of_the_output_scale():
+    x, ws = _bottleneck_case(2, 14, 14, 256, 64, seed=2)
+    bf = jnp.bfloat16
+    want = np.asarray(jax_fused_bottleneck(jnp.asarray(x, bf),
+                                           *(jnp.asarray(w, bf) for w in ws),
+                                           interpret=True).astype(jnp.float32))
+    got = fused_bottleneck(_t(x, torch.bfloat16), *_port_weights(ws, torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    # Both round y1 and y2 to bf16 from float32 sums taken in different
+    # orders; one bf16 ulp (2^-8 relative) of the largest output.
+    ulp = np.abs(want).max() * 2.0 ** -8
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=ulp)
+
+
+def test_fused_bottleneck_wrapper_checks_and_cpu_dispatch():
+    x, ws = _bottleneck_case(1, 4, 5, 16, 4, seed=3)
+    pw = _port_weights(ws, torch.float32)
+    assert torch.equal(fused_bottleneck(_t(x), *pw), fused_bottleneck_reference(_t(x), *pw))
+    assert fused_bottleneck.launches == 0
+    with pytest.raises(ValueError, match="channels_last"):
+        fused_bottleneck(_t(x), pw[0], pw[1], pw[2].contiguous(), *pw[3:])
+    with pytest.raises(ValueError):
+        fused_bottleneck(_t(x).double(), *pw)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_bottleneck(torch.empty((1, 4, 5, 16), device="meta"),
+                         *(w.to("meta") for w in pw))
+
+
+@pytest.mark.parametrize("epilogue", ["residual_relu", "relu", "residual_no_relu"])
+def test_matmul_bias_act_plain_version_matches_pallas(epilogue):
+    rs = np.random.RandomState(4)
+    x, w, b, r = (rs.randn(*s).astype(np.float32) for s in ((448, 96), (96, 64), (64,),
+                                                             (448, 64)))
+    residual = None if epilogue == "relu" else r
+    relu = epilogue != "residual_no_relu"
+    want = np.asarray(jax_matmul_bias_act(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        None if residual is None else jnp.asarray(residual), relu=relu, interpret=True))
+    got = matmul_bias_act(_t(x), _t(w.T), _t(b), None if residual is None else _t(residual),
+                          relu=relu)
+    if not relu:
+        assert want.min() < 0  # relu=False with a residual is honoured
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, matmul_bias_act_reference(
+        _t(x), _t(w.T), _t(b), None if residual is None else _t(residual), relu=relu))
+
+
+def test_conv1x1_stride2_plain_version_matches_pallas():
+    rs = np.random.RandomState(5)
+    x, w, b = (rs.randn(*s).astype(np.float32) for s in ((1, 56, 56, 32), (32, 64), (64,)))
+    want = np.asarray(jax_conv1x1(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), stride=2,
+                                  relu=False, interpret=True))
+    got = conv1x1(_t(x), _t(w.T), _t(b), stride=2, relu=False)
+    assert got.shape == (1, 28, 28, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # Shapes the TPU block rule refuses (M = 49) run here.
+    small = conv1x1(_t(x[:, :7, :7]), _t(w.T), _t(b))
+    assert small.shape == (1, 7, 7, 64)
+
+
+def _int8_case(M, K, N, seed):
+    rs = np.random.RandomState(seed)
+    xq = rs.randint(0, 128, (M, K)).astype(np.int8)
+    wq = rs.randint(-127, 128, (K, N)).astype(np.int8)
+    scale = (rs.rand(N) * 4.0 / (64 * 73 * np.sqrt(K))).astype(np.float32)
+    bias = (rs.randn(N) * 0.5).astype(np.float32)
+    idq = rs.randint(-127, 128, (M, N)).astype(np.int8)
+    return xq, wq, scale, bias, idq
+
+
+def _compare_int8(got: torch.Tensor, want: np.ndarray) -> None:
+    if want.dtype == np.int8:
+        assert got.dtype == torch.int8
+        diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1
+        assert (diff > 0).mean() <= INT8_OFF_BY_ONE_SHARE, (diff > 0).mean()
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s_out", [0.1, None], ids=["int8_out", "f32_out"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_int8_matmul_requant_plain_version_matches_pallas(s_out, relu):
+    xq, wq, scale, bias, _ = _int8_case(256, 64, 48, seed=6)
+    want = np.asarray(jax_int8_requant(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
+                                       jnp.asarray(bias), s_out=s_out, relu=relu,
+                                       interpret=True))
+    got = int8_matmul_requant(_t(xq, torch.int8), _t(wq.T, torch.int8), _t(scale), _t(bias),
+                              s_out=s_out, relu=relu)
+    _compare_int8(got, want)
+
+
+@pytest.mark.parametrize("s_out", [0.1, None], ids=["int8_out", "f32_out"])
+def test_int8_matmul_residual_requant_plain_version_matches_pallas(s_out):
+    xq, wq, scale, bias, idq = _int8_case(256, 64, 48, seed=7)
+    want = np.asarray(jax_int8_residual(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
+                                        jnp.asarray(bias), jnp.asarray(idq), 0.03,
+                                        s_out=s_out, interpret=True))
+    got = int8_matmul_residual_requant(_t(xq, torch.int8), _t(wq.T, torch.int8), _t(scale),
+                                       _t(bias), _t(idq, torch.int8), 0.03, s_out=s_out)
+    _compare_int8(got, want)

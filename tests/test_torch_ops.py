@@ -14,6 +14,14 @@ from video_captioning_tpu.ops.lstm_seq_pallas import lstm_seq_pallas
 from video_captioning_tpu.ops.topk_pallas import topk2d_lse_pallas
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
+from video_captioning_tpu_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
+from video_captioning_tpu_torch.ops.conv1x1 import matmul_bias_act, matmul_bias_act_reference
+from video_captioning_tpu_torch.ops.int8_matmul import (
+    int8_matmul_requant,
+    int8_matmul_requant_reference,
+    int8_matmul_residual_requant,
+    int8_matmul_residual_requant_reference,
+)
 from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
 from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
 from video_captioning_tpu_torch.ops.topk import (
@@ -153,10 +161,25 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     for a, b in zip(beam_cross_attention(q, ck, cv, None, 4, 2),
                     beam_cross_attention_reference(q, ck, cv, None, 4, 2)):
         assert torch.equal(a, b)
+    xb = torch.randn((1, 3, 4, 8), generator=g)
+    bw = [torch.randn(s, generator=g) for s in ((2, 8), (2,), (2, 2, 3, 3), (2,), (8, 2), (8,))]
+    bw[2] = bw[2].contiguous(memory_format=torch.channels_last)
+    assert torch.equal(fused_bottleneck(xb, *bw), fused_bottleneck_reference(xb, *bw))
+    wl, bl = layer["w_ih"], layer["b_ih"]
+    assert torch.equal(matmul_bias_act(xs, wl, bl), matmul_bias_act_reference(xs, wl, bl))
+    xq, wq = (torch.randint(-127, 128, s, generator=g, dtype=torch.int8) for s in ((5, 12), (4, 12)))
+    sc, bi = torch.rand((4,), generator=g), torch.randn((4,), generator=g)
+    assert torch.equal(int8_matmul_requant(xq, wq, sc, bi, 3.0),
+                       int8_matmul_requant_reference(xq, wq, sc, bi, 3.0))
+    idq = xq[:, :4].contiguous()
+    assert torch.equal(int8_matmul_residual_requant(xq, wq, sc, bi, idq, 0.5),
+                       int8_matmul_residual_requant_reference(xq, wq, sc, bi, idq, 0.5))
     assert launch_counts() == {"lstm_seq": 0, "topk2d_lse": 0, "lstm_seq_train_fwd": 0,
                                "lstm_seq_train_bwd": 0, "topk2d": 0, "bahdanau_attend": 0,
                                "lstm_cell_fused": 0, "vocab_topk_lse": 0,
-                               "beam_self_attention": 0, "beam_cross_attention": 0}
+                               "beam_self_attention": 0, "beam_cross_attention": 0,
+                               "fused_bottleneck": 0, "matmul_bias_act": 0,
+                               "int8_matmul_requant": 0, "int8_matmul_residual_requant": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -196,6 +196,24 @@ for interpret in (False, True):
         assert np.isfinite(float(trainer.train_step(batch)))
         trainer._save(0, {}, is_best=True)
         trainer.load_checkpoint(Path(tmp) / "best_model.pth")
+# Feature extraction: the int8 ResNet50 with the int8 1x1 kernels' flag
+# (their plain versions on the CPU), and cli.convert_weights on a state file.
+from video_captioning_tpu_torch.cli import convert_weights, preprocess  # noqa: F401
+from video_captioning_tpu_torch.models.backbones import FeatureExtractor
+from video_captioning_tpu_torch.models.weights import (backbone_state_dict_from_jax,
+                                                       init_backbone_params_numpy)
+fcfg = Config()
+fcfg.kernels.int8_conv1x1_pallas = True
+fx = FeatureExtractor("resnet50", fcfg, allow_random_init=True, variant="int8", batch_size=2,
+                      device="cpu")
+feats = fx.extract(np.random.RandomState(1).randint(0, 255, (2, 32, 32, 3), np.uint8))
+assert feats.shape == (2, 2048) and np.isfinite(feats).all()
+with tempfile.TemporaryDirectory() as tmp:
+    state = backbone_state_dict_from_jax(init_backbone_params_numpy("resnet50"), "resnet50")
+    np.savez(Path(tmp) / "state.npz", **{k: v.numpy() for k, v in state.items()})
+    convert_weights.main(["--input", str(Path(tmp) / "state.npz"), "--model-type", "resnet50",
+                          "--output", str(Path(tmp) / "r.vcw.npz")])
+    assert convert_weights.is_native(Path(tmp) / "r.vcw.npz")
 print("JAX_LOADED=" + str("jax" in sys.modules))
 print("JAX_PACKAGE_MODULES=" + ",".join(sorted(
     n for n in sys.modules if n == "video_captioning_tpu" or n.startswith("video_captioning_tpu."))))

@@ -329,3 +329,180 @@ def init_params_numpy(config: Config, vocab_size: int, seed: int = 0) -> dict:
     if E != D:
         decoder["init_state_projection"] = _torch_linear(rng, E, D)
     return {"encoder": encoder, "decoder": decoder}
+
+
+# --------------------------------------------------------------------------
+# CNN backbones: the JAX pytrees of models/backbones (numpy) <-> torchvision
+# state dicts (conv kernels HWIO <-> OIHW, linear (in, out) <-> (out, in),
+# BN scale / bias / mean / var <-> weight / bias / running_mean /
+# running_var). The inverse gives what the JAX package's load_torch_vgg16 /
+# load_torch_resnet50 give for the same state dict.
+# --------------------------------------------------------------------------
+
+
+def _conv_t(kernel) -> Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(kernel, np.float32)
+                                                 .transpose(3, 2, 0, 1)))
+
+
+def _bn_names(prefix: str) -> Dict[str, str]:
+    return {"scale": f"{prefix}.weight", "bias": f"{prefix}.bias",
+            "mean": f"{prefix}.running_mean", "var": f"{prefix}.running_var"}
+
+
+def _resnet_blocks():
+    from .backbones.resnet import BLOCKS_PER_STAGE
+
+    for s, n in enumerate(BLOCKS_PER_STAGE):
+        for b in range(n):
+            yield s, b, f"layer{s + 1}.{b}"
+
+
+_RESNET_CONVS = (("conv1", "bn1", "conv1", "bn1"), ("conv2", "bn2", "conv2", "bn2"),
+                 ("conv3", "bn3", "conv3", "bn3"),
+                 ("downsample_conv", "downsample_bn", "downsample.0", "downsample.1"))
+
+
+def backbone_state_dict_from_jax(params: Mapping, model_type: str) -> Dict[str, Tensor]:
+    """JAX backbone pytree (numpy or jax arrays) -> torchvision-named float32
+    state dict of ``VGG16`` / ``ResNet50``."""
+    out: Dict[str, Tensor] = {}
+    if model_type == "vgg16":
+        from .backbones.vgg import conv_feature_indices
+
+        for idx, p in zip(conv_feature_indices(), params["convs"]):
+            out[f"features.{idx}.weight"] = _conv_t(p["kernel"])
+            out[f"features.{idx}.bias"] = _t(p["bias"])
+        _linear(out, "classifier.0", params["fc6"])
+        _linear(out, "classifier.3", params["fc7"])
+        return out
+    if model_type != "resnet50":
+        raise ValueError(f"Unsupported model type: {model_type}")
+
+    def conv_bn(conv_name, bn_name, conv, bn):
+        out[f"{conv_name}.weight"] = _conv_t(conv["kernel"])
+        for key, name in _bn_names(bn_name).items():
+            out[name] = _t(bn[key])
+
+    conv_bn("conv1", "bn1", params["conv1"], params["bn1"])
+    for s, b, prefix in _resnet_blocks():
+        block = params["stages"][s][b]
+        for conv, bn, tconv, tbn in _RESNET_CONVS:
+            if conv in block:
+                conv_bn(f"{prefix}.{tconv}", f"{prefix}.{tbn}", block[conv], block[bn])
+    return out
+
+
+def jax_backbone_params_from_state_dict(state: Mapping, model_type: str) -> dict:
+    """torchvision state dict (tensors or numpy) -> the JAX backbone pytree
+    as float32 numpy arrays; extra entries (fc8, num_batches_tracked) are
+    ignored."""
+    def arr(name):
+        v = state[name]
+        return (v.detach().cpu().float().numpy() if isinstance(v, Tensor)
+                else np.asarray(v, np.float32)).copy()
+
+    def conv(name):
+        return {"kernel": np.ascontiguousarray(arr(f"{name}.weight").transpose(2, 3, 1, 0))}
+
+    if model_type == "vgg16":
+        from .backbones.vgg import conv_feature_indices
+
+        def fc(prefix):
+            return {"kernel": np.ascontiguousarray(arr(f"{prefix}.weight").T),
+                    "bias": arr(f"{prefix}.bias")}
+
+        return {"convs": [{**conv(f"features.{i}"), "bias": arr(f"features.{i}.bias")}
+                          for i in conv_feature_indices()],
+                "fc6": fc("classifier.0"), "fc7": fc("classifier.3")}
+    if model_type != "resnet50":
+        raise ValueError(f"Unsupported model type: {model_type}")
+
+    def bn(name):
+        return {key: arr(tname) for key, tname in _bn_names(name).items()}
+
+    params: dict = {"conv1": conv("conv1"), "bn1": bn("bn1"), "stages": []}
+    for s, b, prefix in _resnet_blocks():
+        if b == 0:
+            params["stages"].append([])
+        block = {}
+        for cname, bname, tconv, tbn in _RESNET_CONVS:
+            if f"{prefix}.{tconv}.weight" in state:
+                block[cname], block[bname] = conv(f"{prefix}.{tconv}"), bn(f"{prefix}.{tbn}")
+        params["stages"][s].append(block)
+    return params
+
+
+def load_backbone_state(model: torch.nn.Module, state: Mapping) -> None:
+    """Load a torchvision-named state dict (tensors or numpy arrays) into
+    ``VGG16`` / ``ResNet50``, ignoring the entries the extractor has no use
+    for (fc8, ``num_batches_tracked``); a missing parameter raises."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in state and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"state dict lacks {len(missing)} backbone entries, e.g. {missing[:3]}")
+    model.load_state_dict({k: torch.as_tensor(state[k]) for k in own if k in state},
+                          strict=False)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a tree of dicts and lists (other
+    leaves, such as Python floats, are kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, Tensor) else tree
+
+
+def init_backbone_params_numpy(model_type: str, seed: int = 0) -> dict:
+    """JAX-layout backbone pytree from ``np.random.default_rng(seed)``: the
+    JAX package's init distributions (torch-default uniform convs and fc
+    layers for VGG16; He-normal fan-out convs for ResNet50), with ResNet50's
+    BN statistics randomized so that folding is not the identity."""
+    rng = np.random.default_rng(seed)
+    if model_type == "vgg16":
+        from .backbones.vgg import VGG16_PLAN
+
+        def uniform(shape, fan_in):  # float32 draws: fc6 alone is 102.8M values
+            return (rng.random(shape, dtype=np.float32) * 2 - 1) / np.float32(math.sqrt(fan_in))
+
+        convs, cin = [], 3
+        for item in VGG16_PLAN:
+            if item == "M":
+                continue
+            convs.append({"kernel": uniform((3, 3, cin, item), 9 * cin),
+                          "bias": uniform((item,), 9 * cin)})
+            cin = item
+        return {"convs": convs,
+                **{name: {"kernel": uniform((cin_, cout), cin_), "bias": uniform((cout,), cin_)}
+                   for name, cin_, cout in (("fc6", 512 * 7 * 7, 4096), ("fc7", 4096, 4096))}}
+    if model_type != "resnet50":
+        raise ValueError(f"Unsupported model type: {model_type}")
+    from .backbones.resnet import BLOCKS_PER_STAGE, EXPANSION, STAGE_WIDTH
+
+    def conv(k, cin, cout):
+        std = math.sqrt(2.0 / (k * k * cout))
+        return {"kernel": (rng.standard_normal((k, k, cin, cout)) * std).astype(np.float32)}
+
+    def bn(c):
+        return {"scale": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                "bias": (0.05 * rng.standard_normal(c)).astype(np.float32),
+                "mean": (0.05 * rng.standard_normal(c)).astype(np.float32),
+                "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+    params: dict = {"conv1": conv(7, 3, 64), "bn1": bn(64), "stages": []}
+    cin = 64
+    for n, width in zip(BLOCKS_PER_STAGE, STAGE_WIDTH):
+        blocks = []
+        for b in range(n):
+            cout = width * EXPANSION
+            block = {"conv1": conv(1, cin, width), "bn1": bn(width),
+                     "conv2": conv(3, width, width), "bn2": bn(width),
+                     "conv3": conv(1, width, cout), "bn3": bn(cout)}
+            if b == 0:
+                block["downsample_conv"], block["downsample_bn"] = conv(1, cin, cout), bn(cout)
+            blocks.append(block)
+            cin = cout
+        params["stages"].append(blocks)
+    return params

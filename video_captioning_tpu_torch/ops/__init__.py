@@ -8,6 +8,14 @@ went through the kernels.
 from typing import Dict
 
 from .attention import bahdanau_attend, bahdanau_attend_reference  # noqa: F401
+from .bottleneck import fused_bottleneck, fused_bottleneck_reference  # noqa: F401
+from .conv1x1 import conv1x1, matmul_bias_act, matmul_bias_act_reference  # noqa: F401
+from .int8_matmul import (  # noqa: F401
+    int8_matmul_requant,
+    int8_matmul_requant_reference,
+    int8_matmul_residual_requant,
+    int8_matmul_residual_requant_reference,
+)
 from .lstm_cell import lstm_cell_fused, lstm_cell_reference  # noqa: F401
 from .lstm_seq import lstm_seq, lstm_seq_reference  # noqa: F401
 from .lstm_seq_train import (  # noqa: F401
@@ -38,7 +46,8 @@ from .vocab_topk import (  # noqa: F401
 
 KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd, topk2d,
                    bahdanau_attend, lstm_cell_fused, vocab_topk_lse, beam_self_attention,
-                   beam_cross_attention)
+                   beam_cross_attention, fused_bottleneck, matmul_bias_act, int8_matmul_requant,
+                   int8_matmul_residual_requant)
 
 
 def reset_launch_counts() -> None:
