@@ -16,7 +16,12 @@ exits non-zero without printing the final result line:
    ``topk2d_lse`` and ``topk2d`` at (640, 10000), k = 5 and 16, with
    crafted ties, a constant row, a -inf tail and an all -inf row (values
    and indices exactly equal, lse within 1e-5 relative), ``lstm_seq`` at
-   (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths,
+   (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths
+   (also its graph-replay device time, and at T = 1 and T = 80 for the
+   fixed cost and the cost a step), then ``lstm_seq`` (both xproj types)
+   and both ``lstm_seq_train`` launches at 12 small odd shapes (T in
+   (1, 5), B in (1, 3, 37), H in (40, 600), a length-1 row), every LSTM
+   kernel launched twice on the same inputs and required bitwise equal,
    ``lstm_cell`` at N = 640 (In = 1024 and 512) and N = 128,
    ``bahdanau_attend`` at B = 128, S = 80, D = A = E = 512 with a ragged
    mask and an all-masked row, ``vocab_topk_lse`` at (640, 512) x
@@ -51,7 +56,10 @@ exits non-zero without printing the final result line:
    agreement must be at least 0.95;
 5. ``lstm_seq_train``'s forward (outputs, final state, the three
    residuals) and backward (dxproj, dW_hh, random cotangents) against
-   their plain versions at (80, 2, 32, 2048) and (80, 2, 128, 2048);
+   their plain versions at (80, 2, 32, 2048) and (80, 2, 128, 2048), each
+   launched twice and required bitwise equal, with CUDA-event and
+   graph-replay times, T = 1 against T = 80, and the backward's sweep and
+   dW_hh launches timed apart by the profiler;
 6. the training slice at full width (``Config()``, batch 32, label
    smoothing 0.1, Adam, clip 5): 96 synthetic clips and a CSV with a
    10000-word vocabulary, ``cli.train.main`` for 2 epochs on the card with
@@ -307,8 +315,8 @@ def check_topk(device: str, card: str) -> dict:
     return result["main"]
 
 
-def lstm_inputs(device: str, dtype: torch.dtype, T=80, ND=2, B=128, H=512):
-    g = torch.Generator(device="cpu").manual_seed(1)
+def lstm_inputs(device: str, dtype: torch.dtype, T=80, ND=2, B=128, H=512, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     xproj = (torch.randn((T, ND, B, 4 * H), generator=g) * 0.5).to(dtype)
     w = ((torch.rand((ND, H, 4 * H), generator=g) * 2 - 1) / H ** 0.5).to(torch.bfloat16)
     lengths = torch.randint(1, T + 1, (B,), generator=g)
@@ -317,12 +325,29 @@ def lstm_inputs(device: str, dtype: torch.dtype, T=80, ND=2, B=128, H=512):
     return xproj.to(device), w.to(device), mask.to(device)
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns, for bitwise comparison."""
+    return x.contiguous().view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def graph_step_ms(fn_of_T, T_long: int = 80) -> dict:
+    """Device time (graph_ms) of a launch at T = 1 and at T = T_long: the
+    fixed cost, and the cost of each further step."""
+    t1, tl = graph_ms(fn_of_T(1), calls=10), graph_ms(fn_of_T(T_long), calls=3)
+    return {"T1_graph_ms": t1, f"T{T_long}_graph_ms": tl, "step_us": (tl - t1) / (T_long - 1) * 1e3}
+
+
 def check_lstm(device: str, card: str) -> dict:
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
         xproj, w, mask = lstm_inputs(device, dtype)
         got = lstm_seq(xproj, w, mask)
         want = lstm_seq_reference(xproj, w, mask)
+        again = lstm_seq(xproj, w, mask)
         torch.cuda.synchronize()
         pairs = [(got[0], want[0]), (got[1][0], want[1][0]), (got[1][1], want[1][1])]
         err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
@@ -330,23 +355,100 @@ def check_lstm(device: str, card: str) -> dict:
         if err > LSTM_ATOL[dtype] or bool((got[0][pad] != 0).any()):
             raise AssertionError(f"lstm_seq {dtype}: max abs err {err:.3g} > "
                                  f"{LSTM_ATOL[dtype]} or a padded step emitted nonzero")
+        if not same_bits((got[0], *got[1]), (again[0], *again[1])):
+            raise AssertionError(f"lstm_seq {dtype}: two launches on the same inputs differ")
         ms = time_ms(lambda: lstm_seq(xproj, w, mask), calls=10)
+        dev_ms = graph_ms(lambda: lstm_seq(xproj, w, mask))
         plain_ms = time_ms(lambda: lstm_seq_reference(xproj, w, mask), calls=3)
         print(f"[kernels] lstm_seq (80, 2, 128, 2048) {dtype}: max abs err {err:.3g} "
-              f"(tol {LSTM_ATOL[dtype]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+              f"(tol {LSTM_ATOL[dtype]}), two launches bitwise equal; kernel {ms:.4f} ms "
+              f"(graph {dev_ms:.4f} ms), plain {plain_ms:.4f} ms ({card})")
         if "main" not in result:
             T, ND, B, H4 = xproj.shape
             act = T * ND * B * H4 // 4
             lstm, x = cudnn_lstm(B, device, T=T, H=H4 // 4)
             with torch.no_grad():
                 lib_ms = time_ms(lambda: lstm(x), calls=10)
+            def seq_call(n):
+                x_n, m_n = xproj[:n], mask[:, :n].contiguous()
+                return lambda: lstm_seq(x_n, w, m_n)
+
+            steps = graph_step_ms(seq_call)
             result["main"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  graph_ms=dev_ms, **steps,
                                   **bound(nbytes=4 * (4 * act + B * T + act + 2 * ND * B * H4 // 4)
                                           + 2 * ND * H4 // 4 * H4,
                                           flops=2 * act * H4, peak_flops=BF16_FLOPS))
             print(f"[kernels] lstm_seq: bound {result['main']['bound_ms']:.4f} ms "
-                  f"({result['main']['bound_by']}), cuDNN LSTM forward {lib_ms:.4f} ms")
+                  f"({result['main']['bound_by']}), cuDNN LSTM forward {lib_ms:.4f} ms; "
+                  f"graph T=1 {steps['T1_graph_ms']:.4f} ms, T=80 {steps['T80_graph_ms']:.4f} "
+                  f"ms: {steps['step_us']:.3f} us a step ({card})")
     return result["main"]
+
+
+# Small odd shapes the kernels' tiling must take: B not a multiple of the
+# row chunks, H = 40 (not a multiple of 16 or 32) and H = 600 (the largest),
+# T = 1 (no recurrent product) and 5; a ragged mask whose last row has
+# length 1 (row 0 full).
+LSTM_EDGE_SHAPES = tuple((T, B, H) for T in (1, 5) for B in (1, 3, 37) for H in (40, 600))
+
+
+def lstm_edge_inputs(device: str, dtype: torch.dtype, T: int, B: int, H: int):
+    xproj, w, mask = lstm_inputs(device, dtype, T=T, B=B, H=H, seed=T * 1000 + B * 10 + H)
+    mask[-1] = 0.0
+    mask[-1, 0] = 1.0  # a length-1 row (the only row at B = 1)
+    return xproj, w, mask
+
+
+def check_lstm_edges(device: str, card: str) -> None:
+    """``lstm_seq`` (float32 and bfloat16 xproj) and both ``lstm_seq_train``
+    launches against their plain versions at LSTM_EDGE_SHAPES, each
+    launched twice and required bitwise equal, with the main shapes'
+    tolerances."""
+    worst = {"lstm_seq": 0.0, "train_fwd": 0.0, "train_bwd": 0.0}
+    for T, B, H in LSTM_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xproj, w, mask = lstm_edge_inputs(device, dtype, T, B, H)
+            got = lstm_seq(xproj, w, mask)
+            again = lstm_seq(xproj, w, mask)
+            want = lstm_seq_reference(xproj, w, mask)
+            sync(device)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip((got[0], *got[1]), (want[0], *want[1])))
+            if err > LSTM_ATOL[dtype] or not same_bits((got[0], *got[1]), (again[0], *again[1])):
+                raise AssertionError(f"lstm_seq {dtype} T={T} B={B} H={H}: max abs err "
+                                     f"{err:.3g} (tol {LSTM_ATOL[dtype]}) or two launches differ")
+            worst["lstm_seq"] = max(worst["lstm_seq"], err)
+        xproj, w, mask = lstm_edge_inputs(device, torch.float32, T, B, H)
+        got = lstm_seq_train_fwd(xproj, w, mask)
+        again = lstm_seq_train_fwd(xproj, w, mask)
+        want = lstm_seq_train_fwd_reference(xproj, w, mask)
+        sync(device)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        if err > LSTM_TRAIN_FWD_ATOL or not same_bits(got, again):
+            raise AssertionError(f"lstm_seq_train_fwd T={T} B={B} H={H}: max abs err {err:.3g} "
+                                 f"(tol {LSTM_TRAIN_FWD_ATOL}) or two launches differ")
+        worst["train_fwd"] = max(worst["train_fwd"], err)
+        g = torch.Generator(device="cpu").manual_seed(3)
+        douts = torch.randn((T, 2, B, H), generator=g).to(device)
+        dh_last, dc_last = (torch.randn((2, B, H), generator=g).to(device) for _ in range(2))
+        res = want[3:]
+        bgot = lstm_seq_train_bwd(*res, w, mask, douts, dh_last, dc_last)
+        bagain = lstm_seq_train_bwd(*res, w, mask, douts, dh_last, dc_last)
+        bwant = lstm_seq_train_bwd_reference(*res, w, mask, douts, dh_last, dc_last)
+        sync(device)
+        # dW_hh is all zeros at T = 1 (h_prev = 0): held absolutely there.
+        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1.0 if T == 1 else 0.0)).item()
+                  for a, b in zip(bgot, bwant))
+        if rel > LSTM_TRAIN_BWD_RTOL or not same_bits(bgot, bagain):
+            raise AssertionError(f"lstm_seq_train_bwd T={T} B={B} H={H}: max err relative to "
+                                 f"the largest value {rel:.3g} (tol {LSTM_TRAIN_BWD_RTOL}) or "
+                                 f"two launches differ")
+        worst["train_bwd"] = max(worst["train_bwd"], rel)
+    print(f"[kernels] lstm_seq and lstm_seq_train at {len(LSTM_EDGE_SHAPES)} odd shapes "
+          f"(T in (1, 5), B in (1, 3, 37), H in (40, 600), a length-1 row): worst errors "
+          f"{worst} (lstm_seq abs, fwd abs, bwd relative to the largest value), every kernel "
+          f"launched twice bitwise equal ({card})")
 
 
 def cudnn_lstm(B: int, device: str, T=80, H=512):
@@ -362,10 +464,13 @@ def cudnn_lstm(B: int, device: str, T=80, H=512):
 def check_lstm_train(device: str, card: str, B: int) -> dict:
     """Forward (outputs, final state, the three residuals) and backward
     (dxproj, dW_hh, with random cotangents) against the plain versions on
-    the card, float32 xproj, ragged mask."""
+    the card, float32 xproj, ragged mask; each launched twice and required
+    bitwise equal. Times: CUDA events, graph replay, the sweep and dW_hh
+    launches apart (profiler), T = 1 against T = 80."""
     T, ND, H = 80, 2, 512
     xproj, w, mask = lstm_inputs(device, torch.float32, T=T, ND=ND, B=B, H=H)
     got = lstm_seq_train_fwd(xproj, w, mask)
+    again = lstm_seq_train_fwd(xproj, w, mask)
     want = lstm_seq_train_fwd_reference(xproj, w, mask)
     torch.cuda.synchronize()
     names = ("outs", "h_last", "c_last", "gact", "h_keep", "c_keep")
@@ -373,11 +478,24 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     if max(fwd_err.values()) > LSTM_TRAIN_FWD_ATOL:
         raise AssertionError(f"lstm_seq_train_fwd B={B}: max abs err {fwd_err} > "
                              f"{LSTM_TRAIN_FWD_ATOL}")
+    if not same_bits(got, again):
+        raise AssertionError(f"lstm_seq_train_fwd B={B}: two launches on the same inputs differ")
     g = torch.Generator(device="cpu").manual_seed(2)
     douts = torch.randn((T, ND, B, H), generator=g).to(device)
     dh_last, dc_last = (torch.randn((ND, B, H), generator=g).to(device) for _ in range(2))
     res = want[3:]  # both sides read the same residuals
-    bgot = lstm_seq_train_bwd(*res[:3], w, mask, douts, dh_last, dc_last)
+
+    def fwd_call(n):
+        x_n, m_n = xproj[:n], mask[:, :n].contiguous()
+        return lambda: lstm_seq_train_fwd(x_n, w, m_n)
+
+    def bwd_call(n):
+        r_n, m_n = [r[:n] for r in res], mask[:, :n].contiguous()
+        return lambda: lstm_seq_train_bwd(*r_n, w, m_n, douts[:n], dh_last, dc_last)
+
+    fwd, bwd = fwd_call(T), bwd_call(T)
+    bgot = bwd()
+    bagain = bwd()
     bwant = lstm_seq_train_bwd_reference(*res[:3], w, mask, douts, dh_last, dc_last)
     torch.cuda.synchronize()
     bwd_err = {}
@@ -386,14 +504,21 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     if max(bwd_err.values()) > LSTM_TRAIN_BWD_RTOL:
         raise AssertionError(f"lstm_seq_train_bwd B={B}: max err relative to the largest "
                              f"value {bwd_err} > {LSTM_TRAIN_BWD_RTOL}")
+    if not same_bits(bgot, bagain):
+        raise AssertionError(f"lstm_seq_train_bwd B={B}: two launches on the same inputs differ")
     out = {"fwd": dict(max_abs_err=max(fwd_err.values())),
            "bwd": dict(max_abs_err=max((a - b).abs().max().item()
                                        for a, b in zip(bgot, bwant)))}
-    out["fwd"]["ms"] = time_ms(lambda: lstm_seq_train_fwd(xproj, w, mask), calls=5)
+    out["fwd"]["ms"] = time_ms(fwd, calls=5)
+    out["fwd"]["graph_ms"] = graph_ms(fwd)
+    out["fwd"].update(graph_step_ms(fwd_call))
     out["fwd"]["plain_ms"] = time_ms(lambda: lstm_seq_train_fwd_reference(xproj, w, mask),
                                      calls=1, runs=3)
-    out["bwd"]["ms"] = time_ms(
-        lambda: lstm_seq_train_bwd(*res[:3], w, mask, douts, dh_last, dc_last), calls=5)
+    out["bwd"]["ms"] = time_ms(bwd, calls=5)
+    out["bwd"]["graph_ms"] = graph_ms(bwd)
+    out["bwd"].update(graph_step_ms(bwd_call))
+    out["bwd"]["sweep_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_bwd",))
+    out["bwd"]["dw_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_dw",))
     out["bwd"]["plain_ms"] = time_ms(
         lambda: lstm_seq_train_bwd_reference(*res[:3], w, mask, douts, dh_last, dc_last),
         calls=1, runs=3)
@@ -407,6 +532,9 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
         nbytes=f4 * (4 * act + 2 * act + B * T + act + 2 * ND * B * H + 4 * act
                      + ND * H * 4 * H) + 2 * ND * H * 4 * H,
         flops=2 * act * 4 * H + 2 * (T - 1) * ND * B * H * 4 * H, peak_flops=BF16_FLOPS))
+    dw_bound = bound(nbytes=f4 * ((T - 1) * ND * B * H * 5 + ND * H * 4 * H),
+                     flops=2 * (T - 1) * ND * B * H * 4 * H, peak_flops=BF16_FLOPS)
+    out["bwd"]["dw_bound_ms"] = dw_bound["bound_ms"]
     lstm, x = cudnn_lstm(B, device)
     y, _ = lstm(x)
     dy = torch.randn_like(y)
@@ -414,14 +542,18 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     out["fwd"]["library_ms"] = time_ms(lambda: lstm(x), calls=5)
     out["bwd"]["library_ms"] = time_ms(
         lambda: torch.autograd.grad(y, params, dy, retain_graph=True), calls=5)
+    f, b_ = out["fwd"], out["bwd"]
     print(f"[kernels] lstm_seq_train ({T}, {ND}, {B}, {4 * H}) float32: forward max abs err "
           f"{fwd_err} (tol {LSTM_TRAIN_FWD_ATOL}); backward max err relative to the largest "
-          f"value {bwd_err} (tol {LSTM_TRAIN_BWD_RTOL}); fwd kernel {out['fwd']['ms']:.4f} ms, "
-          f"plain {out['fwd']['plain_ms']:.4f} ms, bound {out['fwd']['bound_ms']:.4f} ms, "
-          f"cuDNN LSTM fwd {out['fwd']['library_ms']:.4f} ms; bwd kernel "
-          f"{out['bwd']['ms']:.4f} ms, plain {out['bwd']['plain_ms']:.4f} ms, bound "
-          f"{out['bwd']['bound_ms']:.4f} ms, cuDNN LSTM bwd {out['bwd']['library_ms']:.4f} ms "
-          f"({card})")
+          f"value {bwd_err} (tol {LSTM_TRAIN_BWD_RTOL}); both launched twice bitwise equal; "
+          f"fwd kernel {f['ms']:.4f} ms (graph {f['graph_ms']:.4f} ms; T=1 "
+          f"{f['T1_graph_ms']:.4f} ms, {f['step_us']:.3f} us a step), plain "
+          f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms, cuDNN LSTM fwd "
+          f"{f['library_ms']:.4f} ms; bwd kernels {b_['ms']:.4f} ms (graph {b_['graph_ms']:.4f} "
+          f"ms; T=1 {b_['T1_graph_ms']:.4f} ms, {b_['step_us']:.3f} us a step; profiler: sweep "
+          f"{b_['sweep_device_ms']:.4f} ms, dW_hh {b_['dw_device_ms']:.4f} ms against its bound "
+          f"{b_['dw_bound_ms']:.4f} ms), plain {b_['plain_ms']:.4f} ms, bound "
+          f"{b_['bound_ms']:.4f} ms, cuDNN LSTM bwd {b_['library_ms']:.4f} ms ({card})")
     return out
 
 
@@ -1628,6 +1760,7 @@ def main() -> int:
     topk = check_topk("cuda", smi)
     topk_k = check_topk2d("cuda", smi)
     lstm = check_lstm("cuda", smi)
+    check_lstm_edges("cuda", smi)
     cell = check_lstm_cell("cuda", smi)
     attn = check_attention("cuda", smi)
     vocab = check_vocab_topk("cuda", smi)
@@ -1642,7 +1775,10 @@ def main() -> int:
     tsl = run_slice("cuda", transformer_config(), clips, cpu_clips=8, card=smi)
     tfsl = run_slice("cuda", fused_transformer_config(), clips, cpu_clips=8, card=smi)
     train = check_lstm_train("cuda", smi, B=32)
-    check_lstm_train("cuda", smi, B=128)
+    train128 = check_lstm_train("cuda", smi, B=128)
+    # The B = 128 backward (bench.py's batch) and cuDNN's, beside B = 32's.
+    train["bwd"]["b128"] = {k: train128["bwd"][k] for k in (
+        "ms", "graph_ms", "sweep_device_ms", "dw_device_ms", "bound_ms", "library_ms")}
     tr = run_training(smi, config)
     check_step_parity(smi, config)
     check_overfit_and_profile(smi, config)

@@ -43,7 +43,7 @@ from video_captioning_tpu_torch.ops.vocab_topk import (
 )
 
 
-def _lstm_inputs(T=7, B=5, H=16, seed=0, ragged=True):
+def _lstm_inputs(T=7, B=5, H=16, seed=0, ragged=True, short_row=False):
     rs = np.random.RandomState(seed)
     xproj = (rs.randn(T, 2, B, 4 * H) * 0.8).astype(np.float32)
     w_hh = (rs.uniform(-1, 1, (2, H, 4 * H)) / np.sqrt(H)).astype(np.float32)
@@ -51,14 +51,20 @@ def _lstm_inputs(T=7, B=5, H=16, seed=0, ragged=True):
         return xproj, w_hh, None
     lengths = rs.randint(1, T + 1, size=B)
     lengths[0] = T  # one full row
+    if short_row:
+        lengths[-1] = 1  # a length-1 row (the only row at B = 1)
     mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
     return xproj, w_hh, mask
 
 
+# (B, T, H, a length-1 row): the main cases, then the edges the card's
+# tiling must take (B = 1, T = 1, H = 40, which is not a multiple of 16).
 @pytest.mark.parametrize("ragged", [True, False])
-@pytest.mark.parametrize("B", [5, 8])
-def test_lstm_seq_reference_matches_pallas_f32(B, ragged):
-    xproj, w_hh, mask = _lstm_inputs(B=B, ragged=ragged, seed=B)
+@pytest.mark.parametrize("B,T,H,short_row", [
+    (5, 7, 16, False), (8, 7, 16, False), (1, 7, 16, True), (5, 1, 16, True), (5, 7, 40, True),
+], ids=["5", "8", "B1", "T1", "H40"])
+def test_lstm_seq_reference_matches_pallas_f32(B, T, H, short_row, ragged):
+    xproj, w_hh, mask = _lstm_inputs(T=T, B=B, H=H, ragged=ragged, seed=B, short_row=short_row)
     want_o, (want_h, want_c) = lstm_seq_pallas(
         jnp.asarray(xproj), jnp.asarray(w_hh),
         None if mask is None else jnp.asarray(mask), interpret=True)

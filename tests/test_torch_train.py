@@ -86,7 +86,15 @@ def _seq_inputs(mask_kind, T=7, ND=2, B=5, H=8, seed=0):
     return xproj, w_hh, mask, probes
 
 
-@pytest.mark.parametrize("mask_kind", ["ragged", "none", "one_step"])
+# Case -> (mask kind, shape overrides): the mask kinds, then the edges the
+# card's tiling must take: B = 1 with a length-1 row, T = 1, H = 40 (not a
+# multiple of 16).
+_SEQ_CASES = {"ragged": ("ragged", {}), "none": ("none", {}), "one_step": ("one_step", {}),
+              "B1": ("one_step", dict(B=1)), "T1": ("ragged", dict(T=1)),
+              "H40": ("ragged", dict(H=40))}
+
+
+@pytest.mark.parametrize("mask_kind", list(_SEQ_CASES))
 def test_plain_lstm_seq_train_matches_jax_kernel(mask_kind):
     """Values and gradients of the probe loss sum(outs*P) + sum(h_last*Ph)
     + sum(c_last*Pc): the nonzero Ph and Pc give nonzero dh_last and
@@ -94,7 +102,8 @@ def test_plain_lstm_seq_train_matches_jax_kernel(mask_kind):
     only where XLA:CPU and torch sum in different orders, which can move a
     bf16 rounding of h or dgates by one ulp, so the tolerance is 1e-3 of
     each output's largest value."""
-    xproj, w_hh, mask, (P, Ph, Pc) = _seq_inputs(mask_kind)
+    kind, shape = _SEQ_CASES[mask_kind]
+    xproj, w_hh, mask, (P, Ph, Pc) = _seq_inputs(kind, **shape)
 
     def j_probe(x, w):
         outs, (h, c) = j_lstm_seq_train(x, w, jnp.asarray(mask), 128, True)
@@ -104,7 +113,7 @@ def test_plain_lstm_seq_train_matches_jax_kernel(mask_kind):
         jnp.asarray(xproj), jnp.asarray(w_hh))
     x_t = torch.tensor(xproj, requires_grad=True)
     w_t = torch.tensor(w_hh, requires_grad=True)
-    outs, (h, c) = lstm_seq_train(x_t, w_t, None if mask_kind == "none" else torch.tensor(mask))
+    outs, (h, c) = lstm_seq_train(x_t, w_t, None if kind == "none" else torch.tensor(mask))
     ((outs * torch.tensor(P)).sum() + (h * torch.tensor(Ph)).sum()
      + (c * torch.tensor(Pc)).sum()).backward()
     for got, ref in zip((outs, h, c, x_t.grad, w_t.grad), (*want, want_dx, want_dw)):

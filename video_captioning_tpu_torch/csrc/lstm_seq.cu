@@ -10,18 +10,18 @@
 // products and float32 sums; the gate math and the carried h and c are
 // float32; a padded step (mask <= 0) carries the state and emits 0; the
 // final (h, c) is the state at each row's last valid step. Outputs are in
-// xproj's type (float32 or bfloat16).
+// xproj's type (float32 or bfloat16). Any B >= 1, H a multiple of 8 up to
+// 600.
 //
-// What bounds it on an H100: the recurrence is sequential in T, and each
-// step needs the whole previous h of its direction. At the encoder's shape
-// (T = 80, ND = 2, B = 128, H = 512) a step is 2 * 128 * 512 * 2048 = 268M
-// multiply-adds on CUDA cores, and W_hh (2 x 512 x 2048 bf16 = 4 MB) does
-// not fit in one SM's shared memory.
-//
-// Design: a cooperative launch of ND * H / 8 CTAs (128 at H = 512, one per
-// SM), the kernel of lstm_seq_fwd.cuh without its residual writes: W_hh
-// columns resident in shared memory, h double-buffered in device memory,
-// one grid-wide barrier per step. First version: no tensor cores.
+// What bounds it on an H100, and the design: see lstm_seq_fwd.cuh (this
+// is its kernel without the residual writes). The recurrent product runs
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, float32
+// accumulators), which compute exactly the contract's bf16 products with
+// float32 sums. The first version (float32 FMAs on CUDA cores over
+// widened operands, one grid-wide barrier a step) was bound by
+// shared-memory reads: 3.07 ms at (80, 2, 128, 2048) f32, about 38 us a
+// step, against about 0.95 ms and 12 us a step for this one
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 
 #include "lstm_seq_fwd.cuh"
 
@@ -29,17 +29,17 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H the shared-memory layout takes (227 KB a block on Hopper).
-extern "C" int vct_lstm_seq_max_hidden() { return vct::fwd_max_hidden(); }
+// Largest H the kernel takes.
+extern "C" int vct_lstm_seq_max_hidden() { return vct::kMaxHidden; }
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Returns a cudaError_t: 0 when the launches were accepted. hbuf is
+// (2, ND, B, H) bf16 and sync (ND, B) unsigned scratch, both uninitialised.
 extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
                             const void* w_hh, const float* mask, void* outs,
-                            void* h_last, void* c_last, float* h_state,
-                            float* c_state, void* hbuf, int T, int ND, int B,
-                            int H, void* stream) {
+                            void* h_last, void* c_last, void* hbuf, void* sync,
+                            int T, int ND, int B, int H, void* stream) {
   if (T <= 0 || ND <= 0 || B <= 0 || H <= 0 || H % vct::kUnits != 0 ||
-      H > vct::fwd_max_hidden()) {
+      H > vct::kMaxHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   vct::FwdParams p = {};
@@ -49,9 +49,8 @@ extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
   p.outs = outs;
   p.h_last = h_last;
   p.c_last = c_last;
-  p.h_state = h_state;
-  p.c_state = c_state;
   p.hbuf = static_cast<__nv_bfloat16*>(hbuf);
+  p.sync = static_cast<unsigned*>(sync);
   p.T = T;
   p.ND = ND;
   p.B = B;

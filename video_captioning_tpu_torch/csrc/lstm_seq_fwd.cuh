@@ -1,56 +1,135 @@
 // The masked LSTM forward recurrence shared by csrc/lstm_seq.cu (eval) and
 // csrc/lstm_seq_train.cu (training, which also streams out the residuals
-// its backward reads). Design and contract: see those files' headers.
+// its backward reads), and the tensor-core, copy and barrier primitives
+// both sources use. Contract: see those files' headers.
 //
-// CTA (d, j0) owns hidden units j0..j0+7 of direction d with all four
-// gates, so the cell update stays local. Its W_hh columns (4 gates x 8
-// units x H) are converted to float32 once and stay resident in shared
-// memory for all T steps. The bf16 h that the recurrent product reads is
-// double-buffered in device memory: step t reads slot t % 2 and writes
-// slot (t + 1) % 2, so one grid-wide barrier per step is enough. Each step
-// stages 64 batch rows of h at a time into shared memory (as float32) and
-// each thread computes the four gates of one unit for two rows. The
-// float32 h and c state of a CTA's units is private to the CTA and lives in
-// device memory (B is not bounded). No tensor cores.
+// Replaces (with lstm_seq.cu): video_captioning_tpu/ops/lstm_seq_pallas.py,
+// _kernel (lstm_seq_pallas) and _fwd_train_kernel (lstm_seq_train's
+// forward).
+//
+// What bounds it on an H100: the 80 sequential steps, each of which needs
+// the whole previous h of its direction. The work of a step is small
+// (2 x 128 x 512 x 2048 bf16 multiply-adds at the encoder's shape: about
+// 1 us of tensor-core time spread over the card), so a step costs what its
+// exchange costs: publishing h, meeting the other CTAs of the direction,
+// and reading B x H bf16 of h back through L2 (16 MB a step over all CTAs at
+// B = 128, about 3 us at L2 rates).
+//
+// Design: CTA (d, j0) owns hidden units j0..j0+7 of direction d with all
+// four gates (32 gate columns), for a slice of up to nb batch rows, for all
+// T steps. Its W_hh columns are bf16 mma.sync B fragments held in
+// registers for the whole launch: warp w owns k-tiles w, w + 8, ... of H
+// (split K), so every warp works at every B, B = 1 included. Each step it
+// stages the direction's bf16 h rows (32 rows a chunk, two chunks in
+// flight) with cp.async through L2 only, runs m16n8k16 bf16 products with
+// float32 accumulators (A fragments by ldmatrix), sums the eight warps'
+// partials through shared memory and applies the gate math in float32. The
+// float32 h and c of the CTA's (rows, units) stay in shared memory for all
+// T steps. It publishes bf16 h to a two-slot exchange buffer and meets only
+// the CTAs that share its rows (its direction and row group), at a counter
+// in device memory (release add, acquire spin): the directions and row
+// groups never wait for each other. The rows are split into as many row
+// groups as stay co-resident (two CTAs an SM at H = 512), so that two CTAs
+// of an SM hide each other's latencies. Step 0 reads no h (it is zero). The
+// launch is cooperative only so that the CTAs that meet are co-resident;
+// rows beyond what fits run as further launches (rows are independent).
+//
+// Why this design and not one thread-block cluster per direction with h
+// exchanged through distributed shared memory: W_hh of one direction is
+// 2 MB in bf16 at H = 512 (2.9 MB at H = 600), so a cluster would need 16
+// CTAs (non-portable, one GPC each, and at H = 600 more shared memory than
+// an SM has beside the staged h), and it would put a direction's whole
+// step on 16 SMs. The counters keep the whole card at work, take every H
+// up to 600, and the L2 exchange costs a few us a step: on an NVIDIA H100
+// 80GB HBM3 (700 W), about 12 us a step at (80, 2, 128, 2048) and 5.6 us
+// at B = 32, against a fixed cost of about 12 us a launch.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace vct {
 
-namespace cg = cooperative_groups;
-
-constexpr int kUnits = 8;          // hidden units per CTA, all four gates
-constexpr int kThreads = 256;      // 8 warps; lane & 7 picks the unit
-constexpr int kRowsPerChunk = 64;  // batch rows of h staged per pass
-constexpr int kPad = 4;            // float32 row padding: no bank conflicts
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxHidden = 600;
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on Hopper
 
-struct FwdParams {
-  const void* xproj;           // (T, ND, B, 4H), float32 or bf16
-  const __nv_bfloat16* w_hh;   // (ND, H, 4H)
-  const float* mask;           // (B, T), 1 = valid; nullptr = all valid
-  void* outs;                  // (T, ND, B, H), xproj's type
-  void* h_last;                // (ND, B, H)
-  void* c_last;                // (ND, B, H)
-  float* h_state;              // (ND, B, H) float32, zero on entry
-  float* c_state;              // (ND, B, H) float32, zero on entry
-  __nv_bfloat16* hbuf;         // (2, ND, B, H), slot 0 zero on entry
-  void* gact;                  // residuals (training only): (T, ND, B, 4H)
-                               // activated gates [i, f, g, o], xproj's type
-  float* h_keep;               // (T, ND, B, H) carried h after step t
-  float* c_keep;               // (T, ND, B, H) carried c after step t
-  int T, ND, B, H;
-};
+// ---------------------------------------------------------------- primitives
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// d += a . b for one m16n8k16 tile: bf16 operands, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// Four 8 x 8 bf16 matrices from shared memory: lane L gives the address of
+// row L % 8 of matrix L / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Two bf16 in one register, lo in the low half (the lower k of a fragment).
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// 16 bytes global -> shared, through L2 only: other CTAs wrote the source
+// during this launch, so L1 may hold stale lines.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A barrier of the CTAs of one direction. After a __syncthreads, one
+// thread publishes the CTA's writes (fence, then add); a waiting thread
+// spins with acquire loads and the CTA follows it through a __syncthreads.
+// A step takes microseconds: a wait of 2^34 cycles (seconds) means a CTA
+// of the direction is gone, and the kernel traps rather than hang the card.
+__device__ __forceinline__ void dir_arrive(unsigned* counter) {
+  __threadfence();
+  atomicAdd(counter, 1u);
+}
+__device__ __forceinline__ void dir_wait(const unsigned* counter, unsigned target) {
+  const long long start = clock64();
+  unsigned v;
+  for (;;) {
+    asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+    if (v >= target) break;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+  __threadfence();
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -60,134 +139,321 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-inline size_t fwd_smem_bytes(int H) {
-  return static_cast<size_t>(4 * kUnits + kRowsPerChunk) * (H + kPad) *
-         sizeof(float);
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// Largest H the forward's shared-memory layout takes.
-inline int fwd_max_hidden() {
-  int h = 0;
-  while (fwd_smem_bytes(h + kUnits) <= kMaxSmem) h += kUnits;
-  return h;
+// The batch rows of CTA `blockIdx.x` in a grid of (direction, row group,
+// unit group): rows [b0, b0 + n) of the launch's slice. The CTAs of one
+// (direction, row group) depend on each other; no others do.
+struct RowRange {
+  int d, group, unit_group, b0, n;
+};
+template <typename P>
+__device__ __forceinline__ RowRange row_range(const P& p, int unit_groups) {
+  RowRange r;
+  r.unit_group = blockIdx.x % unit_groups;
+  r.group = (blockIdx.x / unit_groups) % p.row_groups;
+  r.d = blockIdx.x / (unit_groups * p.row_groups);
+  r.b0 = p.b0 + r.group * p.nb;
+  r.n = min(p.nb, p.b0 + p.slice_rows - r.b0);
+  return r;
+}
+
+// Cooperative launches of ND x row_groups x unit_groups CTAs. The row
+// groups split the B rows among CTAs that run side by side: the most row
+// groups (each of at least min_rows rows) whose grid stays co-resident. If
+// even one row group a direction does not fit, the rows run as sequential
+// slices, halved until they fit. Each launch zeroes its ND x row_groups
+// counters (sync holds ND x B) first. P has fields B, ND, b0, nb,
+// slice_rows, row_groups and sync. Returns a cudaError_t.
+template <typename K, typename P, typename SmemOf>
+int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf smem_of,
+                      cudaStream_t stream) {
+  const void* kern = reinterpret_cast<const void*>(kernel_fn);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(kMaxSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, coop = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  // Whether `groups` row groups of `rows` rows each are co-resident.
+  auto fits = [&](int groups, int rows, bool* ok) -> cudaError_t {
+    const size_t smem = smem_of(rows);
+    int per_sm = 0;
+    *ok = false;
+    if (smem > kMaxSmem) return cudaSuccess;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    *ok = per_sm * sms >= p.ND * groups * unit_groups;
+    return err;
+  };
+  bool ok = false;
+  int groups = p.B / min_rows > 1 ? p.B / min_rows : 1;
+  int rows = 0;
+  for (; groups >= 1; --groups) {
+    rows = (p.B + groups - 1) / groups;
+    if ((e = fits(groups, rows, &ok)) != cudaSuccess) return static_cast<int>(e);
+    if (ok) break;
+  }
+  int slice = p.B;
+  if (!ok) {  // one row group; rows in sequential slices
+    groups = 1;
+    while (!ok) {
+      if (slice <= min_rows) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+      slice = (slice + 1) / 2;
+      if ((e = fits(1, slice, &ok)) != cudaSuccess) return static_cast<int>(e);
+    }
+    rows = slice;
+  }
+  p.row_groups = groups;
+  p.nb = rows;
+  const int grid = p.ND * groups * unit_groups;
+  for (int b0 = 0; b0 < p.B; b0 += slice) {
+    p.b0 = b0;
+    p.slice_rows = p.B - b0 < slice ? p.B - b0 : slice;
+    if ((e = cudaMemsetAsync(p.sync, 0, sizeof(unsigned) * p.ND * groups, stream)) !=
+        cudaSuccess)
+      return static_cast<int>(e);
+    void* kargs[] = {&p};
+    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), kargs, smem_of(rows),
+                                    stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ forward
+
+constexpr int kUnits = 8;             // hidden units per CTA, all four gates
+constexpr int kCols = 4 * kUnits;     // gate columns per CTA: 4 n-tiles of 8
+constexpr int kFwdRows = 32;          // batch rows of h staged per chunk
+constexpr int kPartStride = kCols + 1;
+// k-tiles of 16 per warp: ceil(ceil(600 / 16) / 8) = 5.
+constexpr int kFwdKt = ((kMaxHidden + 15) / 16 + kWarps - 1) / kWarps;
+
+struct FwdParams {
+  const void* xproj;           // (T, ND, B, 4H), float32 or bf16
+  const __nv_bfloat16* w_hh;   // (ND, H, 4H)
+  const float* mask;           // (B, T), 1 = valid; nullptr = all valid
+  void* outs;                  // (T, ND, B, H), xproj's type
+  void* h_last;                // (ND, B, H)
+  void* c_last;                // (ND, B, H)
+  __nv_bfloat16* hbuf;         // (2, ND, B, H) exchange of bf16 h
+  unsigned* sync;              // (ND, B) counters; ND x row_groups used
+  void* gact;                  // residuals (training only): (T, ND, B, 4H)
+                               // activated gates [i, f, g, o], xproj's type
+  float* h_keep;               // (T, ND, B, H) carried h after step t
+  float* c_keep;               // (T, ND, B, H) carried c after step t
+  int T, ND, B, H;
+  int b0, slice_rows;          // this launch's batch rows
+  int nb, row_groups;          // rows a CTA (at most), row groups a direction
+};
+
+__host__ __device__ inline int fwd_kpad(int H) { return (H + 15) / 16 * 16; }
+
+// Two h chunks (row stride kpad + 8 bf16: ldmatrix rows in distinct banks),
+// the eight warps' partial sums, and the float32 h and c of nb rows.
+inline size_t fwd_smem_bytes(int H, int nb) {
+  return static_cast<size_t>(2 * kFwdRows) * (fwd_kpad(H) + 8) * 2 +
+         static_cast<size_t>(kWarps) * kFwdRows * kPartStride * 4 +
+         static_cast<size_t>(nb) * kUnits * 8;
 }
 
 template <typename T, bool kResiduals>
-__global__ void __launch_bounds__(kThreads) lstm_seq_fwd_kernel(FwdParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H;
   const int H4 = 4 * H;
-  const int Hp = H + kPad;
-  float* ws = smem;                      // [4 gates][kUnits][Hp]
-  float* hs = smem + 4 * kUnits * Hp;    // [kRowsPerChunk][Hp]
+  const int kpad = fwd_kpad(H);
+  const int hstride = kpad + 8;
+  const int KT = kpad / 16;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kFwdRows][hstride]
+  float* part = reinterpret_cast<float*>(hs + 2 * kFwdRows * hstride);
+  float* st_h = part + kWarps * kFwdRows * kPartStride;  // [nb][kUnits]
+  float* st_c = st_h + p.nb * kUnits;
 
-  const int ctas_per_dir = H / kUnits;
-  const int d = blockIdx.x / ctas_per_dir;
-  const int j0 = (blockIdx.x % ctas_per_dir) * kUnits;
+  const int unit_groups = H / kUnits;
+  const RowRange rr = row_range(p, unit_groups);
+  const int d = rr.d;
+  const int j0 = rr.unit_group * kUnits;
+  unsigned* counter = p.sync + d * p.row_groups + rr.group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 
-  // Resident weights: ws[g][u][k] = W_hh[d][k][g*H + j0 + u].
+  // B fragments of this warp's k-tiles: B[k][n] = W_hh[d][k][gate n/8,
+  // unit j0 + n%8]; zero past H.
+  uint32_t wf[kFwdKt][4][2];
   const __nv_bfloat16* w = p.w_hh + static_cast<size_t>(d) * H * H4;
-  for (int e = threadIdx.x; e < 4 * kUnits * H; e += kThreads) {
-    const int k = e / (4 * kUnits);
-    const int gu = e % (4 * kUnits);
-    const int g = gu / kUnits;
-    const int u = gu % kUnits;
-    ws[(g * kUnits + u) * Hp + k] =
-        __bfloat162float(w[static_cast<size_t>(k) * H4 + g * H + j0 + u]);
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+  for (int i = 0; i < kFwdKt; ++i) {
+    const int kt = warp + i * kWarps;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = nt * H + j0 + g;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = kt * 16 + half * 8 + 2 * tq;
+        const __nv_bfloat16 lo = kt < KT && k < H ? w[static_cast<size_t>(k) * H4 + col] : zero;
+        const __nv_bfloat16 hi =
+            kt < KT && k + 1 < H ? w[static_cast<size_t>(k + 1) * H4 + col] : zero;
+        wf[i][nt][half] = pack2(lo, hi);
+      }
+    }
   }
+  // Zero k columns past H (never copied into) and the carried state.
+  const int kx = kpad - H;
+  for (int e = tid; e < 2 * kFwdRows * kx; e += kThreads) {
+    hs[(e / kx) * hstride + H + e % kx] = zero;
+  }
+  for (int e = tid; e < rr.n * kUnits; e += kThreads) {
+    st_h[e] = 0.0f;
+    st_c[e] = 0.0f;
+  }
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int u = lane & (kUnits - 1);
-  const int r0 = 2 * ((threadIdx.x >> 5) * 4 + (lane >> 3));  // 0, 2, .., 62
-  const int j = j0 + u;
   const T* xproj = static_cast<const T*>(p.xproj);
   T* outs = static_cast<T*>(p.outs);
-  const size_t dir_state = static_cast<size_t>(d) * p.B * H;
+  const int n_chunks = (rr.n + kFwdRows - 1) / kFwdRows;
+  const int er = tid >> 3;            // epilogue: chunk row
+  const int eu = tid & (kUnits - 1);  // epilogue: unit
+  const int j = j0 + eu;
+  const int vecs = H / 8;             // 16-byte vectors of an h row
 
   for (int t = 0; t < p.T; ++t) {
     const __nv_bfloat16* hcur =
         p.hbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H;
     __nv_bfloat16* hnxt =
         p.hbuf + (static_cast<size_t>((t + 1) & 1) * p.ND + d) * p.B * H;
-
-    for (int b0 = 0; b0 < p.B; b0 += kRowsPerChunk) {
-      const int rows = min(kRowsPerChunk, p.B - b0);
-      __syncthreads();  // the previous chunk's readers are done with hs
-      // Stage h rows as float32. __ldcg reads through L2 only: other CTAs
-      // wrote these rows during this launch, so L1 may hold stale lines.
-      const int vecs = H / 8;
-      for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
+    const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
+    // The gate inputs of one chunk row (as loaded) and its mask value,
+    // loaded a chunk ahead of their use so that their latency hides behind
+    // the products.
+    auto load_x = [&](int c, T (&x)[4], float& m) {
+      const int bl = c * kFwdRows + er;
+      if (c >= n_chunks || bl >= rr.n) return;
+      const T* xr = xproj + (step_row + bl) * H4 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = xr[q * H];
+      m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
+    };
+    auto stage = [&](int c) {
+      __nv_bfloat16* dst = hs + (c & 1) * kFwdRows * hstride;
+      const int r0 = c * kFwdRows;
+      const int rows = min(kFwdRows, rr.n - r0);
+      for (int e = tid; e < rows * vecs; e += kThreads) {
         const int r = e / vecs;
-        const int c = e % vecs;
-        const int4 raw = __ldcg(
-            reinterpret_cast<const int4*>(hcur + static_cast<size_t>(b0 + r) * H) + c);
-        const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 f0 = __bfloat1622float2(pair[0]);
-        const float2 f1 = __bfloat1622float2(pair[1]);
-        const float2 f2 = __bfloat1622float2(pair[2]);
-        const float2 f3 = __bfloat1622float2(pair[3]);
-        float4* dst = reinterpret_cast<float4*>(hs + r * Hp + c * 8);
-        dst[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
-        dst[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+        const int v = e % vecs;
+        cp_async16(dst + r * hstride + v * 8,
+                   hcur + static_cast<size_t>(rr.b0 + r0 + r) * H + v * 8);
       }
+    };
+    // Next step's gate inputs into L2 while this step runs.
+    if (t + 1 < p.T) {
+      const size_t next = step_row + static_cast<size_t>(p.ND) * p.B;
+      for (int e = tid; e < rr.n * 4; e += kThreads)
+        prefetch_l2(xproj + (next + e / 4) * H4 + (e % 4) * H + j0);
+    }
+    T xv[4];
+    float mv = 0.0f;
+    load_x(0, xv, mv);
+    if (t > 0) {  // step 0's h is zero: no product
+      if (tid == 0) dir_wait(counter, static_cast<unsigned>(t * unit_groups));
       __syncthreads();
-      if (r0 >= rows) continue;
+      stage(0);
+      cp_async_commit();
+      if (n_chunks > 1) stage(1);
+      cp_async_commit();
+    }
 
-      float acc[2][4];
+    for (int c = 0; c < n_chunks; ++c) {
+      const int rows = min(kFwdRows, rr.n - c * kFwdRows);
+      T xn[4];
+      float mn = 0.0f;
+      load_x(c + 1, xn, mn);
+      if (t > 0) {
+        cp_async_wait_one();  // chunk c has landed
+        __syncthreads();      // for every thread; the last epilogue is done
+        float acc[2][4][4];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[rr][g] = 0.0f;
-      const float* h0 = hs + r0 * Hp;
-      const float* h1 = hs + (r0 + 1) * Hp;  // unused garbage if r0+1 == rows
-      for (int k = 0; k < H; k += 4) {
-        const float4 a0 = *reinterpret_cast<const float4*>(h0 + k);
-        const float4 a1 = *reinterpret_cast<const float4*>(h1 + k);
+          for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 wv =
-              *reinterpret_cast<const float4*>(ws + (g * kUnits + u) * Hp + k);
-          float s0 = acc[0][g];
-          s0 = fmaf(a0.x, wv.x, s0);
-          s0 = fmaf(a0.y, wv.y, s0);
-          s0 = fmaf(a0.z, wv.z, s0);
-          s0 = fmaf(a0.w, wv.w, s0);
-          acc[0][g] = s0;
-          float s1 = acc[1][g];
-          s1 = fmaf(a1.x, wv.x, s1);
-          s1 = fmaf(a1.y, wv.y, s1);
-          s1 = fmaf(a1.z, wv.z, s1);
-          s1 = fmaf(a1.w, wv.w, s1);
-          acc[1][g] = s1;
+            for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.0f;
+        const __nv_bfloat16* hb = hs + (c & 1) * kFwdRows * hstride;
+#pragma unroll
+        for (int i = 0; i < kFwdKt; ++i) {
+          const int kt = warp + i * kWarps;
+          if (kt >= KT) break;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            if (mi * 16 >= rows) break;
+            uint32_t a[4];
+            ldmatrix_x4(a, hb + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hstride +
+                               kt * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mi][nt], a, wf[i][nt][0], wf[i][nt][1]);
+          }
         }
+        // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
+        float* pw = part + warp * kFwdRows * kPartStride;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              pw[(mi * 16 + g + (q >> 1) * 8) * kPartStride + nt * 8 + 2 * tq + (q & 1)] =
+                  acc[mi][nt][q];
+        __syncthreads();  // partials written; chunk c's buffer is free
+        if (c + 2 < n_chunks) stage(c + 2);
+        cp_async_commit();  // possibly empty: keeps the group count in step
       }
 
+      if (er < rows) {
+        const int bl = c * kFwdRows + er;
+        const int b = rr.b0 + bl;
+        const size_t row = step_row + bl;
+        float gate[4];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = r0 + rr;
-        if (r >= rows) break;
-        const int b = b0 + r;
-        const size_t row = (static_cast<size_t>(t) * p.ND + d) * p.B + b;
-        const T* xr = xproj + row * H4;
-        const float gi = sigmoid(load_f(xr + j) + acc[rr][0]);
-        const float gf = sigmoid(load_f(xr + H + j) + acc[rr][1]);
-        const float gg = tanhf(load_f(xr + 2 * H + j) + acc[rr][2]);
-        const float go = sigmoid(load_f(xr + 3 * H + j) + acc[rr][3]);
-        const size_t si = dir_state + static_cast<size_t>(b) * H + j;
-        const float c_old = p.c_state[si];
-        const float h_old = p.h_state[si];
+        for (int q = 0; q < 4; ++q) {
+          float s = to_f(xv[q]);
+          if (t > 0) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int w8 = 0; w8 < kWarps; ++w8)
+              sum += part[(w8 * kFwdRows + er) * kPartStride + q * kUnits + eu];
+            s += sum;
+          }
+          gate[q] = s;
+        }
+        const float gi = sigmoid(gate[0]);
+        const float gf = sigmoid(gate[1]);
+        const float gg = tanhf(gate[2]);
+        const float go = sigmoid(gate[3]);
+        const int si = bl * kUnits + eu;
+        const float c_old = st_c[si];
+        const float h_old = st_h[si];
         const float c_new = gf * c_old + gi * gg;
         const float h_new = go * tanhf(c_new);
-        const bool valid =
-            p.mask == nullptr || p.mask[static_cast<size_t>(b) * p.T + t] > 0.0f;
+        const bool valid = mv > 0.0f;
         const float h_keep = valid ? h_new : h_old;
         const float c_keep = valid ? c_new : c_old;
-        p.h_state[si] = h_keep;
-        p.c_state[si] = c_keep;
+        st_h[si] = h_keep;
+        st_c[si] = c_keep;
         store_f(outs + row * H + j, valid ? h_new : 0.0f);
-        __stcg(reinterpret_cast<unsigned short*>(hnxt) + static_cast<size_t>(b) * H + j,
-               __bfloat16_as_ushort(__float2bfloat16(h_keep)));
+        if (t + 1 < p.T) {
+          __stcg(reinterpret_cast<unsigned short*>(hnxt) + static_cast<size_t>(b) * H + j,
+                 __bfloat16_as_ushort(__float2bfloat16(h_keep)));
+        }
         if (kResiduals) {
           T* ga = static_cast<T*>(p.gact) + row * H4;
           store_f(ga + j, gi);
@@ -198,49 +464,27 @@ __global__ void __launch_bounds__(kThreads) lstm_seq_fwd_kernel(FwdParams p) {
           p.c_keep[row * H + j] = c_keep;
         }
         if (t == p.T - 1) {
-          store_f(static_cast<T*>(p.h_last) + si, h_keep);
-          store_f(static_cast<T*>(p.c_last) + si, c_keep);
+          const size_t fi = (static_cast<size_t>(d) * p.B + b) * H + j;
+          store_f(static_cast<T*>(p.h_last) + fi, h_keep);
+          store_f(static_cast<T*>(p.c_last) + fi, c_keep);
         }
       }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xv[q] = xn[q];
+      mv = mn;
     }
-    grid.sync();  // every CTA has published h_{t+1} before step t+1 reads it
+    if (t + 1 < p.T) {  // publish h_{t+1} to the CTAs that share these rows
+      __syncthreads();
+      if (tid == 0) dir_arrive(counter);
+    }
   }
-}
-
-// Cooperative launch of ND * H / kUnits CTAs; refuses a grid that would
-// not be co-resident. Returns a cudaError_t.
-template <typename K, typename P>
-int launch_cooperative(K* kernel_fn, const P& params, int grid, size_t smem,
-                       cudaStream_t stream) {
-  const void* kern = reinterpret_cast<const void*>(kernel_fn);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0;
-  int sms = 0;
-  int coop = 0;
-  int per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(e);
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
-      cudaSuccess)
-    return static_cast<int>(e);
-  if (per_sm * sms < grid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  P args = params;
-  void* kargs[] = {&args};
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), kargs, smem, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kResiduals>
 int launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  return launch_cooperative(&lstm_seq_fwd_kernel<T, kResiduals>, p,
-                            p.ND * (p.H / kUnits), fwd_smem_bytes(p.H), stream);
+  const int H = p.H;
+  return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals>, p, H / kUnits, 16,
+                           [H](int nb) { return fwd_smem_bytes(H, nb); }, stream);
 }
 
 }  // namespace vct

@@ -1,5 +1,5 @@
 // Training recurrence of the encoder: the forward that also streams out
-// residuals, and the backward sweep over reversed time.
+// residuals, the backward sweep over reversed time, and the dW_hh product.
 //
 // Replaces: video_captioning_tpu/ops/lstm_seq_pallas.py, lstm_seq_train
 // (a jax.custom_vjp): _fwd_train / _fwd_train_kernel and _bwd_train /
@@ -22,46 +22,59 @@
 //   DH    <- bf16(dgates) . bf16(W_hh)^T + (1 - m) DH
 //   dW_hh += bf16(h_prev)^T . bf16(dgates)        (float32 sums)
 //   dxproj[t] = dgates in float32, cast to xproj's type.
+// Any B >= 1, H a multiple of 8 up to 600.
 //
-// What bounds it on an H100: like the forward, the sweep is sequential in
-// T and each step needs all 4H dgates of its direction for the dh product
-// (2 * B * H * 4H multiply-adds a step); the dW_hh product is the same
-// size again but has no sequential dependence. At T = 80, ND = 2, B = 128,
-// H = 512 each is 21.5G multiply-adds, on CUDA cores in this version, and
-// the residuals read back are 252 MB.
+// What bounds it on an H100: the sweep is sequential in T, and each step's
+// dh product needs all 4H dgates of every row of its direction, so a step
+// costs its exchange: B x 4H bf16 dgates read back through L2 by every CTA
+// (32 MB a step over the card at B = 128, H = 512, 16 units a CTA). The
+// products themselves (2 x B x H x 4H multiply-adds a step, and as many
+// again for dW_hh with no sequential dependence) are tensor-core work: 21.5
+// G multiply-adds each at T = 80, B = 128, about 43 us at the bf16 peak.
 //
 // Design:
-// - Forward: the persistent kernel of lstm_seq_fwd.cuh with its residual
-//   writes on (each CTA writes the residuals of its own units).
-// - Backward sweep: the same persistent shape in reverse time, one
-//   cooperative launch of ND * H / 8 CTAs. CTA (d, j0) owns units
-//   j0..j0+7 of direction d, that is 32 dgates columns and 8 rows of
-//   W_hh[d] (8 x 4H, float32, resident in shared memory for all T steps).
-//   Each step: the CTA computes its 32 dgates columns from the residuals
-//   and its private float32 DH, DC state, writes them to dxproj, and
-//   publishes bf16(dgates) to a double-buffered (2, ND, B, 4H) exchange
-//   buffer; one grid barrier; then it stages 16 batch rows of all 4H
-//   dgates at a time (read through L2) against its 8 resident W_hh rows
-//   to get its units' dh_prev. Two threads share one (row, unit) dot
-//   product, each over half of 4H, joined with a warp shuffle.
-// - dW_hh: a second, ordinary launch after the sweep: a tiled product
-//   over the (T - 1) * B rows of (h_keep[t - 1], dxproj[t]), both rounded
-//   to bf16 on load, 64 x 64 output tiles, float32 sums.
+// - Forward: the kernel of lstm_seq_fwd.cuh with its residual writes on.
+// - Backward sweep: the forward's shape in reverse time. CTA (d, j0) owns
+//   units j0..j0+15 of direction d (masked past H) for a slice of batch
+//   rows; their float32 DH and DC stay in shared memory for all T steps.
+//   Its 16 rows of W_hh[d] are bf16 mma.sync B fragments in registers (warp
+//   w owns k-tiles w, w + 8, ... of 4H). Each step: phase A computes the
+//   CTA's 64 dgates columns elementwise, writes dxproj and publishes
+//   bf16(dgates) to a two-slot (2, ND, B, 4H) exchange buffer; the CTAs
+//   that share its rows meet at their counter; phase B stages 16 rows of bf16
+//   dgates at a time with cp.async (two chunks in flight), runs m16n8k16
+//   products with float32 accumulators and sums the warps' partials into
+//   DH. The exchange stays bf16 from writer to mma; 16 units a CTA halve
+//   what 8 would read.
+// - dW_hh: ordinary launches after the sweep, a bf16 tensor-core GEMM
+//   over K = (T - 1) B rows of (h_keep[t - 1], dxproj[t]): 128 x 256 output
+//   tiles, 32 rows a stage in two shared-memory stages, the next stage's
+//   loads held raw in registers during the current stage's products and
+//   rounded to bf16 as they are stored (bf16 dxproj is already the
+//   contract's bf16(dgates)), fragments by ldmatrix.trans, float32
+//   accumulators in registers. K is split into parts so that the card
+//   holds about two CTAs an SM; a second launch sums the parts in a fixed
+//   order, so the result is the same every launch.
+// The first version (float32 FMAs on CUDA cores, dgates widened to float32
+// in shared memory, one grid-wide barrier a step, a float32 SIMT dW_hh)
+// took 11.46 ms for the backward at B = 128; this one about 1.7 ms, with
+// dW_hh about 0.36 ms of it, still bound by its loads' latency
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 
 #include "lstm_seq_fwd.cuh"
 
 namespace vct {
 
-constexpr int kBwdRows = 16;  // batch rows of dgates staged per pass
+constexpr int kBwdUnits = 16;  // hidden units per CTA: 2 n-tiles of 8
+constexpr int kBwdRows = 16;   // batch rows of dgates staged per chunk
+constexpr int kBwdPartStride = kBwdUnits + 1;
+// k-tiles of 16 over 4H per warp: ceil((4 * 600 / 16) / 8) = 19.
+constexpr int kBwdKt = (4 * kMaxHidden / 16 + kWarps - 1) / kWarps;
 
-inline size_t bwd_smem_bytes(int H) {
-  return static_cast<size_t>(kUnits + kBwdRows) * (4 * H + kPad) * sizeof(float);
-}
-
-inline int bwd_max_hidden() {
-  int h = 0;
-  while (bwd_smem_bytes(h + kUnits) <= kMaxSmem) h += kUnits;
-  return h;
+inline size_t bwd_smem_bytes(int H, int nb) {
+  return static_cast<size_t>(2 * kBwdRows) * (4 * H + 8) * 2 +
+         static_cast<size_t>(kWarps) * kBwdRows * kBwdPartStride * 4 +
+         static_cast<size_t>(nb) * kBwdUnits * 8;
 }
 
 struct BwdParams {
@@ -70,211 +83,423 @@ struct BwdParams {
   const float* c_keep;         // (T, ND, B, H)
   const __nv_bfloat16* w_hh;   // (ND, H, 4H)
   const float* mask;           // (B, T) or nullptr = all valid
-  const void* douts;           // (T, ND, B, H), xproj's type
-  float* dh_state;             // (ND, B, H): dh_last on entry
-  float* dc_state;             // (ND, B, H): dc_last on entry
+  const void* douts;           // (T, ND, B, H), xproj's type; nullptr = 0
+  const float* dh_last;        // (ND, B, H) or nullptr = 0
+  const float* dc_last;        // (ND, B, H) or nullptr = 0
   __nv_bfloat16* gbuf;         // (2, ND, B, 4H) exchange of bf16(dgates)
   void* dxproj;                // (T, ND, B, 4H), xproj's type
+  unsigned* sync;              // (ND, B) counters; ND x row_groups used
   int T, ND, B, H;
+  int b0, slice_rows;          // this launch's batch rows
+  int nb, row_groups;          // rows a CTA (at most), row groups a direction
 };
 
+constexpr int kBatch = 4;  // phase A items a thread loads before it computes
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) lstm_seq_bwd_kernel(BwdParams p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H;
   const int H4 = 4 * H;
-  const int H4p = H4 + kPad;
-  float* ws = smem;                    // [kUnits][H4p]: W_hh[d][j0 + u][:]
-  float* gs = smem + kUnits * H4p;     // [kBwdRows][H4p]: staged dgates
+  const int gstride = H4 + 8;  // bf16; ldmatrix rows in distinct banks
+  const int KT = H4 / 16;
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kBwdRows][gstride]
+  float* part = reinterpret_cast<float*>(gs + 2 * kBwdRows * gstride);
+  float* st_dh = part + kWarps * kBwdRows * kBwdPartStride;  // [nb][kBwdUnits]
+  float* st_dc = st_dh + p.nb * kBwdUnits;
 
-  const int ctas_per_dir = H / kUnits;
-  const int d = blockIdx.x / ctas_per_dir;
-  const int j0 = (blockIdx.x % ctas_per_dir) * kUnits;
+  const int unit_groups = (H + kBwdUnits - 1) / kBwdUnits;
+  const RowRange rr = row_range(p, unit_groups);
+  const int d = rr.d;
+  const int j0 = rr.unit_group * kBwdUnits;
+  unsigned* counter = p.sync + d * p.row_groups + rr.group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 
-  const __nv_bfloat16* w = p.w_hh + (static_cast<size_t>(d) * H + j0) * H4;
-  for (int e = threadIdx.x; e < kUnits * H4; e += kThreads) {
-    const int u = e / H4;
-    const int k = e % H4;
-    ws[u * H4p + k] = __bfloat162float(w[static_cast<size_t>(u) * H4 + k]);
+  // B fragments: B[k][n] = W_hh[d][j0 + n][k], two consecutive k in one
+  // register; zero for units past H.
+  uint32_t wf[kBwdKt][2][2];
+#pragma unroll
+  for (int i = 0; i < kBwdKt; ++i) {
+    const int kt = warp + i * kWarps;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int jj = j0 + nt * 8 + g;
+      const uint32_t* wrow = reinterpret_cast<const uint32_t*>(
+          p.w_hh + (static_cast<size_t>(d) * H + (jj < H ? jj : 0)) * H4);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        wf[i][nt][half] =
+            kt < KT && jj < H ? __ldg(wrow + (kt * 16 + half * 8 + 2 * tq) / 2) : 0u;
+      }
+    }
   }
+  for (int e = tid; e < rr.n * kBwdUnits; e += kThreads) {
+    const int j = j0 + e % kBwdUnits;
+    const size_t si = (static_cast<size_t>(d) * p.B + rr.b0 + e / kBwdUnits) * H + j;
+    st_dh[e] = p.dh_last != nullptr && j < H ? p.dh_last[si] : 0.0f;
+    st_dc[e] = p.dc_last != nullptr && j < H ? p.dc_last[si] : 0.0f;
+  }
+  __syncthreads();
 
   const T* gact = static_cast<const T*>(p.gact);
   const T* douts = static_cast<const T*>(p.douts);
   T* dx = static_cast<T*>(p.dxproj);
   const size_t step_rows = static_cast<size_t>(p.ND) * p.B;
-
-  // Phase B thread layout: lane bit 3 picks the half of 4H, so the two
-  // halves of one dot product sit 8 lanes apart in the same warp.
-  const int pu = threadIdx.x & (kUnits - 1);
-  const int half = (threadIdx.x >> 3) & 1;
-  const int pr = threadIdx.x >> 4;  // 0 .. kBwdRows - 1
+  const int n_chunks = (rr.n + kBwdRows - 1) / kBwdRows;
+  const int er = tid >> 4;               // phase B epilogue: chunk row
+  const int eu = tid & (kBwdUnits - 1);  // phase B epilogue: unit
+  const int vecs = H4 / 8;
+  const int items = rr.n * kBwdUnits;
 
   for (int s = 0; s < p.T; ++s) {
     const int t = p.T - 1 - s;
-    __nv_bfloat16* gnow =
-        p.gbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H4;
-    __syncthreads();  // this CTA's phase B of step t + 1 has updated dh_state
+    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H4;
+    const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
 
-    // Phase A: the CTA's 32 dgates columns for every batch row.
-    for (int e = threadIdx.x; e < p.B * kUnits; e += kThreads) {
-      const int b = e / kUnits;
-      const int j = j0 + e % kUnits;
-      const float m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(b) * p.T + t];
-      const size_t row = (static_cast<size_t>(t) * p.ND + d) * p.B + b;
-      const T* ga = gact + row * H4;
-      const float gi = load_f(ga + j);
-      const float gf = load_f(ga + H + j);
-      const float gg = load_f(ga + 2 * H + j);
-      const float go = load_f(ga + 3 * H + j);
-      const float c_new = p.c_keep[row * H + j];
-      const float c_prev = t > 0 ? p.c_keep[(row - step_rows) * H + j] : 0.0f;
-      const size_t si = (static_cast<size_t>(d) * p.B + b) * H + j;
-      const float DH = p.dh_state[si];
-      const float DC = p.dc_state[si];
-      const float dh_new = m * (load_f(douts + row * H + j) + DH);
-      const float tc = tanhf(c_new);
-      const float do_ = dh_new * tc;
-      const float dc_new = m * DC + dh_new * go * (1.0f - tc * tc);
-      p.dc_state[si] = dc_new * gf + (1.0f - m) * DC;
-      const float dg4[4] = {
-          dc_new * gg * gi * (1.0f - gi),
-          dc_new * c_prev * gf * (1.0f - gf),
-          dc_new * gi * (1.0f - gg * gg),
-          do_ * go * (1.0f - go),
-      };
-      T* dxr = dx + row * H4;
-      unsigned short* gr =
-          reinterpret_cast<unsigned short*>(gnow) + static_cast<size_t>(b) * H4;
+    // Phase A: the CTA's dgates columns for its rows. Each thread loads the
+    // inputs of kBatch (row, unit) items, then computes them, so their
+    // loads are in flight together.
+    for (int e0 = 0; e0 < items; e0 += kBatch * kThreads) {
+      T ga4[kBatch][4];     // i, f, g, o as loaded
+      T dout[kBatch];
+      float in[kBatch][3];  // c, c_prev, m
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        store_f(dxr + g * H + j, dg4[g]);
-        __stcg(gr + g * H + j, __bfloat16_as_ushort(__float2bfloat16(dg4[g])));
+      for (int q = 0; q < kBatch; ++q) {
+        const int e = e0 + q * kThreads + tid;
+        const int j = j0 + e % kBwdUnits;
+        if (e >= items || j >= H) continue;
+        const int bl = e / kBwdUnits;
+        const size_t row = step_row + bl;
+        const T* ga = gact + row * H4 + j;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ga4[q][k] = ga[k * H];
+        dout[q] = douts == nullptr ? T(0.0f) : douts[row * H + j];
+        in[q][0] = p.c_keep[row * H + j];
+        in[q][1] = t > 0 ? p.c_keep[(row - step_rows) * H + j] : 0.0f;
+        in[q][2] = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
       }
-    }
-    grid.sync();  // every CTA has published its dgates of step t
-
-    // Phase B: dh_prev of the CTA's units, 16 batch rows at a time.
-    for (int b0 = 0; b0 < p.B; b0 += kBwdRows) {
-      const int rows = min(kBwdRows, p.B - b0);
-      __syncthreads();  // the previous chunk's readers are done with gs
-      const int vecs = H4 / 8;
-      for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
-        const int r = e / vecs;
-        const int c = e % vecs;
-        const int4 raw = __ldcg(
-            reinterpret_cast<const int4*>(gnow + static_cast<size_t>(b0 + r) * H4) + c);
-        const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 f0 = __bfloat1622float2(pair[0]);
-        const float2 f1 = __bfloat1622float2(pair[1]);
-        const float2 f2 = __bfloat1622float2(pair[2]);
-        const float2 f3 = __bfloat1622float2(pair[3]);
-        float4* dst = reinterpret_cast<float4*>(gs + r * H4p + c * 8);
-        dst[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
-        dst[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
-      }
-      __syncthreads();
-      float acc = 0.0f;
-      if (pr < rows) {
-        const float* gv = gs + pr * H4p + half * 2 * H;
-        const float* wv = ws + pu * H4p + half * 2 * H;
-        for (int k = 0; k < 2 * H; k += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(gv + k);
-          const float4 b = *reinterpret_cast<const float4*>(wv + k);
-          acc = fmaf(a.x, b.x, acc);
-          acc = fmaf(a.y, b.y, acc);
-          acc = fmaf(a.z, b.z, acc);
-          acc = fmaf(a.w, b.w, acc);
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int e = e0 + q * kThreads + tid;
+        const int j = j0 + e % kBwdUnits;
+        if (e >= items || j >= H) continue;
+        const float gi = to_f(ga4[q][0]), gf = to_f(ga4[q][1]);
+        const float gg = to_f(ga4[q][2]), go = to_f(ga4[q][3]);
+        const float c_new = in[q][0], c_prev = in[q][1], m = in[q][2];
+        const size_t row = step_row + e / kBwdUnits;
+        const float DH = st_dh[e];
+        const float DC = st_dc[e];
+        const float dh_new = m * (to_f(dout[q]) + DH);
+        const float tc = tanhf(c_new);
+        const float do_ = dh_new * tc;
+        const float dc_new = m * DC + dh_new * go * (1.0f - tc * tc);
+        st_dc[e] = dc_new * gf + (1.0f - m) * DC;
+        const float dg4[4] = {
+            dc_new * gg * gi * (1.0f - gi),
+            dc_new * c_prev * gf * (1.0f - gf),
+            dc_new * gi * (1.0f - gg * gg),
+            do_ * go * (1.0f - go),
+        };
+        T* dxr = dx + row * H4;
+        unsigned short* gr = reinterpret_cast<unsigned short*>(gnow) +
+                             static_cast<size_t>(rr.b0 + e / kBwdUnits) * H4;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          store_f(dxr + k * H + j, dg4[k]);
+          __stcg(gr + k * H + j, __bfloat16_as_ushort(__float2bfloat16(dg4[k])));
         }
       }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 8);
-      if (pr < rows && half == 0) {
-        const int b = b0 + pr;
-        const float m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(b) * p.T + t];
-        const size_t si = (static_cast<size_t>(d) * p.B + b) * H + j0 + pu;
-        p.dh_state[si] = acc + (1.0f - m) * p.dh_state[si];
+    }
+    if (t == 0) break;  // the cotangent of the initial state is not needed
+
+    __syncthreads();
+    if (tid == 0) {
+      dir_arrive(counter);
+      dir_wait(counter, static_cast<unsigned>((s + 1) * unit_groups));
+    }
+    __syncthreads();  // every CTA sharing these rows has published step t
+
+    // Phase B: DH of the CTA's units, 16 rows at a time.
+    auto stage = [&](int c) {
+      __nv_bfloat16* dst = gs + (c & 1) * kBwdRows * gstride;
+      const int r0 = c * kBwdRows;
+      const int rows = min(kBwdRows, rr.n - r0);
+      for (int e = tid; e < rows * vecs; e += kThreads) {
+        const int r = e / vecs;
+        const int v = e % vecs;
+        cp_async16(dst + r * gstride + v * 8,
+                   gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + v * 8);
+      }
+    };
+    stage(0);
+    cp_async_commit();
+    if (n_chunks > 1) stage(1);
+    cp_async_commit();
+    // The next phase A's inputs into L2 while phase B runs.
+    {
+      const size_t prev = step_row - step_rows;
+      for (int e = tid; e < rr.n * 8; e += kThreads) {
+        const size_t row = prev + e / 8;
+        const int k = e % 8;
+        if (k < 4) prefetch_l2(gact + row * H4 + k * H + j0);
+        else if (k == 4) prefetch_l2(p.c_keep + row * H + j0);
+        else if (k == 5 && t > 1) prefetch_l2(p.c_keep + (row - step_rows) * H + j0);
+        else if (k == 6 && douts != nullptr) prefetch_l2(douts + row * H + j0);
       }
     }
+    for (int c = 0; c < n_chunks; ++c) {
+      const int rows = min(kBwdRows, rr.n - c * kBwdRows);
+      cp_async_wait_one();
+      __syncthreads();
+      float acc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+      const __nv_bfloat16* gb = gs + (c & 1) * kBwdRows * gstride;
+#pragma unroll
+      for (int i = 0; i < kBwdKt; ++i) {
+        const int kt = warp + i * kWarps;
+        if (kt >= KT) break;
+        uint32_t a[4];
+        ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kt * 16 +
+                           (lane >> 4) * 8);
+        mma_bf16(acc[0], a, wf[i][0][0], wf[i][0][1]);
+        mma_bf16(acc[1], a, wf[i][1][0], wf[i][1][1]);
+      }
+      float* pw = part + warp * kBwdRows * kBwdPartStride;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pw[(g + (q >> 1) * 8) * kBwdPartStride + nt * 8 + 2 * tq + (q & 1)] = acc[nt][q];
+      __syncthreads();
+      if (c + 2 < n_chunks) stage(c + 2);
+      cp_async_commit();
+      if (er < rows && j0 + eu < H) {
+        const int bl = c * kBwdRows + er;
+        const float m =
+            p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
+        float sum = 0.0f;
+#pragma unroll
+        for (int w8 = 0; w8 < kWarps; ++w8)
+          sum += part[(w8 * kBwdRows + er) * kBwdPartStride + eu];
+        const int si = bl * kBwdUnits + eu;
+        st_dh[si] = sum + (1.0f - m) * st_dh[si];
+      }
+    }
+    __syncthreads();  // DH complete before the next phase A reads it
   }
 }
 
-constexpr int kTile = 64;     // dW_hh output tile (rows k of H x columns of 4H)
-constexpr int kChunk = 16;    // reduction rows staged per pass
+// dW_hh tiles: 128 k (of H) x 256 columns (of 4H), 32 rows of the
+// reduction a stage; 16 warps as 4 x 4 blocks of 32 x 64. Large tiles
+// because the product reads its operands from L2 once per tile row or
+// column: at 64 x 128 the re-reads (2 GB at B = 128) bounded it.
+constexpr int kDwM = 128;
+constexpr int kDwN = 256;
+constexpr int kDwK = 32;
+constexpr int kDwThreads = 512;
+constexpr int kDwAStride = kDwM + 8;  // bf16; ldmatrix rows in distinct banks
+constexpr int kDwBStride = kDwN + 8;
+constexpr size_t kDwSmem = 2 * kDwK * (kDwAStride + kDwBStride) * 2;
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return pack2(__float2bfloat16(lo), __float2bfloat16(hi));  // nearest even
+}
+
+// Eight consecutive values of a dW_hh operand row, held as loaded until
+// they are stored to shared memory as bf16, so that the loads of the next
+// stage stay in flight during the current stage's products.
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* src) {
+    a = __ldg(reinterpret_cast<const float4*>(src));
+    b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ __forceinline__ uint4 bf16() const {
+    return make_uint4(bf16_pair(a.x, a.y), bf16_pair(a.z, a.w), bf16_pair(b.x, b.y),
+                      bf16_pair(b.z, b.w));
+  }
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* src) {
+    v = __ldg(reinterpret_cast<const uint4*>(src));
+  }
+  __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ uint4 bf16() const { return v; }
+};
 
 // dw[d][k][c] = sum over t >= 1 and b of
-//   bf16(h_keep[t - 1][d][b][k]) * bf16(dxproj[t][d][b][c]).
+//   bf16(h_keep[t - 1][d][b][k]) * bf16(dxproj[t][d][b][c]),
+// the reduction split in blockIdx.z / ND parts of `split_steps` stages
+// each: part 0 goes to dw, part s > 0 to part[s - 1] (ND, H, 4H), summed
+// into dw in order by lstm_seq_dw_sum_kernel.
 template <typename T>
-__global__ void __launch_bounds__(256) lstm_seq_dw_kernel(
-    const float* h_keep, const T* dxproj, float* dw, int Tn, int ND, int B, int H) {
-  __shared__ __align__(16) float as[kChunk][kTile];
-  __shared__ __align__(16) float bs[kChunk][kTile];
+__global__ void __launch_bounds__(kDwThreads, 1) lstm_seq_dw_kernel(
+    const float* __restrict__ h_keep, const T* __restrict__ dxproj, float* __restrict__ dw,
+    float* __restrict__ part, int split_steps, int Tn, int ND, int B, int H) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto as = reinterpret_cast<__nv_bfloat16(*)[kDwK][kDwAStride]>(smem);  // [2][q][k]
+  auto bs = reinterpret_cast<__nv_bfloat16(*)[kDwK][kDwBStride]>(
+      smem + 2 * kDwK * kDwAStride * 2);  // [2][q][c]
   const int H4 = 4 * H;
-  const int c0 = blockIdx.x * kTile;
-  const int k0 = blockIdx.y * kTile;
-  const int d = blockIdx.z;
-  const int tx = threadIdx.x % 16;  // 4 columns c each
-  const int ty = threadIdx.x / 16;  // 4 rows k each
-  const int n_rows = (Tn - 1) * B;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-
-  for (int q0 = 0; q0 < n_rows; q0 += kChunk) {
-    for (int e = threadIdx.x; e < kChunk * kTile; e += 256) {
-      const int rr = e / kTile;
-      const int col = e % kTile;
-      const int q = q0 + rr;
-      float a = 0.0f;
-      float v = 0.0f;
-      if (q < n_rows) {
-        const int t = q / B + 1;
-        const int b = q % B;
-        const int k = k0 + col;
-        const int c = c0 + col;
-        if (k < H)
-          a = h_keep[((static_cast<size_t>(t - 1) * ND + d) * B + b) * H + k];
-        if (c < H4)
-          v = load_f(dxproj + ((static_cast<size_t>(t) * ND + d) * B + b) * H4 + c);
+  const int n0 = blockIdx.x * kDwN;
+  const int m0 = blockIdx.y * kDwM;
+  const int d = blockIdx.z % ND;
+  const int split = blockIdx.z / ND;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const int q_begin = split * split_steps * kDwK;
+  const int q_end = min((Tn - 1) * B, q_begin + split_steps * kDwK);
+  // Staging: eight k of one h row and sixteen columns of one dxproj row a
+  // thread (H and 4H are multiples of 8: a group is all in range or none).
+  const int lq = tid / 16;
+  const int la = (tid % 16) * 8;
+  const int lb = (tid % 16) * 16;
+  Raw8<float> va;
+  Raw8<T> vb0, vb1;
+  auto fetch = [&](int q0) {
+    const int q = q0 + lq;
+    va.zero();
+    vb0.zero();
+    vb1.zero();
+    if (q < q_end) {
+      const int t = q / B + 1;
+      const int b = q % B;
+      if (m0 + la < H)
+        va.load(h_keep + ((static_cast<size_t>(t - 1) * ND + d) * B + b) * H + m0 + la);
+      if (n0 + lb < H4) {
+        const T* src = dxproj + ((static_cast<size_t>(t) * ND + d) * B + b) * H4 + n0 + lb;
+        vb0.load(src);
+        vb1.load(src + 8);
       }
-      as[rr][col] = __bfloat162float(__float2bfloat16(a));
-      bs[rr][col] = __bfloat162float(__float2bfloat16(v));
     }
+  };
+  float acc[2][8][4] = {};
+  fetch(q_begin);
+  const int k_steps = (q_end - q_begin + kDwK - 1) / kDwK;
+  for (int s = 0; s < k_steps; ++s) {
+    const int st = s & 1;
+    *reinterpret_cast<uint4*>(&as[st][lq][la]) = va.bf16();
+    *reinterpret_cast<uint4*>(&bs[st][lq][lb]) = vb0.bf16();
+    *reinterpret_cast<uint4*>(&bs[st][lq][lb + 8]) = vb1.bf16();
     __syncthreads();
+    if (s + 1 < k_steps) fetch(q_begin + (s + 1) * kDwK);  // in flight during the products
 #pragma unroll
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[rr][ty * 4]);
-      const float4 v = *reinterpret_cast<const float4*>(&bs[rr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float vv[4] = {v.x, v.y, v.z, v.w};
+    for (int ks = 0; ks < kDwK; ks += 16) {
+      uint32_t a[2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int mi = 0; mi < 2; ++mi) {
+        // A = h^T: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+        // (m 8-15, k 8-15) of the [q][k] tile, each transposed.
+        ldmatrix_x4_trans(a[mi], &as[st][ks + (lane & 7) + (lane >> 4) * 8]
+                                    [wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8]);
+      }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], vv[jj], acc[i][jj]);
+      for (int pair = 0; pair < 4; ++pair) {
+        uint32_t bf[4];  // b0, b1 of n-tiles 2 pair and 2 pair + 1
+        ldmatrix_x4_trans(bf, &bs[st][ks + (lane & 7) + ((lane >> 3) & 1) * 8]
+                                 [wn * 64 + pair * 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * pair], a[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * pair + 1], a[mi], bf[2], bf[3]);
+        }
+      }
     }
-    __syncthreads();
+    // The next iteration writes the other stage; the one after that
+    // rewrites this one only after the next iteration's barrier.
   }
+  float* out = split == 0 ? dw : part + static_cast<size_t>(split - 1) * ND * H * H4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = c0 + tx * 4 + jj;
-      if (c < H4) dw[(static_cast<size_t>(d) * H + k) * H4 + c] = acc[i][jj];
+    for (int half = 0; half < 2; ++half) {
+      const int k = m0 + wm * 32 + mi * 16 + g + half * 8;
+      if (k >= H) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = n0 + wn * 64 + nt * 8 + 2 * tq;
+        if (c < H4) {
+          *reinterpret_cast<float2*>(out + (static_cast<size_t>(d) * H + k) * H4 + c) =
+              make_float2(acc[mi][nt][2 * half], acc[mi][nt][2 * half + 1]);
+        }
+      }
     }
   }
 }
 
+// dw += part[0] + part[1] + ... in that order: the split sum is the same
+// from launch to launch.
+__global__ void __launch_bounds__(kThreads) lstm_seq_dw_sum_kernel(
+    float4* __restrict__ dw, const float4* __restrict__ part, int splits, size_t n4) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; i < n4;
+       i += static_cast<size_t>(gridDim.x) * kThreads) {
+    float4 v = dw[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 w = part[(s - 1) * n4 + i];
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    dw[i] = v;
+  }
+}
+
+// Parts of the dW_hh reduction: about two CTAs a streaming multiprocessor
+// (one is resident at a time; the next one's loads start as the last
+// finishes), each part at least 16 stages long.
+int dw_splits(int T, int ND, int B, int H) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  const int tiles = ((4 * H + kDwN - 1) / kDwN) * ((H + kDwM - 1) / kDwM) * ND;
+  const int steps = ((T - 1) * B + kDwK - 1) / kDwK;
+  int splits = (2 * sms + tiles - 1) / tiles;
+  if (splits > steps / 16) splits = steps / 16;
+  return splits < 1 ? 1 : splits;
+}
+
 template <typename T>
-int launch_bwd(const BwdParams& p, float* dw, cudaStream_t stream) {
-  int rc = launch_cooperative(&lstm_seq_bwd_kernel<T>, p, p.ND * (p.H / kUnits),
-                              bwd_smem_bytes(p.H), stream);
+int launch_bwd(const BwdParams& p, float* dw, float* dw_part, int splits,
+               cudaStream_t stream) {
+  const int H = p.H;
+  int rc = launch_recurrence(&lstm_seq_bwd_kernel<T>, p, (H + kBwdUnits - 1) / kBwdUnits,
+                             kBwdRows, [H](int nb) { return bwd_smem_bytes(H, nb); }, stream);
   if (rc != 0) return rc;
-  const dim3 grid((4 * p.H + kTile - 1) / kTile, (p.H + kTile - 1) / kTile, p.ND);
-  lstm_seq_dw_kernel<T><<<grid, 256, 0, stream>>>(
-      p.h_keep, static_cast<const T*>(p.dxproj), dw, p.T, p.ND, p.B, p.H);
+  const int steps = ((p.T - 1) * p.B + kDwK - 1) / kDwK;
+  const int split_steps = (steps + splits - 1) / splits;
+  const dim3 dgrid((4 * H + kDwN - 1) / kDwN, (H + kDwM - 1) / kDwM, p.ND * splits);
+  rc = static_cast<int>(cudaFuncSetAttribute(&lstm_seq_dw_kernel<T>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(kDwSmem)));
+  if (rc != 0) return rc;
+  lstm_seq_dw_kernel<T><<<dgrid, kDwThreads, kDwSmem, stream>>>(
+      p.h_keep, static_cast<const T*>(p.dxproj), dw, dw_part, split_steps, p.T, p.ND, p.B, H);
+  if (splits > 1) {
+    const size_t n4 = static_cast<size_t>(p.ND) * H * H;  // ND x H x 4H floats / 4
+    const int blocks = static_cast<int>((n4 + kThreads - 1) / kThreads);
+    lstm_seq_dw_sum_kernel<<<blocks < 1024 ? blocks : 1024, kThreads, 0, stream>>>(
+        reinterpret_cast<float4*>(dw), reinterpret_cast<const float4*>(dw_part), splits, n4);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,25 +509,21 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H both kernels' shared-memory layouts take.
-extern "C" int vct_lstm_seq_train_max_hidden() {
-  const int f = vct::fwd_max_hidden();
-  const int b = vct::bwd_max_hidden();
-  return f < b ? f : b;
-}
+// Largest H both kernels take.
+extern "C" int vct_lstm_seq_train_max_hidden() { return vct::kMaxHidden; }
 
 static bool bad_shape(int T, int ND, int B, int H) {
   return T <= 0 || ND <= 0 || B <= 0 || H <= 0 || H % vct::kUnits != 0 ||
-         H > vct_lstm_seq_train_max_hidden();
+         H > vct::kMaxHidden;
 }
 
-// Forward with residuals. Returns a cudaError_t: 0 when the launch was
-// accepted.
+// Forward with residuals. hbuf is (2, ND, B, H) bf16 and sync (ND, B)
+// unsigned scratch, both uninitialised. Returns a cudaError_t: 0 when the
+// launches were accepted.
 extern "C" int vct_lstm_seq_train_fwd(
     const void* xproj, int xproj_is_bf16, const void* w_hh, const float* mask,
-    void* outs, void* h_last, void* c_last, float* h_state, float* c_state,
-    void* hbuf, void* gact, float* h_keep, float* c_keep, int T, int ND, int B,
-    int H, void* stream) {
+    void* outs, void* h_last, void* c_last, void* hbuf, void* sync, void* gact,
+    float* h_keep, float* c_keep, int T, int ND, int B, int H, void* stream) {
   if (bad_shape(T, ND, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   vct::FwdParams p = {};
   p.xproj = xproj;
@@ -311,9 +532,8 @@ extern "C" int vct_lstm_seq_train_fwd(
   p.outs = outs;
   p.h_last = h_last;
   p.c_last = c_last;
-  p.h_state = h_state;
-  p.c_state = c_state;
   p.hbuf = static_cast<__nv_bfloat16*>(hbuf);
+  p.sync = static_cast<unsigned*>(sync);
   p.gact = gact;
   p.h_keep = h_keep;
   p.c_keep = c_keep;
@@ -326,15 +546,23 @@ extern "C" int vct_lstm_seq_train_fwd(
                        : vct::launch_fwd<float, true>(p, st);
 }
 
-// Backward sweep, then the dW_hh product. dh_state and dc_state hold
-// dh_last and dc_last (float32) on entry and are overwritten. Returns a
-// cudaError_t.
+// How many parts the dW_hh reduction is split into: dw_part of
+// vct_lstm_seq_train_bwd holds that many less one (ND, H, 4H) float32.
+extern "C" int vct_lstm_seq_train_dw_splits(int T, int ND, int B, int H) {
+  return vct::dw_splits(T, ND, B, H);
+}
+
+// Backward sweep, then the dW_hh product. douts, dh_last and dc_last
+// (float32) may be null for zeros; gbuf is (2, ND, B, 4H) bf16, sync
+// (ND, B) unsigned and dw_part (splits - 1, ND, H, 4H) float32 scratch,
+// all uninitialised. Returns a cudaError_t.
 extern "C" int vct_lstm_seq_train_bwd(
     const void* gact, int is_bf16, const float* h_keep, const float* c_keep,
-    const void* w_hh, const float* mask, const void* douts, float* dh_state,
-    float* dc_state, void* gbuf, void* dxproj, float* dw, int T, int ND, int B,
-    int H, void* stream) {
-  if (bad_shape(T, ND, B, H)) return static_cast<int>(cudaErrorInvalidValue);
+    const void* w_hh, const float* mask, const void* douts, const float* dh_last,
+    const float* dc_last, void* gbuf, void* sync, void* dxproj, float* dw, float* dw_part,
+    int splits, int T, int ND, int B, int H, void* stream) {
+  if (bad_shape(T, ND, B, H) || splits < 1 || (splits > 1 && dw_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   vct::BwdParams p = {};
   p.gact = gact;
   p.h_keep = h_keep;
@@ -342,15 +570,16 @@ extern "C" int vct_lstm_seq_train_bwd(
   p.w_hh = static_cast<const __nv_bfloat16*>(w_hh);
   p.mask = mask;
   p.douts = douts;
-  p.dh_state = dh_state;
-  p.dc_state = dc_state;
+  p.dh_last = dh_last;
+  p.dc_last = dc_last;
   p.gbuf = static_cast<__nv_bfloat16*>(gbuf);
+  p.sync = static_cast<unsigned*>(sync);
   p.dxproj = dxproj;
   p.T = T;
   p.ND = ND;
   p.B = B;
   p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? vct::launch_bwd<__nv_bfloat16>(p, dw, st)
-                 : vct::launch_bwd<float>(p, dw, st);
+  return is_bf16 ? vct::launch_bwd<__nv_bfloat16>(p, dw, dw_part, splits, st)
+                 : vct::launch_bwd<float>(p, dw, dw_part, splits, st);
 }

@@ -4,10 +4,10 @@ Counterpart of video_captioning_tpu/ops/lstm_seq_pallas.py
 (lstm_seq_pallas), with the same layout at the public function: xproj
 (T, ND, B, 4H) input projections plus biases, w_hh (ND, H, 4H), mask (B, T)
 or None. On a CUDA tensor ``lstm_seq`` launches the persistent kernel in
-``csrc/lstm_seq.cu``; on a CPU tensor it runs ``lstm_seq_reference``, the
-plain PyTorch version of the same numeric contract: bf16 h and W_hh in
-the recurrent product with float32 sums, float32 gates and state, padded
-steps carry the state and emit 0.
+``csrc/lstm_seq.cu`` (bf16 tensor-core products); on a CPU tensor it runs
+``lstm_seq_reference``, the plain PyTorch version of the same numeric
+contract: bf16 h and W_hh in the recurrent product with float32 sums,
+float32 gates and state, padded steps carry the state and emit 0.
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("lstm_seq")
     fn = lib.vct_lstm_seq
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -112,9 +112,11 @@ def lstm_seq(
     outs = torch.empty((T, ND, B, H), dtype=xproj.dtype, device=dev)
     h_last = torch.empty((ND, B, H), dtype=xproj.dtype, device=dev)
     c_last = torch.empty_like(h_last)
-    h_state = torch.zeros((ND, B, H), dtype=torch.float32, device=dev)
-    c_state = torch.zeros_like(h_state)
-    hbuf = torch.zeros((2, ND, B, H), dtype=torch.bfloat16, device=dev)
+    # Scratch the kernel initialises itself: the h exchange and the
+    # counters of the CTAs that share rows (zeroed on the stream before
+    # each launch; at most one per row and direction).
+    hbuf = torch.empty((2, ND, B, H), dtype=torch.bfloat16, device=dev)
+    sync = torch.empty((ND, B), dtype=torch.int32, device=dev)
     mask_f = None if mask is None else mask.to(torch.float32).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -122,8 +124,7 @@ def lstm_seq(
             xproj.data_ptr(), int(xproj.dtype == torch.bfloat16),
             w_hh.data_ptr(), None if mask_f is None else mask_f.data_ptr(),
             outs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
-            h_state.data_ptr(), c_state.data_ptr(), hbuf.data_ptr(),
-            T, ND, B, H, stream,
+            hbuf.data_ptr(), sync.data_ptr(), T, ND, B, H, stream,
         )
     check_launch(lib, rc, "lstm_seq")
     lstm_seq.launches += 1

@@ -109,10 +109,12 @@ def lstm_seq_train_bwd_reference(
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("lstm_seq_train")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vct_lstm_seq_train_fwd.argtypes = [p, i] + [p] * 11 + [i] * 4 + [p]
+    lib.vct_lstm_seq_train_fwd.argtypes = [p, i] + [p] * 10 + [i] * 4 + [p]
     lib.vct_lstm_seq_train_fwd.restype = i
-    lib.vct_lstm_seq_train_bwd.argtypes = [p, i] + [p] * 10 + [i] * 4 + [p]
+    lib.vct_lstm_seq_train_bwd.argtypes = [p, i] + [p] * 12 + [i] * 5 + [p]
     lib.vct_lstm_seq_train_bwd.restype = i
+    lib.vct_lstm_seq_train_dw_splits.argtypes = [i] * 4
+    lib.vct_lstm_seq_train_dw_splits.restype = i
     lib.vct_lstm_seq_train_max_hidden.argtypes = []
     lib.vct_lstm_seq_train_max_hidden.restype = i
     return lib
@@ -156,16 +158,18 @@ def lstm_seq_train_fwd(
     gact = torch.empty((T, ND, B, H4), dtype=dt, device=dev)
     h_keep = torch.empty((T, ND, B, H), **f32)
     c_keep = torch.empty((T, ND, B, H), **f32)
-    h_state = torch.zeros((ND, B, H), **f32)
-    c_state = torch.zeros((ND, B, H), **f32)
-    hbuf = torch.zeros((2, ND, B, H), dtype=torch.bfloat16, device=dev)
+    # Scratch the kernel initialises itself: the h exchange and the
+    # counters of the CTAs that share rows (zeroed on the stream before
+    # each launch; at most one per row and direction).
+    hbuf = torch.empty((2, ND, B, H), dtype=torch.bfloat16, device=dev)
+    sync = torch.empty((ND, B), dtype=torch.int32, device=dev)
     mask_f = _mask_f32(mask)
     with torch.cuda.device(dev):
         rc = lib.vct_lstm_seq_train_fwd(
             xproj.data_ptr(), int(dt == torch.bfloat16), w_hh.data_ptr(), _ptr(mask_f),
             outs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
-            h_state.data_ptr(), c_state.data_ptr(), hbuf.data_ptr(),
-            gact.data_ptr(), h_keep.data_ptr(), c_keep.data_ptr(),
+            hbuf.data_ptr(), sync.data_ptr(), gact.data_ptr(), h_keep.data_ptr(),
+            c_keep.data_ptr(),
             T, ND, B, H, torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "lstm_seq_train_fwd")
@@ -202,23 +206,26 @@ def lstm_seq_train_bwd(
     if h_keep.dtype != torch.float32 or c_keep.dtype != torch.float32:
         raise ValueError("lstm_seq_train_bwd takes float32 h_keep and c_keep")
     h_keep, c_keep = h_keep.contiguous(), c_keep.contiguous()
-    douts = (torch.zeros((T, ND, B, H), dtype=dt, device=dev) if douts is None
-             else douts.to(dt).contiguous())
-    # The kernel's running cotangents start from dh_last and dc_last.
-    dh_state = (torch.zeros((ND, B, H), **f32) if dh_last is None
-                else dh_last.to(torch.float32).contiguous().clone())
-    dc_state = (torch.zeros((ND, B, H), **f32) if dc_last is None
-                else dc_last.to(torch.float32).contiguous().clone())
+    # A missing cotangent goes to the kernel as a null pointer (zeros).
+    douts = None if douts is None else douts.to(dt).contiguous()
+    dh_last = None if dh_last is None else dh_last.to(torch.float32).contiguous()
+    dc_last = None if dc_last is None else dc_last.to(torch.float32).contiguous()
     gbuf = torch.empty((2, ND, B, H4), dtype=torch.bfloat16, device=dev)
+    sync = torch.empty((ND, B), dtype=torch.int32, device=dev)
     dxproj = torch.empty((T, ND, B, H4), dtype=dt, device=dev)
     dw = torch.empty((ND, H, H4), **f32)
     mask_f = _mask_f32(mask)
     with torch.cuda.device(dev):
+        # The dW_hh reduction runs in parts; all but the first land here and
+        # are summed into dw in a fixed order.
+        splits = lib.vct_lstm_seq_train_dw_splits(T, ND, B, H)
+        dw_part = torch.empty((splits - 1, ND, H, H4), **f32)
         rc = lib.vct_lstm_seq_train_bwd(
             gact.data_ptr(), int(dt == torch.bfloat16), h_keep.data_ptr(), c_keep.data_ptr(),
-            w_hh.data_ptr(), _ptr(mask_f), douts.data_ptr(), dh_state.data_ptr(),
-            dc_state.data_ptr(), gbuf.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
-            T, ND, B, H, torch.cuda.current_stream(dev).cuda_stream,
+            w_hh.data_ptr(), _ptr(mask_f), _ptr(douts), _ptr(dh_last), _ptr(dc_last),
+            gbuf.data_ptr(), sync.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
+            _ptr(dw_part) if splits > 1 else None, splits, T, ND, B, H,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "lstm_seq_train_bwd")
     lstm_seq_train_bwd.launches += 1
