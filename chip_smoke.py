@@ -74,8 +74,11 @@ exits non-zero without printing the final result line:
 7. the CNN backbones: ``fused_bottleneck`` at every stage's identity
    block at B = 32 (float32; bfloat16 at stages 1 and 4), ``matmul_bias_act``
    at stage 1's conv3 with its three epilogues and ``conv1x1`` at stride 2,
-   both int8 kernels at stage 1's 1x1 shapes and the last block's (exactly
-   equal to their plain versions), each also at small odd shapes; then the
+   both int8 kernels at eight small odd shapes, stage 1's 1x1 shapes and
+   the last block's (exactly equal to their plain versions, two launches
+   bitwise equal), then at the 17 shapes of a B = 32 forward, device time
+   against ``torch._int_mm`` by CUDA-graph replay, summed over its 32
+   launches beside the bound; then the
    extraction slice: ``cli.preprocess.VideoFeatureExtractor`` over 2 clips
    of 80 seeded 224 x 224 frames (standing in for the OpenCV decoder) with
    VGG16 and ResNet50 ``folded``, ``fused``, ``fused_s2d``, ``int8`` without
@@ -125,6 +128,7 @@ from video_captioning_tpu_torch.ops.conv1x1 import (
     matmul_bias_act_reference,
 )
 from video_captioning_tpu_torch.ops.int8_matmul import (
+    _launch as int8_launch,
     int8_matmul_requant,
     int8_matmul_requant_reference,
     int8_matmul_residual_requant,
@@ -363,22 +367,25 @@ def check_lstm(device: str, card: str) -> dict:
         print(f"[kernels] lstm_seq (80, 2, 128, 2048) {dtype}: max abs err {err:.3g} "
               f"(tol {LSTM_ATOL[dtype]}), two launches bitwise equal; kernel {ms:.4f} ms "
               f"(graph {dev_ms:.4f} ms), plain {plain_ms:.4f} ms ({card})")
+        T, ND, B, H4 = xproj.shape
+        act = T * ND * B * H4 // 4
+        esz = xproj.element_size()
+        lim = bound(nbytes=esz * (4 * act + act + 2 * ND * B * H4 // 4) + 4 * B * T
+                    + 2 * ND * H4 // 4 * H4, flops=2 * act * H4, peak_flops=BF16_FLOPS)
+        lstm, x = cudnn_lstm(B, device, T=T, H=H4 // 4, dtype=dtype)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: lstm(x), calls=10)
+        if dtype == torch.bfloat16:
+            print(f"[kernels] lstm_seq {dtype}: bound {lim['bound_ms']:.4f} ms "
+                  f"({lim['bound_by']}), cuDNN LSTM forward in {dtype} {lib_ms:.4f} ms ({card})")
         if "main" not in result:
-            T, ND, B, H4 = xproj.shape
-            act = T * ND * B * H4 // 4
-            lstm, x = cudnn_lstm(B, device, T=T, H=H4 // 4)
-            with torch.no_grad():
-                lib_ms = time_ms(lambda: lstm(x), calls=10)
             def seq_call(n):
                 x_n, m_n = xproj[:n], mask[:, :n].contiguous()
                 return lambda: lstm_seq(x_n, w, m_n)
 
             steps = graph_step_ms(seq_call)
             result["main"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  graph_ms=dev_ms, **steps,
-                                  **bound(nbytes=4 * (4 * act + B * T + act + 2 * ND * B * H4 // 4)
-                                          + 2 * ND * H4 // 4 * H4,
-                                          flops=2 * act * H4, peak_flops=BF16_FLOPS))
+                                  graph_ms=dev_ms, **steps, **lim)
             print(f"[kernels] lstm_seq: bound {result['main']['bound_ms']:.4f} ms "
                   f"({result['main']['bound_by']}), cuDNN LSTM forward {lib_ms:.4f} ms; "
                   f"graph T=1 {steps['T1_graph_ms']:.4f} ms, T=80 {steps['T80_graph_ms']:.4f} "
@@ -451,13 +458,13 @@ def check_lstm_edges(device: str, card: str) -> None:
           f"launched twice bitwise equal ({card})")
 
 
-def cudnn_lstm(B: int, device: str, T=80, H=512):
+def cudnn_lstm(B: int, device: str, T=80, H=512, dtype=torch.float32):
     """cuDNN's bidirectional LSTM layer on (T, B, H) inputs: the nearest
     PyTorch call to the recurrence kernels (it also does the input
     projection, which the kernels take precomputed)."""
     torch.backends.cudnn.allow_tf32 = False
-    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(device)
-    x = torch.randn((T, B, H), device=device, requires_grad=True)
+    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(device, dtype)
+    x = torch.randn((T, B, H), device=device, dtype=dtype, requires_grad=True)
     return lstm, x
 
 
@@ -1098,62 +1105,168 @@ def int8_inputs(device: str, M: int, K: int, N: int, seed: int):
     return tuple(t.to(device) for t in (xq, wq, scale, bias, idq))
 
 
+# Small odd shapes at the int8 kernel's edges: K = 13 (the wrapper's padded
+# path), K = 16 and 48 (a partial 64-byte stage), K = 2048 (a full ring);
+# M = 1 and M not a multiple of any tile side; N not a multiple of 8 (byte
+# loads of idq and byte stores); the last two take the 128 x 64 tile, the
+# others the 64 x 64 one, with ragged edges. Each tile is also forced at
+# every shape.
+INT8_EDGE_SHAPES = ((37, 13, 9), (70, 16, 72), (1, 64, 64), (1, 2048, 9), (333, 2048, 100),
+                    (333, 48, 200), (4001, 80, 1000), (8191, 96, 1030))
+# (kernel, M, K, N, int8 out, launches) of one B = 32 int8 ResNet50
+# forward with kernels.int8_conv1x1_pallas: 20 requant and 12 residual
+# launches at 17 shapes.
+INT8_FORWARD_SHAPES = (
+    ("requant", 100352, 64, 64, True, 1), ("requant", 100352, 64, 256, False, 1),
+    ("requant", 100352, 256, 64, True, 2), ("residual", 100352, 64, 256, True, 2),
+    ("requant", 100352, 256, 128, True, 1), ("requant", 25088, 128, 512, False, 1),
+    ("requant", 25088, 512, 128, True, 3), ("residual", 25088, 128, 512, True, 3),
+    ("requant", 25088, 512, 256, True, 1), ("requant", 6272, 256, 1024, False, 1),
+    ("requant", 6272, 1024, 256, True, 5), ("residual", 6272, 256, 1024, True, 5),
+    ("requant", 6272, 1024, 512, True, 1), ("requant", 1568, 512, 2048, False, 1),
+    ("requant", 1568, 2048, 512, True, 2), ("residual", 1568, 512, 2048, True, 1),
+    ("residual", 1568, 512, 2048, False, 1),
+)
+
+
+# The tile shapes the int8 launcher picks from, by the index that forces one,
+# and the build whose requant divides every output.
+INT8_TILES = ("64x64", "128x64")
+INT8_DIVIDE_ALL = ("VCT_INT8_DIVIDE_ALL=1",)
+
+
+def _int8_calls(name: str, xq, wq, scale, bias, idq, s_id: float, so, relu: bool = True):
+    """(kernel call, plain-version call) of one int8 kernel on fixed inputs."""
+    if name == "requant":
+        return (lambda: int8_matmul_requant(xq, wq, scale, bias, so, relu),
+                lambda: int8_matmul_requant_reference(xq, wq, scale, bias, so, relu))
+    return (lambda: int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, so),
+            lambda: int8_matmul_residual_requant_reference(xq, wq, scale, bias, idq, s_id, so))
+
+
+def _int8_equal(name: str, shape: tuple, so, fn, ref) -> torch.Tensor:
+    """Two kernel launches, bitwise equal to each other and to the plain
+    version; returns the result."""
+    got, again, want = fn(), fn(), ref()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"int8 {name} {shape} s_out={so}: two launches differ")
+    if not torch.equal(got, want):
+        n_bad = (got != want).sum().item()
+        raise AssertionError(f"int8 {name} {shape} s_out={so}: {n_bad} entries differ from the "
+                             f"plain version")
+    return got
+
+
+def _int8_bound(name: str, M: int, K: int, N: int, int8_out: bool) -> dict:
+    return bound(nbytes=M * K + N * K + 8 * N + M * N * (1 if int8_out else 4)
+                 + (M * N if name == "residual" else 0),
+                 flops=2 * M * K * N, peak_flops=INT8_OPS)
+
+
 def check_int8_matmul(device: str, card: str) -> tuple:
-    """Both int8 kernels against their plain versions, exactly equal: the
-    requant kernel at stage 1's conv1 (M = 100352, K = 256, N = 64) with
-    int8 and float32 out, the residual kernel at stage 1's conv3 (M =
-    100352, K = 64, N = 256) with int8 out and at the last block (M = 1568,
-    K = 512, N = 2048) with float32 out, each also at small odd shapes
-    (K = 13 takes the byte-load path)."""
+    """Both int8 kernels against their plain versions, exactly equal and
+    bitwise equal over two launches: at the small odd shapes of
+    ``INT8_EDGE_SHAPES`` (int8 and float32 out, ReLU on and off, and xq one
+    byte off 16-byte alignment), then the requant kernel at stage 1's conv1
+    (M = 100352, K = 256, N = 64) with int8 and float32 out, the residual
+    kernel at stage 1's conv3 (M = 100352, K = 64, N = 256) with int8 out
+    and at the last block (M = 1568, K = 512, N = 2048) with float32 out.
+    Then the 17 shapes of one B = 32 forward, kernel against
+    ``torch._int_mm``, both as CUDA-graph replays (device against device),
+    with each tile shape the launcher can pick forced in turn (and bitwise
+    equal to its choice). The returned entries time kernel and
+    ``torch._int_mm`` alike, with CUDA events; the device times are
+    printed."""
     s_out, s_id = 0.1, 0.03
-    for M, K, N in ((37, 13, 9), (70, 16, 72)):
+    for M, K, N in INT8_EDGE_SHAPES:
         xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=60)
-        for so in (s_out, None):
-            for relu in (True, False):
-                if not torch.equal(int8_matmul_requant(xq, wq, scale, bias, so, relu),
-                                   int8_matmul_requant_reference(xq, wq, scale, bias, so, relu)):
-                    raise AssertionError(f"int8_matmul_requant ({M}, {K}, {N}) s_out={so} "
-                                         f"relu={relu}: not equal")
-            if not torch.equal(int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, so),
-                               int8_matmul_residual_requant_reference(xq, wq, scale, bias, idq,
-                                                                      s_id, so)):
-                raise AssertionError(f"int8_matmul_residual_requant ({M}, {K}, {N}): not equal")
-    print("[kernels] int8 kernels at (37, 13, 9) and (70, 16, 72), int8 and float32 out, relu on "
-          "and off: equal to the plain versions")
+        buf = torch.empty(M * K + 1, dtype=torch.int8, device=device)
+        buf[1:] = xq.reshape(-1)
+        # The plain version always reads the aligned copy (cuBLASLt's own
+        # alignment rules are not under test).
+        for x in (xq, buf[1:].view(M, K)):
+            # s_out = 0.004 puts many |y / s_out| past 200, the requant's
+            # clamp-only branch.
+            for so in (s_out, 0.004, None):
+                for relu in (True, False):
+                    fn = _int8_calls("requant", x, wq, scale, bias, idq, s_id, so, relu)[0]
+                    ref = _int8_calls("requant", xq, wq, scale, bias, idq, s_id, so, relu)[1]
+                    _int8_equal("requant", (M, K, N, relu), so, fn, ref)
+                fn = _int8_calls("residual", x, wq, scale, bias, idq, s_id, so)[0]
+                ref = _int8_calls("residual", xq, wq, scale, bias, idq, s_id, so)[1]
+                want = _int8_equal("residual", (M, K, N), so, fn, ref)
+                for tile, label in enumerate(INT8_TILES):
+                    got = int8_launch(x, wq, scale, bias, idq, s_id, so, True, tile=tile)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"int8 residual ({M}, {K}, {N}) s_out={so} tile "
+                                             f"{label}: differs from the plain version")
+    print(f"[kernels] int8 kernels at {len(INT8_EDGE_SHAPES)} odd shapes "
+          f"{list(INT8_EDGE_SHAPES)}, int8 out (s_out 0.1 and 0.004) and float32 out, relu on "
+          f"and off, aligned and unaligned xq, the residual kernel with each tile forced: "
+          f"equal to the plain versions, two launches bitwise equal")
     out = {}
     for name, M, K, N, so in (("requant", 100352, 256, 64, s_out),
                               ("requant", 100352, 256, 64, None),
                               ("residual", 100352, 64, 256, s_out),
                               ("residual", 1568, 512, 2048, None)):
         xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=61)
-        if name == "requant":
-            fn = lambda: int8_matmul_requant(xq, wq, scale, bias, so)  # noqa: E731
-            ref = lambda: int8_matmul_requant_reference(xq, wq, scale, bias, so)  # noqa: E731
-        else:
-            fn = lambda: int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, so)  # noqa
-            ref = lambda: int8_matmul_residual_requant_reference(  # noqa: E731
-                xq, wq, scale, bias, idq, s_id, so)
-        got, want = fn(), ref()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            n_bad = (got != want).sum().item()
-            raise AssertionError(f"int8 {name} ({M}, {K}, {N}) s_out={so}: {n_bad} entries "
-                                 f"differ from the plain version")
+        fn, ref = _int8_calls(name, xq, wq, scale, bias, idq, s_id, so)
+        got = _int8_equal(name, (M, K, N), so, fn, ref)
         share = ((got == 127) | (got == -127)).float().mean().item() if so else 0.0
+        int_mm = lambda: torch._int_mm(xq, wq.t())  # noqa: E731
         ms = time_ms(fn, calls=20)
         dev = graph_ms(fn)
         plain_ms = time_ms(ref, calls=10)
-        lib_ms = time_ms(lambda: torch._int_mm(xq, wq.t()), calls=20)
+        lib_ms = time_ms(int_mm, calls=20)
+        lib_dev = graph_ms(int_mm)
         res = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev,
-                   **bound(nbytes=M * K + N * K + 8 * N + M * N * (1 if so else 4)
-                           + (M * N if name == "residual" else 0),
-                           flops=2 * M * K * N, peak_flops=INT8_OPS))
+                   **_int8_bound(name, M, K, N, so is not None))
         print(f"[kernels] int8_matmul_{name} ({M}, {K}) x ({K}, {N}) "
-              f"{'int8' if so else 'float32'} out: equal to the plain version (saturated share "
-              f"{share:.4f}); kernel {ms:.4f} ms (device {dev:.4f} ms, CUDA graph), plain "
-              f"{plain_ms:.4f} ms, torch._int_mm (no epilogue) {lib_ms:.4f} ms, bound "
-              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+              f"{'int8' if so else 'float32'} out: equal to the plain version, two launches "
+              f"bitwise equal (saturated share {share:.4f}); kernel {ms:.4f} ms (device "
+              f"{dev:.4f} ms, CUDA graph), plain {plain_ms:.4f} ms, torch._int_mm (no epilogue) "
+              f"{lib_ms:.4f} ms (device {lib_dev:.4f} ms, CUDA graph), bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {res['bound_ms'] / dev:.3f} of it "
+              f"reached) ({card})")
         out.setdefault(name, res)
+    totals = {"kernel": 0.0, "bound": 0.0, "int_mm": 0.0, "divide": 0.0}
+    for name, M, K, N, int8_out, launches in INT8_FORWARD_SHAPES:
+        xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=62)
+        so = s_out if int8_out else None
+        fn, ref = _int8_calls(name, xq, wq, scale, bias, idq, s_id, so)
+        _int8_equal(name, (M, K, N), so, fn, ref)
+        got = fn()
+        dev = graph_ms(fn)
+        lib_dev = graph_ms(lambda: torch._int_mm(xq, wq.t()))
+        b = _int8_bound(name, M, K, N, int8_out)
+        totals["kernel"] += launches * dev
+        totals["bound"] += launches * b["bound_ms"]
+        totals["int_mm"] += launches * lib_dev
+        variants = [(label, dict(tile=t)) for t, label in enumerate(INT8_TILES)]
+        if int8_out:  # float32 out has no requant
+            variants.append(("divide every output", dict(defines=INT8_DIVIDE_ALL)))
+        forced = {}
+        for label, kw in variants:
+            call = lambda: int8_launch(  # noqa: E731
+                xq, wq, scale, bias, idq if name == "residual" else None, s_id, so, True, **kw)
+            if not torch.equal(call(), got):
+                raise AssertionError(f"int8 {name} ({M}, {K}, {N}) {label}: differs from the "
+                                     f"kernel")
+            forced[label] = graph_ms(call)
+        totals["divide"] += launches * forced.get("divide every output", dev)
+        print(f"[kernels] int8 forward shape: {name} ({M}, {K}, {N}) "
+              f"{'int8' if int8_out else 'float32'} out x{launches}: kernel device {dev:.4f} ms "
+              f"(forced: {', '.join(f'{k} {v:.4f}' for k, v in forced.items())}), "
+              f"torch._int_mm device {lib_dev:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bound_ms'] / dev:.3f} of it "
+              f"reached) ({card})")
+        del xq, wq, scale, bias, idq
+    n = sum(s[-1] for s in INT8_FORWARD_SHAPES)
+    print(f"[kernels] int8 forward, {n} launches at {len(INT8_FORWARD_SHAPES)} shapes "
+          f"(sum of launches x device ms, CUDA graphs): kernels {totals['kernel']:.4f} ms, "
+          f"bound {totals['bound']:.4f} ms, torch._int_mm {totals['int_mm']:.4f} ms; with the "
+          f"divide on every output {totals['divide']:.4f} ms ({card})")
     return out["requant"], out["residual"]
 
 

@@ -27,7 +27,10 @@ from video_captioning_tpu_torch.ops.conv1x1 import (
 )
 from video_captioning_tpu_torch.ops.int8_matmul import (
     int8_matmul_requant,
+    int8_matmul_requant_reference,
     int8_matmul_residual_requant,
+    int8_matmul_residual_requant_reference,
+    pad_k16,
 )
 
 # int8 outputs: XLA fuses an FMA into the JAX epilogue where the port rounds
@@ -154,10 +157,18 @@ def _compare_int8(got: torch.Tensor, want: np.ndarray) -> None:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("s_out", [0.1, None], ids=["int8_out", "f32_out"])
+# (256, 64, 48) keeps its original IDs; the others are shapes of the
+# ResNet50 ladder at small M, and K = 13 (the kernel's padded path).
+INT8_CASES = [pytest.param(s_out, shape, id=tag + suffix)
+              for shape, suffix in (((256, 64, 48), ""), ((200, 512, 128), "-200x512x128"),
+                                    ((130, 128, 512), "-130x128x512"), ((37, 13, 9), "-37x13x9"))
+              for s_out, tag in ((0.1, "int8_out"), (None, "f32_out"))]
+
+
+@pytest.mark.parametrize("s_out,shape", INT8_CASES)
 @pytest.mark.parametrize("relu", [True, False])
-def test_int8_matmul_requant_plain_version_matches_pallas(s_out, relu):
-    xq, wq, scale, bias, _ = _int8_case(256, 64, 48, seed=6)
+def test_int8_matmul_requant_plain_version_matches_pallas(s_out, shape, relu):
+    xq, wq, scale, bias, _ = _int8_case(*shape, seed=6)
     want = np.asarray(jax_int8_requant(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
                                        jnp.asarray(bias), s_out=s_out, relu=relu,
                                        interpret=True))
@@ -166,12 +177,37 @@ def test_int8_matmul_requant_plain_version_matches_pallas(s_out, relu):
     _compare_int8(got, want)
 
 
-@pytest.mark.parametrize("s_out", [0.1, None], ids=["int8_out", "f32_out"])
-def test_int8_matmul_residual_requant_plain_version_matches_pallas(s_out):
-    xq, wq, scale, bias, idq = _int8_case(256, 64, 48, seed=7)
+@pytest.mark.parametrize("s_out,shape", INT8_CASES)
+def test_int8_matmul_residual_requant_plain_version_matches_pallas(s_out, shape):
+    xq, wq, scale, bias, idq = _int8_case(*shape, seed=7)
     want = np.asarray(jax_int8_residual(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
                                         jnp.asarray(bias), jnp.asarray(idq), 0.03,
                                         s_out=s_out, interpret=True))
     got = int8_matmul_residual_requant(_t(xq, torch.int8), _t(wq.T, torch.int8), _t(scale),
                                        _t(bias), _t(idq, torch.int8), 0.03, s_out=s_out)
     _compare_int8(got, want)
+
+
+@pytest.mark.parametrize("K", [13, 64, 100])
+def test_int8_pad_k16_leaves_the_plain_version_bitwise_equal(K):
+    xq, wq, scale, bias, idq = (torch.from_numpy(a) for a in _int8_case(37, K, 9, seed=8))
+    wq = wq.t().contiguous()
+    # An unaligned start: a view one byte into a larger buffer.
+    xq_off = torch.zeros(37 * K + 1, dtype=torch.int8)
+    xq_off[1:] = xq.reshape(-1)
+    xq_off = xq_off[1:].view(37, K)
+    xp, wp = pad_k16(xq_off, wq)
+    assert xp.shape[1] % 16 == 0 and xp.shape[1] - K < 16 and wp.shape[1] == xp.shape[1]
+    assert xp.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0
+    assert torch.equal(xp[:, :K], xq) and not xp[:, K:].any() and not wp[:, K:].any()
+    for s_out in (0.1, None):
+        for relu in (True, False):
+            assert torch.equal(int8_matmul_requant_reference(xp, wp, scale, bias, s_out, relu),
+                               int8_matmul_requant_reference(xq, wq, scale, bias, s_out, relu))
+        assert torch.equal(
+            int8_matmul_residual_requant_reference(xp, wp, scale, bias, idq, 0.03, s_out),
+            int8_matmul_residual_requant_reference(xq, wq, scale, bias, idq, 0.03, s_out))
+    # torch's CPU allocator aligns to 64 bytes: an aligned K % 16 == 0 pair
+    # passes through uncopied.
+    xa, wa = xq.clone(), wq.clone()
+    assert (pad_k16(xa, wa)[0] is xa) == (K % 16 == 0)

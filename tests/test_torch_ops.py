@@ -216,3 +216,20 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library("topk_lse")
     assert not (tmp_path / "build").exists()
+
+
+def test_build_variant_passes_its_defines_and_gets_its_own_library(monkeypatch, tmp_path):
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho \"$@\"\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="-DVCT_INT8_DIVIDE_ALL=1"):
+        build.load_library("int8_matmul", ("VCT_INT8_DIVIDE_ALL=1",))
+    plain = build._library_path("int8_matmul", build.NVCC_FLAGS)
+    variant = build._library_path("int8_matmul", (*build.NVCC_FLAGS, "-DVCT_INT8_DIVIDE_ALL=1"))
+    assert plain != variant
+    assert plain == build._library_path("int8_matmul", build.NVCC_FLAGS)

@@ -57,30 +57,32 @@ def find_nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+def _library_path(name: str, flags: Sequence[str]) -> Path:
     # The shared headers are part of every source's hash.
     parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
-                            + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts) + " ".join(flags).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``. Thread-safe, with one
-    lock per source, so different sources build in parallel; the library
-    is cached for the life of the process."""
+def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, with ``-D`` for each of
+    ``defines`` (a variant built to time against the plain build).
+    Thread-safe, with one lock per build, so different sources build in
+    parallel; the library is cached for the life of the process."""
+    key = " ".join([name, *defines])
     with _lock:
-        name_lock = _name_locks.setdefault(name, threading.Lock())
+        name_lock = _name_locks.setdefault(key, threading.Lock())
     with name_lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is not None:
             return lib
-        so = _library_path(name)
+        flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+        so = _library_path(name, flags)
         if not so.exists():
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
@@ -89,14 +91,14 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"{proc.stdout}\n{proc.stderr}"
                 )
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-            build_logs[name] = (
+            build_logs[key] = (
                 f"built {so.name} in {time.perf_counter() - t0:.1f}s\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         lib = ctypes.CDLL(str(so))
         lib.vct_error_string.argtypes = [ctypes.c_int]
         lib.vct_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[key] = lib
         return lib
 
 

@@ -12,6 +12,10 @@ Every float operation rounds once, on both sides (the kernel uses
 an FMA), so the kernel in ``csrc/int8_matmul.cu`` equals the plain version
 exactly. XLA fuses an FMA into the JAX epilogue, so against the JAX package
 an entry can differ by one int8 step.
+
+The kernel runs its products on the int8 tensor cores, which take K in
+16-byte steps from 16-byte aligned rows; the wrapper zero-pads K where a
+shape or pointer does not allow that (``pad_k16``), which is exact.
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ Tensor = torch.Tensor
 def int_matmul(xq: Tensor, wq: Tensor) -> Tensor:
     """Exact int8 (M, K) x int8 (N, K)^T -> int32 (M, N) through
     ``torch._int_mm`` (cuBLASLt on the card), with K and N padded to
-    multiples of 8 and, on the card, M to at least 17, as cuBLASLt asks."""
+    multiples of 8 and, on the card, N to a multiple of 64 and M to at
+    least 17, as cuBLASLt asks. The N rule rests on one case: an H100
+    refused N = 1032 (1030 padded to 8) at M = 8191, K = 96."""
     M, K = xq.shape
     N = wq.shape[0]
-    pad_k, pad_n = -K % 8, -N % 8
+    pad_k, pad_n = -K % 8, -N % (64 if xq.is_cuda else 8)
     if pad_k:
         xq = torch.nn.functional.pad(xq, (0, pad_k))
     if pad_k or pad_n:
@@ -93,17 +99,39 @@ def _check(xq: Tensor, wq: Tensor, scale: Tensor, bias: Tensor, idq: Optional[Te
         raise ValueError("int8 matmul takes a contiguous xq")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = load_library("int8_matmul")
+def pad_k16(xq: Tensor, wq: Tensor) -> tuple:
+    """(xq, wq) as the kernel takes them: K a multiple of 16 and both start
+    16-byte aligned. Otherwise both are copied into zero-filled (M, Kp) and
+    (N, Kp) tensors, Kp = K rounded up to 16; the zero columns add nothing
+    to any product."""
+    K = xq.shape[1]
+    if K % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0:
+        return xq, wq
+    Kp = K + (-K % 16)
+    padded = []
+    for t in (xq, wq):
+        p = t.new_zeros((t.shape[0], Kp))
+        p[:, :K] = t
+        padded.append(p)
+    return tuple(padded)
+
+
+def _kernel_lib(defines: tuple = ()) -> ctypes.CDLL:
+    lib = load_library("int8_matmul", defines)
     fn = lib.vct_int8_matmul_requant
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu) -> Tensor:
-    lib = _kernel_lib()
+def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu, tile: int = -1,
+            defines: tuple = ()) -> Tensor:
+    """One kernel launch. ``tile`` -1 lets the C launcher pick the tile
+    shape, 0 or 1 forces 64 x 64 or 128 x 64, and ``defines`` picks a
+    variant build, to time them against each other."""
+    lib = _kernel_lib(defines)
+    xq, wq = pad_k16(xq, wq)
     M, K = xq.shape
     N = wq.shape[0]
     out = torch.empty((M, N), dtype=torch.float32 if s_out is None else torch.int8,
@@ -116,7 +144,7 @@ def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu) -> Tensor:
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             idq.data_ptr() if idq is not None else None, float(s_id),
             1.0 if s_out is None else float(s_out), out.data_ptr(),
-            M, K, N, int(relu), int(s_out is not None), stream)
+            M, K, N, int(relu), int(s_out is not None), tile, stream)
     check_launch(lib, rc, "int8 matmul")
     return out
 
