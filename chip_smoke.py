@@ -121,7 +121,11 @@ from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, ap
 from video_captioning_tpu_torch.models.weights import init_params_numpy, state_dict_from_jax_params
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
-from video_captioning_tpu_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
+from video_captioning_tpu_torch.ops.bottleneck import (
+    fused_bottleneck,
+    fused_bottleneck_reference,
+    kernel_plan,
+)
 from video_captioning_tpu_torch.ops.conv1x1 import (
     conv1x1,
     matmul_bias_act,
@@ -134,7 +138,12 @@ from video_captioning_tpu_torch.ops.int8_matmul import (
     int8_matmul_residual_requant,
     int8_matmul_residual_requant_reference,
 )
-from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
+from video_captioning_tpu_torch.ops.lstm_cell import (
+    TILES as CELL_TILES,
+    kernel_tile,
+    lstm_cell_fused,
+    lstm_cell_reference,
+)
 from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
     lstm_seq_train_bwd,
@@ -187,8 +196,11 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
 GRAD_FLOOR = 1e-3
 MIN_CLIP_AGREEMENT = 0.95
-# lstm_cell: float32 products on both sides, summed in different orders
-# over In + H = 1536 terms of O(1) gates: a few 1e-6 (no bf16 rounding).
+# lstm_cell: the kernel takes each product by the 3xTF32 split (within
+# about 2^-21 of the float32 product, lo.lo dropped) and sums in float32, in
+# another order than the plain version's float32 products; over In + H =
+# 1536 terms of O(1) gates the two land a few 1e-6 apart (no bf16 rounding;
+# tests/test_torch_decode_kernels.py holds the split's share to a quarter).
 LSTM_CELL_ATOL = 2e-5
 # bahdanau_attend: the JAX kernel test's tolerance
 # (tests/test_pallas_kernels.py:45); float32, sums in different orders.
@@ -204,10 +216,13 @@ VOCAB_RTOL = 1e-5
 # both sides, so the same tolerance holds.
 BEAM_ATTN_ATOL = 1e-5
 # fused_bottleneck and matmul_bias_act: float32 sums of up to 9 * 512
-# products in different orders, held relative to the largest |output|; in
-# bfloat16 the kernel and the plain version round y1 and y2 from sums in
-# different orders, so a value can land one bf16 step (2^-8 relative) away
-# and carry through the next product: 1e-2 of the largest |output|.
+# products in different orders (fused_bottleneck's products by the 3xTF32
+# split, each within about 2^-21 of the float32 product; its share is held
+# to a quarter by tests/test_torch_cnn_kernels.py), held relative to the
+# largest |output|; in bfloat16 the kernel and the plain version round y1
+# and y2 from sums in different orders, so a value can land one bf16 step
+# (2^-8 relative) away and carry through the next product: 1e-2 of the
+# largest |output|.
 CNN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # The extraction slice, card against the CPU plain versions on the same
 # frames: float32 relative L2; the JAX bf16 contract (mean |d| / mean |f32|,
@@ -220,10 +235,11 @@ FEAT_INT8_COS = 0.995
 INT8_VS_F32 = (0.99, 0.12)
 KERNEL_SOURCES = ("topk_lse", "lstm_seq", "lstm_seq_train", "lstm_cell", "bahdanau_attend",
                   "vocab_topk", "transformer_attn", "fused_bottleneck", "conv1x1", "int8_matmul")
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor cores,
-# float32 outside the tensor cores, int8 tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 and TF32 tensor
+# cores, float32 outside the tensor cores, int8 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 INT8_OPS = 1979e12
 
@@ -263,13 +279,21 @@ def build_kernels() -> None:
             print(f"[build]   {line}")
 
 
-def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float, tf32x3: bool = False) -> dict:
     """Least time for the work on an H100 SXM: bytes moved once over the
-    memory rate, or operations over the peak rate for their type."""
+    memory rate, or operations over the peak rate for their type. With
+    ``tf32x3`` (float32 products taken as three TF32 products on the tensor
+    cores) also ``tf32x3_bound_ms``: 3 x operations over the TF32 peak, or
+    the bytes' time, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    res = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if tf32x3:
+        t_tc = 3 * flops / TF32_FLOPS * 1e3
+        res.update(tf32x3_bound_ms=max(t_bytes, t_tc),
+                   tf32x3_bound_by="bytes" if t_bytes >= t_tc else "operations")
+    return res
 
 
 def topk_inputs(device: str, N: int = 640, V: int = 10000) -> torch.Tensor:
@@ -608,35 +632,79 @@ def lstm_cell_inputs(device: str, N: int, In: int, H: int = 512, seed: int = 7):
     return layer, x, h, c
 
 
+# Odd cell shapes: N a multiple of no tile's rows, In = 13 (the 4-byte copy
+# path), H = 40 (a ragged last unit block).
+LSTM_CELL_EDGE_SHAPES = tuple((N, In, H) for N in (1, 37, 129) for In in (13, 512)
+                              for H in (40, 512))
+
+
+def _cell_pair(layer, x, h, c, tile: int = -1):
+    """Two launches on the same inputs: both outputs, and whether they are
+    bitwise equal."""
+    got = lstm_cell_fused(layer, x, h, c, tile=tile)
+    again = lstm_cell_fused(layer, x, h, c, tile=tile)
+    return got, same_bits(got, again)
+
+
 def check_lstm_cell(device: str, card: str) -> dict:
     """The cell kernel against its plain version at the beam step's rows
     (N = B*K = 640) for both decoder layers (In = emb + E = 1024 and
-    In = H = 512), and at the greedy step's N = 128; h and c, which the
-    beam loop still reads, must come back untouched."""
+    In = H = 512), at the greedy step's N = 128, and at odd shapes, with
+    every tile forced in turn; every launch twice, bitwise equal; h and c,
+    which the beam loop still reads, must come back untouched. Device times
+    (CUDA-graph replay) of the kernel, each tile, and torch.lstm_cell."""
+    worst = 0.0
+    for N, In, H in LSTM_CELL_EDGE_SHAPES:
+        layer, x, h, c = lstm_cell_inputs(device, N, In, H)
+        want = lstm_cell_reference(layer, x, h, c)
+        for tile in (-1, *range(len(CELL_TILES))):
+            got, same = _cell_pair(layer, x, h, c, tile)
+            sync(device)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            worst = max(worst, err)
+            if err > LSTM_CELL_ATOL or not same:
+                raise AssertionError(f"lstm_cell N={N} In={In} H={H} tile {tile}: max abs err "
+                                     f"{err:.3g} > {LSTM_CELL_ATOL}, or two launches differ")
+    print(f"[kernels] lstm_cell odd shapes N in (1, 37, 129), In in (13, 512), H in (40, 512), "
+          f"every tile: max abs err {worst:.3g} (tol {LSTM_CELL_ATOL}), two launches bitwise "
+          f"equal")
     results = {}
     for N, In in ((640, 1024), (640, 512), (128, 1024)):
         layer, x, h, c = lstm_cell_inputs(device, N, In)
         h0, c0 = h.clone(), c.clone()
-        got = lstm_cell_fused(layer, x, h, c)
+        got, same = _cell_pair(layer, x, h, c)
         want = lstm_cell_reference(layer, x, h, c)
-        torch.cuda.synchronize()
+        sync(device)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        if err > LSTM_CELL_ATOL or not (torch.equal(h, h0) and torch.equal(c, c0)):
+        if err > LSTM_CELL_ATOL or not same or not (torch.equal(h, h0) and torch.equal(c, c0)):
             raise AssertionError(f"lstm_cell N={N} In={In}: max abs err {err:.3g} > "
-                                 f"{LSTM_CELL_ATOL}, or an input was written")
+                                 f"{LSTM_CELL_ATOL}, two launches differ, or an input was "
+                                 f"written")
         H = h.shape[1]
+
+        def library():
+            return torch.lstm_cell(x, [h, c], layer["w_ih"], layer["w_hh"], layer["b_ih"],
+                                   layer["b_hh"])
+
         res = dict(max_abs_err=err, ms=time_ms(lambda: lstm_cell_fused(layer, x, h, c), 50),
                    plain_ms=time_ms(lambda: lstm_cell_reference(layer, x, h, c), 50),
-                   library_ms=time_ms(lambda: torch.lstm_cell(
-                       x, [h, c], layer["w_ih"], layer["w_hh"], layer["b_ih"], layer["b_hh"]),
-                       50),
+                   library_ms=time_ms(library, 50),
+                   graph_ms=graph_ms(lambda: lstm_cell_fused(layer, x, h, c), 20),
+                   library_graph_ms=graph_ms(library, 20),
                    **bound(nbytes=4 * (N * In + 4 * N * H + 4 * H * (In + H) + 8 * H),
-                           flops=2 * N * 4 * H * (In + H), peak_flops=F32_FLOPS))
+                           flops=2 * N * 4 * H * (In + H), peak_flops=F32_FLOPS, tf32x3=True))
+        tiles = {CELL_TILES[t]: graph_ms(lambda: lstm_cell_fused(layer, x, h, c, tile=t), 20)
+                 for t in range(len(CELL_TILES))}
         results[(N, In)] = res
         print(f"[kernels] lstm_cell N={N} In={In} H={H}: max abs err {err:.3g} (tol "
-              f"{LSTM_CELL_ATOL}), inputs untouched; kernel {res['ms']:.4f} ms, plain "
-              f"{res['plain_ms']:.4f} ms, torch.lstm_cell {res['library_ms']:.4f} ms, bound "
-              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+              f"{LSTM_CELL_ATOL}), two launches bitwise equal, inputs untouched; kernel "
+              f"{res['ms']:.4f} ms (device {res['graph_ms']:.4f} ms, CUDA graph; tile "
+              f"{kernel_tile(N, H) if device == 'cuda' else None}), plain {res['plain_ms']:.4f} "
+              f"ms, torch.lstm_cell {res['library_ms']:.4f} ms (device "
+              f"{res['library_graph_ms']:.4f} ms); bound {res['bound_ms']:.4f} ms (float32 "
+              f"CUDA cores, {res['bound_by']}), {res['tf32x3_bound_ms']:.4f} ms (3xTF32 tensor "
+              f"cores, {res['tf32x3_bound_by']}); device ms by tile (rows, units) "
+              f"{ {k: round(v, 4) for k, v in tiles.items()} } ({card})")
     return results[(640, 1024)]
 
 
@@ -983,35 +1051,50 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+# Small odd shapes (C or Cm not a multiple of 16 bytes take the element
+# copies), and shapes that fill a cluster's work item partly: B = 3 and 5
+# against two images an item, Cm = 160 (a cluster of 3, its last CTA half
+# filled), 14 x 14 against a tiled item.
+BOTTLENECK_EDGE_SHAPES = ((2, 5, 7, 24, 8), (1, 9, 9, 64, 16), (3, 11, 4, 40, 12),
+                          (2, 5, 7, 22, 6), (1, 6, 5, 20, 12), (3, 7, 7, 256, 64),
+                          (5, 14, 14, 128, 32), (3, 7, 7, 512, 160))
+# Identity blocks of a ResNet50 forward at each stage: 2 + 3 + 5 + 2 = 12.
+RESNET_IDENTITY_BLOCKS = (2, 3, 5, 2)
+
+
 def check_fused_bottleneck(device: str, card: str) -> dict:
-    """The fused block against its plain version at every stage's identity
-    block at B = 32 (float32; bfloat16 at stages 1 and 4) and at small odd
-    shapes; the library call is the unfused block through cuDNN (three
-    convs with their biases, the residual add and the ReLUs), TF32 off."""
+    """The fused block against its plain version at the odd and partly
+    filled shapes above and at every stage's identity block at B = 32, in
+    float32 and bfloat16, every launch twice and bitwise equal; the work
+    item the launcher picks; the library call is the unfused block through
+    cuDNN (three convs with their biases, the residual add and the ReLUs),
+    TF32 off, timed by CUDA events and by CUDA-graph replay beside the
+    kernel."""
     torch.backends.cudnn.allow_tf32 = False
-    for (B, H, W, C, Cm), dtype in (((2, 5, 7, 24, 8), torch.float32),
-                                    ((1, 9, 9, 64, 16), torch.bfloat16),
-                                    ((3, 11, 4, 40, 12), torch.float32)):
-        x, ws = bottleneck_inputs(device, B, H, W, C, Cm, dtype, seed=40)
-        err = _rel_err(fused_bottleneck(x, *ws), fused_bottleneck_reference(x, *ws))
-        if not err <= CNN_RTOL[dtype]:
-            raise AssertionError(f"fused_bottleneck {(B, H, W, C, Cm)} {dtype}: err {err:.3g}")
-    print(f"[kernels] fused_bottleneck small odd shapes (2, 5, 7, 24 / 8), (1, 9, 9, 64 / 16) "
-          f"bf16, (3, 11, 4, 40 / 12): within {CNN_RTOL}")
-    result = {}
+    for shape in BOTTLENECK_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ws = bottleneck_inputs(device, *shape[:3], *shape[3:], dtype, seed=40)
+            got, again = fused_bottleneck(x, *ws), fused_bottleneck(x, *ws)
+            err = _rel_err(got, fused_bottleneck_reference(x, *ws))
+            if not err <= CNN_RTOL[dtype] or not same_bits((got,), (again,)):
+                raise AssertionError(f"fused_bottleneck {shape} {dtype}: err {err:.3g}, or two "
+                                     f"launches differ")
+    print(f"[kernels] fused_bottleneck odd and partly filled shapes {BOTTLENECK_EDGE_SHAPES} "
+          f"(B, H, W, C, Cm), float32 and bfloat16: within {CNN_RTOL}, two launches bitwise "
+          f"equal")
+    result, forward = {}, {}
     for stage, (H, C, Cm) in enumerate(RESNET_STAGES, start=1):
         for dtype in (torch.float32, torch.bfloat16):
-            if dtype == torch.bfloat16 and stage not in (1, 4):
-                continue
             B = 32
             x, ws = bottleneck_inputs(device, B, H, H, C, Cm, dtype, seed=41 + stage)
-            got = fused_bottleneck(x, *ws)
+            got, again = fused_bottleneck(x, *ws), fused_bottleneck(x, *ws)
             want = fused_bottleneck_reference(x, *ws)
-            torch.cuda.synchronize()
+            sync(device)
             err = _rel_err(got, want)
-            if not err <= CNN_RTOL[dtype]:
+            if not err <= CNN_RTOL[dtype] or not same_bits((got,), (again,)):
                 raise AssertionError(f"fused_bottleneck stage {stage} {dtype}: max err over the "
-                                     f"largest |output| {err:.3g} > {CNN_RTOL[dtype]}")
+                                     f"largest |output| {err:.3g} > {CNN_RTOL[dtype]}, or two "
+                                     f"launches differ")
             ms = time_ms(lambda: fused_bottleneck(x, *ws), calls=10)
             dev = graph_ms(lambda: fused_bottleneck(x, *ws))
             plain_ms = time_ms(lambda: fused_bottleneck_reference(x, *ws), calls=5)
@@ -1019,18 +1102,34 @@ def check_fused_bottleneck(device: str, card: str) -> dict:
                      "conv3": {"w": ws[4], "b": ws[5]}}
             xn = x.permute(0, 3, 1, 2)
             lib_ms = time_ms(lambda: _bottleneck_folded(block, xn, 1, False), calls=10)
+            lib_dev = graph_ms(lambda: _bottleneck_folded(block, xn, 1, False))
             esize = x.element_size()
+            f32 = dtype == torch.float32
             res = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev,
+                       library_device_ms=lib_dev,
                        **bound(nbytes=esize * (2 * x.numel() + sum(w.numel() for w in ws)),
                                flops=2 * B * H * H * (2 * C * Cm + 9 * Cm * Cm),
-                               peak_flops=F32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+                               peak_flops=F32_FLOPS if f32 else BF16_FLOPS, tf32x3=f32))
+            n = RESNET_IDENTITY_BLOCKS[stage - 1]
+            fwd = forward.setdefault(dtype, {"kernel": 0.0, "cudnn": 0.0})
+            fwd["kernel"] += n * dev
+            fwd["cudnn"] += n * lib_dev
+            plan = kernel_plan(x, Cm) if device == "cuda" else None
+            tc = (f", {res['tf32x3_bound_ms']:.4f} ms (3xTF32 tensor cores, "
+                  f"{res['tf32x3_bound_by']})" if f32 else "")
             print(f"[kernels] fused_bottleneck stage {stage} (B={B}, {H}x{H}, C={C}, Cm={Cm}) "
                   f"{dtype}: max err over the largest |output| {err:.3g} (tol "
-                  f"{CNN_RTOL[dtype]}); kernel {ms:.4f} ms (device {dev:.4f} ms, CUDA graph), "
-                  f"plain {plain_ms:.4f} ms, cuDNN unfused block {lib_ms:.4f} ms, bound "
-                  f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
+                  f"{CNN_RTOL[dtype]}), two launches bitwise equal; work item {plan}; kernel "
+                  f"{ms:.4f} ms (device {dev:.4f} ms, CUDA graph), plain {plain_ms:.4f} ms, "
+                  f"cuDNN unfused block {lib_ms:.4f} ms (device {lib_dev:.4f} ms); bound "
+                  f"{res['bound_ms']:.4f} ms ({'float32 CUDA cores' if f32 else 'bf16'}, "
+                  f"{res['bound_by']}){tc} ({card})")
             result.setdefault("main", res)
+    for dtype, fwd in forward.items():
+        print(f"[kernels] fused_bottleneck {dtype}: the 12 identity blocks of a B = 32 forward "
+              f"(2 + 3 + 5 + 2 a stage) {fwd['kernel']:.4f} ms of device time, cuDNN's unfused "
+              f"blocks {fwd['cudnn']:.4f} ms ({card})")
     return result["main"]
 
 
@@ -1378,7 +1477,8 @@ def run_extraction(card: str, device: str = "cuda", n_clips: int = 2, frames_per
                 if device == "cuda":
                     out["forward_ms"][label] = time_ms(lambda: vfe.backbone.extract_tensor(batch),
                                                        calls=3)
-                    if label in ("resnet50 fused", "resnet50 int8 + int8_conv1x1_pallas"):
+                    if label in ("resnet50 fused", "resnet50 int8 + int8_conv1x1_pallas",
+                                 "resnet50 fused bf16"):
                         out.setdefault("profiles", {})[label] = profile_extract(
                             vfe.backbone, batch, label, card)
                 # The first frames again on the CPU with the plain versions and
@@ -1415,6 +1515,11 @@ def run_extraction(card: str, device: str = "cuda", n_clips: int = 2, frames_per
                       f"{out['forward_ms'].get(label, float('nan')):.3f} ms (CUDA events)")
                 if not ok:
                     raise AssertionError(f"{label}: card vs CPU out of tolerance: {what}")
+            if device == "cuda":
+                fused, folded = (out["forward_ms"][f"resnet50 {v}"] for v in ("fused", "folded"))
+                print(f"[extract] one B={batch_size} ResNet50 forward in this run: fused "
+                      f"{fused:.3f} ms, folded {folded:.3f} ms (fused / folded "
+                      f"{fused / folded:.3f}; {card})")
             vgg_dir = Path(tmp) / "vgg16_xla"
             csv_path = Path(tmp) / "dataset.csv"
             cli_preprocess.create_dataset_csv(videos, vgg_dir, Path(tmp) / "captions.txt",
@@ -1944,7 +2049,6 @@ def main() -> int:
          "video_captioning_tpu_torch/csrc/int8_matmul.cu",
          "video_captioning_tpu/ops/int8_matmul_pallas.py:58", i8_res),
     ):
-        res = {k: v for k, v in res.items() if k != "device_ms"}
         kernels.append({"name": name_, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[counter], **res})
     print(json.dumps({"kernels": kernels}))

@@ -61,8 +61,9 @@ def _port_weights(ws, dtype):
     return (_t(w1.T, dtype), _t(b1, dtype), w2, _t(b2, dtype), _t(w3.T, dtype), _t(b3, dtype))
 
 
-@pytest.mark.parametrize("shape", [(2, 14, 14, 256, 64), (2, 7, 7, 1024, 256)],
-                         ids=["stage1_like", "stage4_like"])
+@pytest.mark.parametrize("shape", [(2, 14, 14, 256, 64), (2, 7, 7, 1024, 256),
+                                   (3, 7, 7, 256, 64), (5, 14, 14, 128, 32)],
+                         ids=["stage1_like", "stage4_like", "odd_batch_7x7", "odd_batch_14x14"])
 def test_fused_bottleneck_plain_version_matches_pallas(shape):
     B, H, W, C, Cm = shape
     x, ws = _bottleneck_case(B, H, W, C, Cm, seed=1)
@@ -103,6 +104,58 @@ def test_fused_bottleneck_wrapper_checks_and_cpu_dispatch():
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_bottleneck(torch.empty((1, 4, 5, 16), device="meta"),
                          *(w.to("meta") for w in pw))
+
+
+# The card's fused_bottleneck tolerance in float32 (chip_smoke.CNN_RTOL).
+CNN_RTOL_F32 = 1e-5
+
+
+def _tf32_rna(a):
+    """float32 rounded to TF32 to nearest, ties away (cvt.rna.tf32.f32)."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a (M, K) . b (N, K)^T by the 3xTF32 split of csrc/tf32x3.cuh:
+    hi.hi + hi.lo + lo.hi, summed in float32."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    t = [torch.from_numpy(v) for v in (ah, al, bh, bl)]
+    return ((t[1] @ t[2].T + t[0] @ t[3].T) + t[0] @ t[2].T).numpy()
+
+
+def test_fused_bottleneck_3xtf32_chain_stays_within_a_quarter_of_the_card_tolerance():
+    """A stage-4 block at full width on one image (7 x 7, C = 2048,
+    Cm = 512), with chip_smoke.bottleneck_inputs' scales (post-ReLU x,
+    He-normal folded weights, w3 at 0.2 of He): the three products chained
+    through the 3xTF32 split against a float64 chain, within
+    CNN_RTOL_F32 / 4 of the largest output."""
+    H = W = 7
+    C, Cm = 2048, 512
+    rs = np.random.RandomState(44)
+
+    def he(*shape, fan_in):
+        return (rs.randn(*shape) * (2.0 / fan_in) ** 0.5).astype(np.float32)
+
+    x = np.abs(rs.randn(H * W, C)).astype(np.float32)
+    w1, b1 = he(Cm, C, fan_in=C), (rs.randn(Cm) * 0.1).astype(np.float32)
+    w2, b2 = he(Cm, 3, 3, Cm, fan_in=9 * Cm), (rs.randn(Cm) * 0.1).astype(np.float32)
+    w3, b3 = he(C, Cm, fan_in=Cm) * np.float32(0.2), (rs.randn(C) * 0.1).astype(np.float32)
+
+    def block(mm, dt):
+        y1 = np.maximum(mm(x.astype(dt), w1.astype(dt)) + b1, 0).astype(dt)
+        pad = np.zeros((H + 2, W + 2, Cm), dt)
+        pad[1:-1, 1:-1] = y1.reshape(H, W, Cm)
+        cols = np.stack([pad[dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)],
+                        axis=2).reshape(H * W, 9 * Cm)  # k = tap * Cm + ci, w2's row order
+        y2 = np.maximum(mm(cols, w2.reshape(Cm, 9 * Cm).astype(dt)) + b2, 0).astype(dt)
+        return np.maximum(mm(y2, w3.astype(dt)) + b3 + x, 0)
+
+    got = block(_mm_3xtf32, np.float32)
+    want = block(lambda a, b: a @ b.T, np.float64)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= CNN_RTOL_F32 / 4, err
 
 
 @pytest.mark.parametrize("epilogue", ["residual_relu", "relu", "residual_no_relu"])

@@ -107,10 +107,12 @@ def _lstm_layer(In, H, seed):
     }
 
 
-@pytest.mark.parametrize("N", [3, 8])
-def test_lstm_cell_reference_matches_pallas(N):
-    """In = 28 != H = 16; block_b = 5 pads N = 8 in the JAX wrapper."""
-    In, H = 28, 16
+@pytest.mark.parametrize("N, In, H", [(3, 28, 16), (8, 28, 16), (37, 13, 40)],
+                         ids=["3", "8", "37-13-40"])
+def test_lstm_cell_reference_matches_pallas(N, In, H):
+    """In = 28 != H = 16; block_b = 5 pads N = 8 in the JAX wrapper. 37-13-40
+    is an odd shape the card's kernel takes on its 4-byte copy path: N not
+    a multiple of any tile's rows, In not a multiple of 4, H = 40."""
     layer = _lstm_layer(In, H, seed=N)
     rs = np.random.RandomState(50 + N)
     x, h, c = (rs.randn(N, d).astype(np.float32) for d in (In, H, H))
@@ -124,6 +126,74 @@ def test_lstm_cell_reference_matches_pallas(N):
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-5, atol=1e-5)
     got = lstm_cell_fused(t_layer, t(x), t(h), t(c))
     assert torch.equal(got[0], got_h) and torch.equal(got[1], got_c)
+
+
+# The card's lstm_cell kernel and its tolerance (chip_smoke.LSTM_CELL_ATOL).
+LSTM_CELL_ATOL = 2e-5
+
+
+def tf32_rna(a: np.ndarray) -> np.ndarray:
+    """float32 rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 does: on the bit pattern, add half
+    of the dropped 13 bits' weight to the magnitude and clear them."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a (M, K) . b (N, K)^T as the kernels take it on the tensor cores:
+    each operand split into hi = rna(v) and lo = rna(v - hi), the products
+    hi.hi + hi.lo + lo.hi (lo.lo dropped) summed in float32."""
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    bh = tf32_rna(b)
+    bl = tf32_rna(b - bh)
+    t = [torch.from_numpy(v) for v in (ah, al, bh, bl)]
+    return ((t[1] @ t[2].T + t[0] @ t[3].T) + t[0] @ t[2].T).numpy()
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_and_rounds_ties_away():
+    one_ulp = np.float32(2.0 ** -10)
+    vals = np.array([1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                     3.0 + 2.0 ** -20], np.float32)
+    want = np.array([1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 3.0], np.float32)
+    np.testing.assert_array_equal(tf32_rna(vals), want)
+    x = np.random.RandomState(0).randn(1000).astype(np.float32)
+    hi = tf32_rna(x)
+    assert (hi.view(np.uint32) & np.uint32(0x1FFF) == 0).all()
+    # hi + lo carries v to about 2^-22 of |v|.
+    lo = tf32_rna(x - hi)
+    assert (np.abs((hi.astype(np.float64) + lo) - x) <= np.abs(x) * 2.0 ** -21).all()
+
+
+def test_lstm_cell_3xtf32_products_stay_within_a_quarter_of_the_card_tolerance():
+    """The beam step's layer-0 cell (N = 640, In = 1024, H = 512) with the
+    recipe of chip_smoke.lstm_cell_inputs (weights uniform in +-1/sqrt(H),
+    x ~ N(0, 1), h = tanh(N(0, 1)), c ~ N(0, 1)): gates from the 3xTF32
+    split, summed in float32, against float64 gates; h' and c' within
+    LSTM_CELL_ATOL / 4, so the card's tolerance has room for the kernel's
+    summation order."""
+    N, In, H = 640, 1024, 512
+    rs = np.random.RandomState(7)
+    r = 1.0 / H ** 0.5
+    w = ((rs.rand(4 * H, In + H) * 2 - 1) * r).astype(np.float32)  # [W_ih | W_hh]
+    b = ((rs.rand(2, 4 * H) * 2 - 1) * r).astype(np.float32)
+    a = np.concatenate([rs.randn(N, In), np.tanh(rs.randn(N, H))], 1).astype(np.float32)
+    c = rs.randn(N, H).astype(np.float32)
+
+    def cell(gates):
+        i, f, g, o = np.split(gates.astype(np.float64) + b[0] + b[1], 4, axis=1)
+        sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+        c_new = sig(f) * c + sig(i) * np.tanh(g)
+        return sig(o) * np.tanh(c_new), c_new
+
+    got = cell(matmul_3xtf32(a, w))
+    want = cell(a.astype(np.float64) @ w.astype(np.float64).T)
+    err = max(np.abs(x - y).max() for x, y in zip(got, want))
+    assert err <= LSTM_CELL_ATOL / 4, err
+    # The split is what keeps it there: one TF32 product is far outside.
+    one = cell((torch.from_numpy(tf32_rna(a)) @ torch.from_numpy(tf32_rna(w)).T).numpy())
+    assert max(np.abs(x - y).max() for x, y in zip(one, want)) > LSTM_CELL_ATOL
 
 
 def _vocab_check(x, W, b, k, vt=128):

@@ -1,5 +1,4 @@
-// A block-wide float32 SIMT tile product, shared by the float kernels of the
-// CNN backbone (conv1x1.cu, fused_bottleneck.cu).
+// A block-wide float32 SIMT tile product, the float kernel of conv1x1.cu.
 //
 // 256 threads compute an RM x RN tile of C = A . B^T (RM in {16, 32, 64},
 // RN = 4096 / RM), each thread a 4 x 4 block in registers. A is read
@@ -300,40 +299,6 @@ __device__ __forceinline__ void tile_gemm(const ALoad& a, const APtr& a_ptr,
       tile_product<RM>(a, B, M, N, K, m0, n0, stage, acc);
     }
     for_each_output<RM>(acc, M, N, m0, n0, epi);
-  }
-}
-
-// The whole product M x N, tile by tile: the block-level GEMM of a CTA
-// that owns all of it (the fused bottleneck's three phases).
-template <int RM, bool kVec, typename T, typename ALoad, typename APtr, typename Epi>
-__device__ __forceinline__ void block_gemm(const ALoad& a, const APtr& a_ptr,
-                                           const T* __restrict__ B, int M, int N, int K,
-                                           float* stage, const Epi& epi) {
-  constexpr int RN = 4096 / RM;
-  for (int m0 = 0; m0 < M; m0 += RM) {
-    for (int n0 = 0; n0 < N; n0 += RN) {
-      tile_gemm<RM, kVec>(a, a_ptr, B, M, N, K, m0, n0, stage, epi);
-    }
-  }
-}
-
-// block_gemm with the tile height that pads M x N least (ties to the
-// taller tile): few rows take a short, wide tile, so fewer threads idle.
-template <bool kVec, typename T, typename ALoad, typename APtr, typename Epi>
-__device__ __forceinline__ void block_gemm_any(const ALoad& a, const APtr& a_ptr,
-                                               const T* __restrict__ B, int M, int N, int K,
-                                               float* stage, const Epi& epi) {
-  auto padded = [=](int rm) {
-    const int rn = 4096 / rm;
-    return ((M + rm - 1) / rm) * rm * ((N + rn - 1) / rn) * rn;
-  };
-  const int p16 = padded(16), p32 = padded(32), p64 = padded(64);
-  if (p64 <= p32 && p64 <= p16) {
-    block_gemm<64, kVec>(a, a_ptr, B, M, N, K, stage, epi);
-  } else if (p32 <= p16) {
-    block_gemm<32, kVec>(a, a_ptr, B, M, N, K, stage, epi);
-  } else {
-    block_gemm<16, kVec>(a, a_ptr, B, M, N, K, stage, epi);
   }
 }
 

@@ -14,9 +14,14 @@ next product, as the TPU kernel does.
 
 On a CUDA tensor ``fused_bottleneck`` launches the kernel in
 ``csrc/fused_bottleneck.cu``; on a CPU tensor it runs
-``fused_bottleneck_reference``, the plain version. The kernel tiles space,
-so it takes every shape: the TPU kernel's ``batch_tile`` VMEM rule has no
-counterpart here.
+``fused_bottleneck_reference``, the plain version (float32 products). The
+kernel takes float32 products on the tensor cores by a 3xTF32 split
+(``csrc/tf32x3.cuh``, each product within about 2^-21 of the float32 one,
+float32 sums) and bfloat16 products on them directly. It splits the Cm
+channels over a thread block cluster of ceil(Cm / 64) CTAs, so on the card
+Cm is at most 512 (ResNet50's largest); work items are whole images or
+pixel tiles, so every B, H, W and C is taken: the TPU kernel's
+``batch_tile`` VMEM rule has no counterpart here.
 """
 
 from __future__ import annotations
@@ -72,7 +77,24 @@ def _kernel_lib() -> ctypes.CDLL:
         fn = getattr(lib, f"vct_fused_bottleneck_{dt}")
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = getattr(lib, f"vct_fused_bottleneck_plan_{dt}")
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+MAX_CM = 512  # 64 channels a CTA, at most 8 CTAs a cluster
+
+
+def kernel_plan(x: Tensor, Cm: int) -> dict:
+    """The work item the launcher picks for x (B, H, W, C) on the card:
+    cluster size, images a cluster, tile rows and columns, shared memory
+    bytes a CTA."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 5)()
+    rc = getattr(lib, f"vct_fused_bottleneck_plan_{_DTYPES[x.dtype]}")(*x.shape, Cm, out)
+    check_launch(lib, rc, "fused_bottleneck plan")
+    return dict(zip(("cluster", "images", "tile_h", "tile_w", "smem_bytes"), out))
 
 
 def fused_bottleneck(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor, w3: Tensor,
@@ -84,6 +106,8 @@ def fused_bottleneck(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor, 
         return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck runs on cpu or cuda, got {x.device}")
+    if w1.shape[0] > MAX_CM:
+        raise ValueError(f"fused_bottleneck on the card takes Cm <= {MAX_CM}, got {w1.shape[0]}")
     lib = _kernel_lib()
     B, H, W, C = x.shape
     out = torch.empty_like(x)

@@ -5,9 +5,12 @@ a drop-in for ``models.layers.lstm_cell``: the same layer dict (``w_ih``
 (4H, In), ``w_hh`` (4H, H), ``b_ih``, ``b_hh``, in their stored layout) and
 (x (N, In), h (N, H), c (N, H)) -> (h', c'), float32. On a CUDA tensor
 ``lstm_cell_fused`` launches the kernel in ``csrc/lstm_cell.cu``; on a CPU
-tensor it runs ``lstm_cell_reference``, the plain version. The kernel
-writes new tensors and never its ``h``/``c`` arguments, which the beam
-loop's ``torch.where(active, new, old)`` still reads.
+tensor it runs ``lstm_cell_reference``, the plain version (float32
+products). The kernel takes its products on the tensor cores by a 3xTF32
+split (``csrc/tf32x3.cuh``), each within about 2^-21 of the float32
+product, with float32 sums and gate math. It writes new tensors and never
+its ``h``/``c`` arguments, which the beam loop's ``torch.where(active, new,
+old)`` still reads.
 """
 
 from __future__ import annotations
@@ -46,14 +49,31 @@ def _check(layer: Dict[str, Tensor], x: Tensor, h: Tensor, c: Tensor) -> None:
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("lstm_cell")
     fn = lib.vct_lstm_cell_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.vct_lstm_cell_tile.argtypes = [ctypes.c_int] * 2
+    lib.vct_lstm_cell_tile.restype = ctypes.c_int
     return lib
 
 
+# The kernel's tiles (rows, hidden units, CTAs of a cluster that split the
+# reduction axis), in the C launcher's order.
+TILES = ((64, 16, 2), (64, 16, 4))
+
+
+def kernel_tile(N: int, H: int) -> tuple:
+    """The (rows, units, split) tile the launcher picks for N rows and H
+    units on the current card."""
+    i = _kernel_lib().vct_lstm_cell_tile(N, H)
+    if i < 0:
+        raise RuntimeError(f"lstm_cell: CUDA error {-i}")
+    return TILES[i]
+
+
 def lstm_cell_fused(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
-                    c: Tensor) -> Tuple[Tensor, Tensor]:
-    """One cell step. CUDA: the kernel, on the current stream, no sync.
+                    c: Tensor, tile: int = -1) -> Tuple[Tensor, Tensor]:
+    """One cell step. CUDA: the kernel, on the current stream, no sync;
+    ``tile`` -1 lets the launcher pick, else an index into ``TILES``.
     CPU: the plain version."""
     _check(layer, x, h, c)
     if x.device.type == "cpu":
@@ -72,7 +92,7 @@ def lstm_cell_fused(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
         rc = lib.vct_lstm_cell_f32(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), layer["w_ih"].data_ptr(),
             layer["w_hh"].data_ptr(), layer["b_ih"].data_ptr(), layer["b_hh"].data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), N, In, H, stream,
+            h_out.data_ptr(), c_out.data_ptr(), N, In, H, tile, stream,
         )
     check_launch(lib, rc, "lstm_cell")
     lstm_cell_fused.launches += 1
