@@ -32,7 +32,11 @@ from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_a
 from video_captioning_tpu_torch.ops.lstm_cell import lstm_cell_fused, lstm_cell_reference
 from video_captioning_tpu_torch.ops.topk import topk2d, topk2d_reference
 from video_captioning_tpu_torch.ops.vocab_topk import (
+    MAX_SMEM,
+    TILE_COLS,
     pad_vocab_weights,
+    vocab_partition,
+    vocab_smem_bytes,
     vocab_topk_lse,
     vocab_topk_lse_reference,
 )
@@ -216,15 +220,25 @@ def _vocab_check(x, W, b, k, vt=128):
     return got
 
 
-@pytest.mark.parametrize("k", [1, 5])
-def test_vocab_topk_lse_reference_matches_pallas(k):
-    """V = 700 pads to 768 at vt = 128; N = 20 rows."""
+def _vocab_random_check(N, H, V, k):
     rs = np.random.RandomState(k)
-    N, H, V = 20, 32, 700
     x = rs.randn(N, H).astype(np.float32)
     W = (rs.randn(H, V) * 0.1).astype(np.float32)
     b = (rs.randn(V) * 0.1).astype(np.float32)
     _vocab_check(x, W, b, k)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_vocab_topk_lse_reference_matches_pallas(k):
+    """V = 700 pads to 768 at vt = 128; N = 20 rows."""
+    _vocab_random_check(20, 32, 700, k)
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_vocab_topk_lse_reference_matches_pallas_at_the_kernels_odd_shape(k):
+    """A ragged row block (N = 37) and H = 200 (not a multiple of the
+    kernel's k-chunk)."""
+    _vocab_random_check(37, 200, 1000, k)
 
 
 def test_vocab_topk_lse_cross_block_ties_and_bf16_rounding():
@@ -244,19 +258,54 @@ def test_vocab_topk_lse_cross_block_ties_and_bf16_rounding():
     assert got[0][0, 0].item() == 4.0 * (1.0 + 2.0 ** -6)
 
 
+# (N, H, Vp, SMs): the beam step's shape, one row, H = 200, the most rows
+# the beam step sends, a wide H, Vp = 136, a card with few SMs.
+PARTITION_CASES = [(640, 512, 10112, 132), (1, 512, 10112, 132), (37, 200, 10112, 132),
+                   (2560, 512, 10112, 132), (640, 1024, 10112, 132), (37, 512, 136, 132),
+                   (640, 512, 10112, 7)]
+
+
+@pytest.mark.parametrize("N,H,Vp,n_sm", PARTITION_CASES)
+def test_vocab_partition_spans_cover_every_tile_once(N, H, Vp, n_sm):
+    p = vocab_partition(N, H, Vp, n_sm)
+    assert p["tiles"] == -(-Vp // TILE_COLS)
+    spans = [range(s * p["tiles_per_span"], min((s + 1) * p["tiles_per_span"], p["tiles"]))
+             for s in range(p["spans"])]
+    assert all(len(r) > 0 for r in spans)
+    assert sorted(t for r in spans for t in r) == list(range(p["tiles"]))
+    assert (p["row_blocks"] - 1) * p["rows"] < N <= p["row_blocks"] * p["rows"]
+    # One wave where the row blocks alone do not exceed the SMs.
+    assert p["row_blocks"] * p["spans"] <= max(n_sm, p["row_blocks"])
+    assert p["h_pad"] % 64 == 0 and H <= p["h_pad"] < H + 64
+    assert vocab_smem_bytes(p["rows"], p["h_pad"]) <= MAX_SMEM
+
+
+def test_vocab_partition_row_blocks_and_shared_memory():
+    """128-row blocks up to H = 512, 64-row ones up to H = 1152, none past
+    that; shared memory as the kernel lays it out (2 KB of barriers and bias,
+    4 ring stages of 64 x 128 bf16, x rows of Hp bf16, 32 floats for each of
+    the 2 rows product threads)."""
+    assert vocab_smem_bytes(128, 512) == 2048 + 4 * 16384 + 128 * 512 * 2 + 256 * 32 * 4
+    assert vocab_smem_bytes(64, 1152) == 2048 + 4 * 16384 + 64 * 1152 * 2 + 128 * 32 * 4 <= MAX_SMEM
+    assert [vocab_partition(640, h, 10112, 132)["rows"] for h in (512, 513, 1152)] == [128, 64, 64]
+    p = vocab_partition(640, 512, 10112, 132)
+    assert (p["row_blocks"], p["spans"], p["tiles_per_span"], p["h_pad"]) == (5, 20, 4, 512)
+    assert vocab_partition(37, 200, 136, 132)["h_pad"] == 256
+    with pytest.raises(ValueError, match="no room"):
+        vocab_partition(640, 1153, 10112, 132)
+
+
 def _topk_inputs(N=64, V=300, seed=0):
     rs = np.random.RandomState(seed)
     x = (rs.randn(N, V) * 3).astype(np.float32)
-    x[5, [7, 100, 299]] = 9.5          # tie at the top
+    x[5, [7, V // 3, V - 1]] = 9.5     # tie at the top
     x[6, :] = 1.25                      # whole row tied
     x[7, 40:60] = x[7].max()            # run of ties
-    x[8, 150:] = -np.inf                # -inf tail
+    x[8, V // 2:] = -np.inf             # -inf tail
     return x
 
 
-@pytest.mark.parametrize("k", [1, 5, 16])
-def test_topk2d_reference_matches_pallas(k):
-    x = _topk_inputs(seed=k)
+def _check_topk2d_against_pallas(x, k):
     want_v, want_i = topk2d_pallas(jnp.asarray(x), k, interpret=True)
     got_v, got_i = topk2d_reference(t(x), k)
     assert got_i.dtype == torch.int32
@@ -264,6 +313,17 @@ def test_topk2d_reference_matches_pallas(k):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     for a, b in zip(topk2d(t(x), k), (got_v, got_i)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_topk2d_reference_matches_pallas(k):
+    _check_topk2d_against_pallas(_topk_inputs(seed=k), k)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_topk2d_reference_matches_pallas_at_the_kernels_odd_shape(k):
+    """A row of V % 4 != 0 and a ragged row count."""
+    _check_topk2d_against_pallas(_topk_inputs(37, 10001, seed=k), k)
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take():

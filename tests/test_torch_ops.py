@@ -98,23 +98,33 @@ def test_lstm_seq_reference_matches_pallas_bf16():
 def _topk_inputs(N=64, V=300, seed=0):
     rs = np.random.RandomState(seed)
     x = (rs.randn(N, V) * 3).astype(np.float32)
-    x[5, [7, 100, 299]] = 9.5          # tie at the top
+    x[5, [7, V // 3, V - 1]] = 9.5     # tie at the top
     x[6, :] = 1.25                      # whole row tied
     x[7, 40:60] = x[7].max()            # run of ties
-    x[8, 150:] = -np.inf                # -inf tail
+    x[8, V // 2:] = -np.inf             # -inf tail
     return x
 
 
-@pytest.mark.parametrize("k", [1, 5, 16])
-def test_topk2d_lse_reference_matches_pallas(k):
-    x = _topk_inputs(seed=k)
-    xp = np.pad(x, ((0, 0), (0, 384 - x.shape[1])), constant_values=-np.inf)
+def _check_topk2d_lse_against_pallas(x, k):
+    xp = np.pad(x, ((0, 0), (0, -x.shape[1] % 128)), constant_values=-np.inf)
     want_v, want_i, want_lse = topk2d_lse_pallas(jnp.asarray(xp), k, interpret=True)
     got_v, got_i, got_lse = topk2d_lse_reference(torch.from_numpy(x), k)
     assert got_i.dtype == torch.int32
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_topk2d_lse_reference_matches_pallas(k):
+    _check_topk2d_lse_against_pallas(_topk_inputs(seed=k), k)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_topk2d_lse_reference_matches_pallas_at_the_kernels_odd_shape(k):
+    """A row of V % 4 != 0 (the kernel's scalar-load build) and a ragged
+    row count."""
+    _check_topk2d_lse_against_pallas(_topk_inputs(37, 10001, seed=k), k)
 
 
 def test_topk2d_lse_reference_all_neg_inf_row():

@@ -1,11 +1,20 @@
-// Register top-k lists and online logsumexp, shared by topk_lse.cu and
-// vocab_topk.cu.
+// Register top-k lists, their merges across lanes, and (max, sum of exp)
+// pairs, shared by topk_lse.cu and vocab_topk.cu.
 //
 // A list is KP (value, index) pairs sorted by lax.top_k's total order:
-// larger value first, equal values in ascending index order. Because the
-// order is total, the first k of a merge of lists are the top-k of their
-// union whatever order the lists were filled in, so lax.top_k's tie order
-// holds through every merge. (m, s) stands for the logsumexp m + log(s).
+// larger value first, equal values in ascending index order. KP is k
+// rounded up to a power of two, so a list has a compile-time size and stays
+// in registers; its first k entries are the top-k under the same order.
+// Because the order is total, the first k of a merge of lists are the top-k
+// of their union whatever order the lists were filled in, so lax.top_k's tie
+// order holds through every merge. (m, s) stands for the logsumexp
+// m + log(s).
+//
+// Both kernels keep the per-element cost to one compare: an element is
+// inserted only when it beats a threshold that never exceeds the row's k-th
+// value (the list's own k-th entry, list_init_top; warp_kth_desc: the k-th
+// largest of a warp's lane maxima, each a distinct element of the row), and
+// an insert is the rare case. The merges take k rounds, not KP.
 
 #pragma once
 
@@ -49,6 +58,20 @@ __device__ __forceinline__ void list_insert(float (&tv)[KP], int (&ti)[KP],
   }
 }
 
+// A list that keeps only the top k (k <= KP) with its k-th entry at a
+// fixed place: the first KP - k entries are (+inf, -1), which every real
+// entry ranks below, so list_insert never moves them and the k-th best is
+// always entry KP - 1 (a runtime index into a register list would put it
+// in local memory). list_drop_top removes them once the list is complete.
+template <int KP>
+__device__ __forceinline__ void list_init_top(float (&tv)[KP], int (&ti)[KP], int k) {
+#pragma unroll
+  for (int j = 0; j < KP; ++j) {
+    tv[j] = j < KP - k ? INFINITY : -INFINITY;
+    ti[j] = j < KP - k ? -1 : kSentinelIdx;
+  }
+}
+
 template <int KP>
 __device__ __forceinline__ void list_pop(float (&tv)[KP], int (&ti)[KP]) {
 #pragma unroll
@@ -60,39 +83,53 @@ __device__ __forceinline__ void list_pop(float (&tv)[KP], int (&ti)[KP]) {
   ti[KP - 1] = kSentinelIdx;
 }
 
-// Merges the 32 sorted lists of a warp. Round r leaves the warp's r-th best
-// (value, index) in (out_v[r], out_i[r]) on every lane.
 template <int KP>
-__device__ __forceinline__ void warp_merge(float (&tv)[KP], int (&ti)[KP],
-                                           float (&out_v)[KP],
-                                           int (&out_i)[KP]) {
+__device__ __forceinline__ void list_drop_top(float (&tv)[KP], int (&ti)[KP], int k) {
+  for (int p = 0; p < KP - k; ++p) list_pop<KP>(tv, ti);
+}
+
+// Merges the sorted lists of each group of W consecutive lanes (W a power of
+// two, every lane of the warp taking part). Round r < k leaves the group's
+// r-th best (value, index) in (out_v[r], out_i[r]) on each of its lanes.
+template <int KP, int W = 32>
+__device__ __forceinline__ void group_merge(float (&tv)[KP], int (&ti)[KP],
+                                            float (&out_v)[KP], int (&out_i)[KP], int k) {
 #pragma unroll
   for (int r = 0; r < KP; ++r) {
-    float bv = tv[0];
-    int bi = ti[0];
+    if (r < k) {
+      float bv = tv[0];
+      int bi = ti[0];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFullMask, bv, off);
-      const int oi = __shfl_xor_sync(kFullMask, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+      for (int off = W / 2; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(kFullMask, bv, off);
+        const int oi = __shfl_xor_sync(kFullMask, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
       }
+      out_v[r] = bv;
+      out_i[r] = bi;
+      if (tv[0] == bv && ti[0] == bi) list_pop<KP>(tv, ti);
     }
-    out_v[r] = bv;
-    out_i[r] = bi;
-    if (tv[0] == bv && ti[0] == bi) list_pop<KP>(tv, ti);
   }
 }
 
-__device__ __forceinline__ void lse_add(float& m, float& s, float x) {
-  if (x == -INFINITY) return;  // exp(-inf) contributes nothing
-  if (x > m) {
-    s = s * expf(m - x) + 1.0f;
-    m = x;
-  } else {
-    s += expf(x - m);
+// The k-th largest (k <= 32) of the warp's 32 values v, on every lane: a
+// bitonic sort across lanes into descending order, read from lane k - 1.
+__device__ __forceinline__ float warp_kth_desc(float v, int k) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const float o = __shfl_xor_sync(kFullMask, v, stride);
+      const bool desc = (lane & size) == 0;   // this block's direction
+      const bool lower = (lane & stride) == 0;
+      v = lower == desc ? fmaxf(v, o) : fminf(v, o);
+    }
   }
+  return __shfl_sync(kFullMask, v, k - 1);
 }
 
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
@@ -109,9 +146,11 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   }
 }
 
-__device__ __forceinline__ void warp_lse(float& m, float& s) {
+// Merges the (m, s) pairs of each group of W consecutive lanes.
+template <int W = 32>
+__device__ __forceinline__ void group_lse(float& m, float& s) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = W / 2; off > 0; off >>= 1) {
     const float m2 = __shfl_xor_sync(kFullMask, m, off);
     const float s2 = __shfl_xor_sync(kFullMask, s, off);
     lse_merge(m, s, m2, s2);

@@ -5,8 +5,8 @@ Counterpart of video_captioning_tpu/ops/vocab_topk_pallas.py
 (pad_vocab_weights, vocab_topk_lse), with its layouts: the kernel (H, V),
 the bias (V,). ``pad_vocab_weights`` runs once per generation call; on a
 CUDA tensor ``vocab_topk_lse`` launches the kernels in
-``csrc/vocab_topk.cu``, on a CPU tensor it runs
-``vocab_topk_lse_reference``, the plain version of the same contract:
+``csrc/vocab_topk.cu`` over the partition ``vocab_partition`` picks, on a
+CPU tensor it runs ``vocab_topk_lse_reference``, the plain version of the same contract:
 x rounded to bf16, exact bf16 products summed in float32, plus the
 float32 bias; top-k values and indices in ``lax.top_k``'s order, exact
 given the logits; the lse to float32 rounding. (The kernel's tensor cores
@@ -34,7 +34,7 @@ def pad_vocab_weights(kernel: Tensor, bias: Tensor, vt: int = 128) -> Tuple[Tens
     and cast the weights to bf16. The pad bias is float32-min, so padded
     tokens are never selected and add exp() = 0 to the logsumexp. Call it
     outside the decode loop. ``vt`` must be a multiple of 8 (the kernel
-    reads the weights 8 columns at a time)."""
+    copies weight rows in 16-byte pieces)."""
     if vt % 8:
         raise ValueError(f"pad_vocab_weights needs vt a multiple of 8, got {vt}")
     H, V = kernel.shape
@@ -76,13 +76,49 @@ def _check(x: Tensor, w_padded: Tensor, b_padded: Tensor, k: int) -> None:
         raise ValueError(f"vocab_topk_lse needs 1 <= k <= min(16, Vp), got k={k}, Vp={Vp}")
 
 
+# The kernel's fixed shapes (csrc/vocab_topk.cu): vocabulary columns of a
+# tile, the k-chunk H is padded to, weight ring stages of 64 x 128 bf16.
+TILE_COLS = 128
+K_CHUNK = 64
+RING_STAGES = 4
+STAGE_BYTES = 64 * TILE_COLS * 2
+MAX_SMEM = 232448  # bytes of shared memory a CTA can use on an H100
+
+
+def vocab_smem_bytes(rows: int, h_pad: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/vocab_topk.cu:smem_bytes):
+    barriers and two tiles of bias, the weight ring, the resident x block,
+    the product threads' stash of 32 floats each (two of them a row)."""
+    return 2048 + RING_STAGES * STAGE_BYTES + rows * h_pad * 2 + 2 * rows * 32 * 4
+
+
+def vocab_partition(N: int, H: int, Vp: int, n_sm: int) -> dict:
+    """How the kernel splits the work: row blocks of ``rows`` rows (128, or
+    64 where a 128-row bf16 x block does not fit in shared memory beside
+    the ring) times ``spans`` spans of ``tiles_per_span`` consecutive
+    vocabulary tiles, as many CTAs as fill one wave of ``n_sm`` SMs;
+    ``h_pad`` is H rounded up to the kernel's k-chunk. Every span is
+    non-empty and the spans cover each tile once. Raises where H is too
+    large for a 64-row block."""
+    h_pad = -(-H // K_CHUNK) * K_CHUNK
+    fits = [r for r in (128, 64) if vocab_smem_bytes(r, h_pad) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"vocab_topk_lse: H={H} leaves no room for a row block in shared memory")
+    rows = fits[0]
+    row_blocks = -(-N // rows)
+    tiles = -(-Vp // TILE_COLS)
+    spans = max(1, min(tiles, n_sm // row_blocks))
+    tiles_per_span = -(-tiles // spans)
+    spans = -(-tiles // tiles_per_span)
+    return dict(rows=rows, row_blocks=row_blocks, h_pad=h_pad, tiles=tiles, spans=spans,
+                tiles_per_span=tiles_per_span)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("vocab_topk")
     fn = lib.vct_vocab_topk_lse
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.vct_vocab_topk_tile_cols.argtypes = []
-    lib.vct_vocab_topk_tile_cols.restype = ctypes.c_int
     return lib
 
 
@@ -96,7 +132,6 @@ def vocab_topk_lse(x: Tensor, w_padded: Tensor, b_padded: Tensor,
         return vocab_topk_lse_reference(x, w_padded, b_padded, k)
     if x.device.type != "cuda":
         raise ValueError(f"vocab_topk_lse runs on cpu or cuda, got {x.device}")
-    lib = _kernel_lib()
     N, H = x.shape
     Vp = w_padded.shape[1]
     dev = x.device
@@ -105,16 +140,20 @@ def vocab_topk_lse(x: Tensor, w_padded: Tensor, b_padded: Tensor,
     lse = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return vals, idx, lse
-    n_tiles = -(-Vp // lib.vct_vocab_topk_tile_cols())
-    part_v = torch.empty((N, n_tiles, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((N, n_tiles, k), dtype=torch.int32, device=dev)
-    part_ms = torch.empty((2, N, n_tiles), dtype=torch.float32, device=dev)
+    part = vocab_partition(N, H, Vp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = _kernel_lib()
+    spans = part["spans"]
+    x16 = torch.empty((N, part["h_pad"]), dtype=torch.bfloat16, device=dev)
+    part_v = torch.empty((N, spans, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((N, spans, k), dtype=torch.int32, device=dev)
+    part_ms = torch.empty((2, N, spans), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vct_vocab_topk_lse(
-            x.data_ptr(), w_padded.data_ptr(), b_padded.data_ptr(), part_v.data_ptr(),
-            part_i.data_ptr(), part_ms[0].data_ptr(), part_ms[1].data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), N, H, Vp, k, stream,
+            x.data_ptr(), w_padded.data_ptr(), b_padded.data_ptr(), x16.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), part_ms[0].data_ptr(), part_ms[1].data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), N, H, part["h_pad"], Vp, k,
+            part["rows"], part["tiles_per_span"], spans, stream,
         )
     check_launch(lib, rc, "vocab_topk_lse")
     vocab_topk_lse.launches += 1
