@@ -96,14 +96,41 @@ exits non-zero without printing the final result line:
    against the CPU plain versions, one B = 32 forward timed, two profiled,
    the dataset CSV written and one VGG16 clip captioned by the LSTM default
    predictor;
-8. a JSON line of the kernels, the nvidia-smi line, then the result line.
+8. the transformer's training slice at full width (``transformer_config()``,
+   dropout 0.1, batch 32): ``cli.train.main`` for 2 epochs on 96 synthetic
+   clips (no kernel launches: its teacher forcing and greedy validation
+   run none), the package it writes served on the card and 8 clips' beam-5
+   tokens held against the CPU run; one step at B = 8 with dropout off on
+   the card and on the CPU (loss and every gradient, the LSTM's
+   tolerances), 10 steps on one fixed batch that must lower the loss, and a
+   one-off profile of one step at B = 32 and B = 128;
+9. the remaining entry points on the LSTM default at full width, each
+   launch count read around its call and held to the count the call implies
+   (2 ``lstm_seq`` an encode, 20 ``topk2d_lse`` a beam search), every token
+   list and caption held against the same command on the CPU with the plain
+   versions: ``cli.predict single`` from features and from a video
+   (``--feature-mode cnn``, VGG16 with seeded random weights, seeded frames
+   in place of the OpenCV decoder), ``batch`` over 4 videos and an
+   unreadable one (an error entry in its place), ``multiple`` (beam 10, 5
+   captions), ``cli.evaluate`` in file mode and in dataset mode over 16
+   seeded clips, and ``cli.import_reference`` of a synthetic upstream state
+   dict whose package is then served;
+10. a wide encoder (``encoder_hidden_dim=1024``, beyond the recurrence
+   kernels' limit): 8 clips served with beam 5 and one training step, no
+   ``lstm_seq*`` launch counted, the encoder's log line naming the gate
+   (``lstm_seq_eligible``), tokens equal to the CPU run and the loss within
+   STEP_LOSS_RTOL;
+11. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import itertools
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -117,6 +144,9 @@ import numpy as np
 import torch
 
 from video_captioning_tpu_torch import Config, Vocabulary
+from video_captioning_tpu_torch.cli import evaluate as cli_evaluate
+from video_captioning_tpu_torch.cli import import_reference as cli_import_reference
+from video_captioning_tpu_torch.cli import predict as cli_predict
 from video_captioning_tpu_torch.cli import preprocess as cli_preprocess
 from video_captioning_tpu_torch.cli import train as cli_train
 from video_captioning_tpu_torch.data import video as video_mod
@@ -127,6 +157,7 @@ from video_captioning_tpu_torch.models.attention import BahdanauAttention, atten
 from video_captioning_tpu_torch.models.backbones import FeatureExtractor
 from video_captioning_tpu_torch.models.backbones.resnet import _bottleneck_folded
 from video_captioning_tpu_torch.models.backbones.resnet_int8 import feature_error
+from video_captioning_tpu_torch.models import encoder as encoder_mod
 from video_captioning_tpu_torch.models.captioner import VideoCaptioningModel, apply_model, encode
 from video_captioning_tpu_torch.models.weights import init_params_numpy, state_dict_from_jax_params
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
@@ -183,7 +214,11 @@ from video_captioning_tpu_torch.ops.vocab_topk import (
 )
 from video_captioning_tpu_torch.training.losses import label_smoothed_cross_entropy
 from video_captioning_tpu_torch.training.trainer import VideoCaptioningTrainer
-from video_captioning_tpu_torch.utils.checkpoint import save_model_for_inference
+from video_captioning_tpu_torch.utils.checkpoint import (
+    load_model_for_inference,
+    save_model_for_inference,
+    vocabulary_from_package,
+)
 
 # lstm_seq tolerance: the kernel and the plain version sum the recurrent
 # product in different orders, and where h lands within an ulp of a bf16
@@ -813,17 +848,20 @@ def check_attention(device: str, card: str) -> dict:
         attn.attention_linear.bias.copy_(b_v)
         cache = {"enc_proj": enc_proj}
         res = dict(max_abs_err=err, ms=time_ms(lambda: bahdanau_attend(*args), 50),
+                   graph_ms=graph_ms(lambda: bahdanau_attend(*args)),
                    plain_ms=time_ms(lambda: bahdanau_attend_reference(*args), 50),
                    library_ms=time_ms(lambda: attend(cfg, attn, cache, enc_outs, h, mask), 50),
+                   library_graph_ms=graph_ms(lambda: attend(cfg, attn, cache, enc_outs, h, mask)),
                    **bound(nbytes=4 * (B * D + A * D + 2 * A + 1 + B * S * (A + E)
                                        + 2 * B * S + B * E),
                            flops=2 * B * A * D + 3 * B * S * A + 2 * B * S * E,
                            peak_flops=F32_FLOPS))
     print(f"[kernels] bahdanau_attend B={B} S={S} D=A=E={D}: max abs err {err:.3g} (tol "
-          f"{ATTN_TOL}), all-masked row uniform within {uniform:.3g}; kernel {res['ms']:.4f} ms, "
-          f"plain {res['plain_ms']:.4f} ms, eager attend (a 7-call composite) "
-          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) "
-          f"({card})")
+          f"{ATTN_TOL}), all-masked row uniform within {uniform:.3g}; kernel {res['ms']:.4f} ms "
+          f"(device {res['graph_ms']:.4f} ms by graph replay), plain {res['plain_ms']:.4f} ms, "
+          f"eager attend (a 7-call composite) {res['library_ms']:.4f} ms (device "
+          f"{res['library_graph_ms']:.4f} ms), bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}) ({card})")
     return res
 
 
@@ -1909,10 +1947,25 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def interpret_config(config: Config) -> Config:
+    """A copy of ``config`` whose CPU runs take the kernels' plain versions
+    under the kernels' contracts (``kernels.interpret``)."""
+    config = Config.from_dict(config.to_dict())
+    config.kernels.interpret = True
+    return config
+
+
+def agreement(results: list, reference: list) -> float:
+    """Share of clips whose tokens equal the reference run's."""
+    same = [a["tokens"] == b["tokens"] for a, b in zip(results, reference, strict=True)]
+    return sum(same) / len(same)
+
+
 def run_training(card: str, config: Config, device: str = "cuda", n_clips: int = 96) -> dict:
     """The training slice through ``cli.train.main``: two epochs on
     synthetic clips, then the inference package it wrote is loaded by
-    ``VideoCaptionPredictor`` on ``device`` and captions clips."""
+    ``VideoCaptionPredictor`` on ``device`` and captions 8 clips with beam
+    5, held against the CPU run with the plain versions."""
     config = Config.from_dict(config.to_dict())
     config.data.vocab_threshold = 1
     out = {}
@@ -1951,19 +2004,32 @@ def run_training(card: str, config: Config, device: str = "cuda", n_clips: int =
                 if not (Path("ck") / name).exists():
                     raise AssertionError(f"training wrote no {name}")
             n = out["launches"]
-            if device == "cuda" and (n["lstm_seq_train_fwd"] < 2 * steps
-                                     or n["lstm_seq_train_bwd"] < 2 * steps
-                                     or n["lstm_seq"] == 0):
-                raise AssertionError(f"training launch counts too low for {steps} steps: {n}")
-            predictor = VideoCaptionPredictor("ck/model_for_inference.pth", device=device)
-            clips = [np.load(Path(tmp) / f"clip{i:03d}.npy") for i in range(4)]
-            for i, r in enumerate(predictor.predict_batch(clips, method="greedy")):
+            if config.model.architecture == "transformer":
+                # Its teacher forcing and greedy validation launch no kernel.
+                bad = any(n.values())
+            else:
+                bad = (n["lstm_seq_train_fwd"] < 2 * steps or n["lstm_seq_train_bwd"] < 2 * steps
+                       or n["lstm_seq"] == 0)
+            if device == "cuda" and bad:
+                raise AssertionError(f"training launch counts for {steps} steps: {n}")
+            pkg = "ck/model_for_inference.pth"
+            predictor = VideoCaptionPredictor(pkg, device=device)
+            clips = [np.load(Path(tmp) / f"clip{i:03d}.npy") for i in range(8)]
+            results = predictor.predict_batch(clips, method="beam", beam_size=5)
+            for i, r in enumerate(results):
                 if not isinstance(r["caption"], str):
                     raise AssertionError(f"trained package, clip {i}: {str(r)[:200]}")
                 if not all(0 <= t < config.model.vocab_size for t in r["tokens"]):
                     raise AssertionError(f"trained package, clip {i}: token out of range")
-            print(f"[train] model_for_inference.pth loaded on {predictor.device} and "
-                  f"captioned 4 clips")
+            cpu_results = VideoCaptionPredictor(pkg, config=interpret_config(predictor.config),
+                                                device="cpu").predict_batch(clips, method="beam",
+                                                                            beam_size=5)
+            out["agreement"] = agreement(results, cpu_results)
+            print(f"[train] model_for_inference.pth loaded on {predictor.device}, 8 clips "
+                  f"captioned with beam 5; tokens, card vs CPU plain versions: agreement "
+                  f"{out['agreement']:.4f}")
+            if out["agreement"] < MIN_CLIP_AGREEMENT:
+                raise AssertionError(f"trained package: clip agreement {out['agreement']}")
         finally:
             os.chdir(cwd)
     return out
@@ -2006,13 +2072,16 @@ def check_step_parity(card: str, config: Config, device: str = "cuda", B: int = 
     ``kernels.interpret`` (their plain versions, same bf16-operand
     contract)."""
     config = Config.from_dict(config.to_dict())
-    config.model.encoder_dropout = config.model.decoder_dropout = 0.0
+    m = config.model
+    m.encoder_dropout = m.decoder_dropout = m.transformer_dropout = 0.0
     batch = _step_batch(config, B, seed=5)
     t0 = time.perf_counter()
+    reset_launch_counts()
     loss_gpu, g_gpu = _loss_and_grads(config, device, batch)
-    cpu_config = Config.from_dict(config.to_dict())
-    cpu_config.kernels.interpret = True
-    loss_cpu, g_cpu = _loss_and_grads(cpu_config, "cpu", batch)
+    sync(device)
+    launches = launch_counts()
+    with recurrence_gate_as_on_card():
+        loss_cpu, g_cpu = _loss_and_grads(interpret_config(config), "cpu", batch)
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     # Each gradient's error over its largest value, floored at GRAD_FLOOR of
     # the largest gradient anywhere: the score bias's gradient is zero by the
@@ -2027,7 +2096,7 @@ def check_step_parity(card: str, config: Config, device: str = "cuda", B: int = 
           f"{STEP_GRAD_RTOL}) over {len(grad_rel)} tensors; {time.perf_counter() - t0:.1f}s")
     if loss_rel > STEP_LOSS_RTOL or grad_rel[worst] > STEP_GRAD_RTOL:
         raise AssertionError(f"step parity: loss rel {loss_rel:.3g}, {worst} {grad_rel[worst]:.3g}")
-    return {"loss_rel": loss_rel, "grad_rel": grad_rel[worst]}
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel[worst], "launches": launches}
 
 
 def profile_train_step(trainer: VideoCaptioningTrainer, batch: dict, card: str) -> dict:
@@ -2050,13 +2119,15 @@ def profile_train_step(trainer: VideoCaptioningTrainer, batch: dict, card: str) 
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     ours = sum(e.self_device_time_total for e in rows if "vct::lstm_seq" in e.key) / 1e3
-    print(f"[profile] one training step at B={B} (one-off, not a benchmark; {card}): "
-          f"{step_ms:.2f} ms per step from CUDA events; device busy {busy:.2f} ms in the "
-          f"profiled step, {ours:.2f} ms of it in the lstm_seq_train kernels; top device time:")
+    print(f"[profile] one training step at B={B}, {describe(trainer.config)} (one-off, not a "
+          f"benchmark; {card}): {step_ms:.2f} ms per step from CUDA events; device busy "
+          f"{busy:.2f} ms in the profiled step (idle share {1 - busy / step_ms:.3f}), "
+          f"{ours:.2f} ms of it in the lstm_seq_train kernels; top device time:")
     for e in rows[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
-    return {"step_ms": step_ms, "device_busy_ms": busy, "lstm_kernels_ms": ours}
+    return {"step_ms": step_ms, "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "lstm_kernels_ms": ours}
 
 
 def check_overfit_and_profile(card: str, config: Config, device: str = "cuda",
@@ -2083,6 +2154,259 @@ def check_overfit_and_profile(card: str, config: Config, device: str = "cuda",
             for B in (config.training.batch_size, 128):
                 out[B] = profile_train_step(trainer, _step_batch(config, B, seed=7), card)
     return out
+
+
+@contextlib.contextmanager
+def recurrence_gate_as_on_card():
+    """The encoder's recurrence-kernel gate evaluated as if the tensors were
+    on the card (the card's kernel limit), so a CPU reference run takes the
+    card's branch: the plain versions within the kernels' domain, lstm_scan
+    outside it."""
+    gate = encoder_mod.lstm_seq_eligible
+    encoder_mod.lstm_seq_eligible = (
+        lambda H, dtype, device, train=False: gate(H, dtype, torch.device("cuda"), train))
+    try:
+        yield
+    finally:
+        encoder_mod.lstm_seq_eligible = gate
+
+
+def run_transformer_training(card: str, device: str = "cuda", n_clips: int = 96) -> dict:
+    """The transformer's training slice at full width, dropout at its
+    default: ``cli.train`` for 2 epochs (its package served on the card and
+    held against the CPU run), the step held against the CPU, 10 steps that
+    must lower the loss, and the one-off step profiles."""
+    config = transformer_config()
+    t0 = time.perf_counter()
+    out = {"train": run_training(card, config, device, n_clips)}
+    out["parity"] = check_step_parity(card, config, device)
+    if device == "cuda" and any(out["parity"]["launches"].values()):
+        raise AssertionError(f"transformer step launched kernels: {out['parity']['launches']}")
+    out["profile"] = check_overfit_and_profile(card, config, device)
+    print(f"[train] transformer phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return out
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def encoder_log():
+    """The encoder's log lines while the block runs."""
+    handler, logger = _Records(), logging.getLogger(encoder_mod.__name__)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield handler.lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def counted(device: str, what: str, want: dict, fn):
+    """Run ``fn`` with the launch counters zeroed just before and read just
+    after; on the card the kernels in ``want`` must have launched exactly
+    that often. Returns (fn's result, the counts)."""
+    reset_launch_counts()
+    result = fn()
+    sync(device)
+    n = launch_counts()
+    got = {k: n[k] for k in want}
+    if device == "cuda" and got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return result, n
+
+
+def encode_launches(config: Config, encodes: int, beams: int, steps: int = 20) -> dict:
+    """The launches ``encodes`` encodes and ``beams`` beam searches of
+    ``steps`` steps make under ``config``'s default kernel flags."""
+    return {"lstm_seq": config.model.encoder_num_layers * encodes, "topk2d_lse": steps * beams}
+
+
+def _entry_point_calls(device: str, tmp: Path, work: Path, pkg: str, frames: dict,
+                       config: Config) -> dict:
+    """The entry points' calls on ``device``, their files in ``work``; returns
+    the outputs to compare and the launches of each call. What the CLIs
+    print goes to a buffer (the JSON files hold their results)."""
+    work.mkdir()
+    common = ["--model-path", pkg, "--device", device, "--log-level", "WARNING"]
+    out, launches = {}, {}
+
+    def run(name, want, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[name], launches[name] = counted(device, name, want, fn)
+        print(f"[entry] {name} on {device}: {time.perf_counter() - t0:.2f} s wall (one call, "
+              f"not a benchmark); launches { {k: launches[name][k] for k in want} }")
+
+    def predict(name, want, *argv):
+        path = work / f"{name}.json"
+        run(name, want, lambda: cli_predict.main([*common, *argv, "--output", str(path)]))
+        out[name] = json.loads(path.read_text())
+
+    beam = ["--method", "beam", "--beam-size", "5"]
+    predict("single features", encode_launches(config, 1, 1), *beam, "single", "--video-path",
+            "clip0.mp4", "--features-path", str(tmp / "clip00.npy"))
+    predict("single video, cnn", encode_launches(config, 1, 1), "--feature-mode", "cnn",
+            "--allow-random-cnn-init", *beam, "single", "--video-path", str(tmp / "clip0.mp4"))
+    videos = [tmp / f"clip{i}.mp4" for i in range(len(frames))]
+    listing = work / "videos.txt"
+    listing.write_text("\n".join(str(v) for v in videos[:2] + [tmp / "broken.mp4"] + videos[2:]))
+    predict("batch videos", encode_launches(config, 1, 1), *beam, "batch", "--video-list",
+            str(listing), "--batch-size", "8", "--captions-file", str(work / "captions.txt"))
+    predict("multiple", encode_launches(config, 1, 1), "--method", "beam", "--beam-size", "10",
+            "multiple", "--video-path", "clip0.mp4", "--features-path", str(tmp / "clip01.npy"),
+            "--num-captions", "5")
+    run("evaluate files", {"lstm_seq": 0, "topk2d_lse": 0}, lambda: cli_evaluate.main(
+        ["--predictions", str(work / "captions.txt"), "--references", str(tmp / "refs.txt"),
+         "--log-level", "WARNING"]))
+    run("evaluate dataset", encode_launches(config, 2, 2), lambda: cli_evaluate.main(
+        ["--model-path", pkg, "--data-file", str(tmp / "dataset.csv"), "--split", "all",
+         "--batch-size", "8", "--device", device, "--log-level", "WARNING"]))
+    run("import_reference", {"lstm_seq": 0, "topk2d_lse": 0}, lambda: cli_import_reference.main(
+        ["--input", str(tmp / "upstream_state.pth"), "--output-dir", str(work / "imported"),
+         "--vocabulary", str(tmp / "vocabulary.json"), "--config", str(tmp / "base.json"),
+         "--log-level", "WARNING"]))
+    imported = VideoCaptionPredictor(out["import_reference"]["output"], device=device)
+    clips = [np.load(tmp / f"clip{i:02d}.npy") for i in range(4)]
+    run("imported package, beam-5 x 4", encode_launches(config, 1, 1),
+        lambda: imported.predict_batch(clips, method="beam", beam_size=5))
+    return {"out": out, "launches": launches}
+
+
+def run_entry_points(card: str, device: str = "cuda", n_clips: int = 16, n_videos: int = 4,
+                     frames_per_video: int = 80, size: int = 224) -> dict:
+    """``cli.predict`` (single from features and from a video, batch,
+    multiple), ``cli.evaluate`` (file and dataset modes) and
+    ``cli.import_reference`` on the LSTM default at full width, on
+    ``device`` and then on the CPU with the plain versions (the package's
+    ``kernels.interpret``); seeded frames stand in for the OpenCV decoder
+    and an unreadable video raises in its place. Every token list, caption
+    and score must be the CPU run's."""
+    config = Config()
+    config.kernels.interpret = True  # the CPU run's contract; the card runs its kernels
+    rng = np.random.default_rng(11)
+    frames = {f"clip{i}": rng.integers(0, 256, (frames_per_video, size, size, 3), np.uint8)
+              for i in range(n_videos)}
+
+    def decode(path, *a, **k):
+        stem = Path(path).stem
+        if stem not in frames:
+            raise ValueError(f"Cannot open video: {path}")
+        return frames[stem]
+
+    real_decode = video_mod.extract_frames
+    video_mod.extract_frames = decode
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            pkg = smoke_package(str(tmp), config)
+            V = config.model.vocab_size
+            lines = ["video_id,video_path,feature_path,caption"]
+            for i in range(n_clips):
+                np.save(tmp / f"clip{i:02d}.npy", rng.standard_normal(
+                    (frames_per_video, config.model.cnn_feature_dim), dtype=np.float32))
+                for j in range(1 + i % 3):
+                    words = " ".join(f"w{w}" for w in rng.integers(4, V, 6))
+                    lines.append(f"vid{i:02d},,{tmp / f'clip{i:02d}.npy'},{words}")
+            (tmp / "dataset.csv").write_text("\n".join(lines) + "\n")
+            (tmp / "refs.txt").write_text("".join(f"w{4 + i} w{5 + i} w{6 + i}\n"
+                                                  for i in range(n_videos + 1)))
+            # A synthetic upstream artifact: a raw state dict under the
+            # upstream names, its vocabulary.json and a config to size it.
+            params = init_params_numpy(config, V, seed=3)
+            torch.save(state_dict_from_jax_params(params, config), tmp / "upstream_state.pth")
+            vocabulary_from_package(load_model_for_inference(pkg), config).save(
+                tmp / "vocabulary.json")
+            (tmp / "base.json").write_text(json.dumps(config.to_dict()))
+            on_device = _entry_point_calls(device, tmp, tmp / "on_device", pkg, frames, config)
+            on_cpu = _entry_point_calls("cpu", tmp, tmp / "on_cpu", pkg, frames, config)
+    finally:
+        video_mod.extract_frames = real_decode
+    got, want = on_device["out"], on_cpu["out"]
+    batch = got["batch videos"]["results"]
+    if (len(batch) != n_videos + 1 or [i for i, r in enumerate(batch) if "error" in r] != [2]
+            or "broken" not in batch[2]["video_path"]):
+        raise AssertionError(f"batch: the unreadable video is not an error entry in its place: "
+                             f"{got['batch videos']['results']}")
+    if len(got["multiple"]["captions"]) != 5:
+        raise AssertionError(f"multiple: {len(got['multiple']['captions'])} captions, want 5")
+    for name in got:
+        a, b = got[name], want[name]
+        if name == "multiple":  # scores are float32 sums: within 1e-4
+            same = (all(x["tokens"] == y["tokens"] and abs(x["score"] - y["score"]) <= 1e-4
+                        * max(1.0, abs(y["score"]))
+                        for x, y in zip(a["captions"], b["captions"], strict=True)))
+        elif name == "imported package, beam-5 x 4":
+            same = [r["tokens"] for r in a] == [r["tokens"] for r in b]
+        elif name == "import_reference":
+            same = True
+        else:
+            same = a == b
+        if not same:
+            raise AssertionError(f"{name}: card and CPU runs differ:\n{str(a)[:600]}\n"
+                                 f"{str(b)[:600]}")
+    print(f"[entry] every output equal to the CPU run (plain versions): single "
+          f"{got['single features']['caption'][:40]!r}..., batch with one error entry in place, "
+          f"5 captions from beam 10, evaluate dataset over {got['evaluate dataset']['num_videos']} "
+          f"videos, the imported package served; {time.perf_counter() - t0:.1f} s wall in all "
+          f"({card})")
+    return {"launches": {k: sum(n[k] for n in on_device["launches"].values())
+                         for k in launch_counts()}}
+
+
+def run_wide_encoder(card: str, clips: np.ndarray, device: str = "cuda") -> dict:
+    """``encoder_hidden_dim = 1024``, past the recurrence kernels' limit:
+    8 clips with beam 5 and one training step on ``device``, the encoder's
+    log naming the gate, no ``lstm_seq*`` launch, tokens equal to the CPU
+    run (the gate evaluated as on the card) and the loss within
+    STEP_LOSS_RTOL."""
+    config = Config()
+    config.model.encoder_hidden_dim = 1024
+    config.validate()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, config)
+        with encoder_log() as lines:
+            predictor = VideoCaptionPredictor(pkg, device=device)
+            results, served = counted(device, "H=1024 beam-5 x 8",
+                                      {"lstm_seq": 0, "topk2d_lse": 20},
+                                 lambda: predictor.predict_batch(list(clips[:8]), method="beam",
+                                                                 beam_size=5))
+        with recurrence_gate_as_on_card():
+            cpu = VideoCaptionPredictor(pkg, config=interpret_config(config),
+                                        device="cpu").predict_batch(list(clips[:8]),
+                                                                    method="beam", beam_size=5)
+    share = agreement(results, cpu)
+    gate_lines = [line for line in lines if "lstm_seq_eligible" in line]
+    print(f"[wide] encoder H=1024 served 8 clips on {device}: launches "
+          f"{ {k: served[k] for k in ('lstm_seq', 'topk2d_lse')} }; tokens, card vs CPU: "
+          f"agreement {share:.4f}; the encoder's log: {gate_lines}")
+    if share < 1.0 or (device == "cuda" and not any(
+            "H=1024" in line and "lstm_scan" in line for line in gate_lines)):
+        raise AssertionError(f"wide encoder: agreement {share}, log {lines}")
+    with encoder_log() as lines:
+        parity = check_step_parity(card, config, device)
+    n = parity["launches"]
+    print(f"[wide] one training step at H=1024: launches "
+          f"{ {k: n[k] for k in ('lstm_seq', 'lstm_seq_train_fwd', 'lstm_seq_train_bwd')} }; "
+          f"the encoder's log: "
+          f"{[line for line in lines if 'lstm_seq_eligible' in line]}; "
+          f"{time.perf_counter() - t0:.1f} s wall in the phase ({card})")
+    if device == "cuda" and (n["lstm_seq_train_fwd"] or n["lstm_seq_train_bwd"] or n["lstm_seq"]
+                             or not any("lstm_seq_train limit" in line and "lstm_scan" in line
+                                        for line in lines)):
+        raise AssertionError(f"wide encoder training step: launches {n}, log {lines}")
+    return {"launches": {k: served[k] + n[k] for k in n}, "agreement": share,
+            "loss_rel": parity["loss_rel"]}
 
 
 def main() -> int:
@@ -2125,7 +2449,11 @@ def main() -> int:
     mm = check_conv1x1("cuda", smi)
     i8, i8_res = check_int8_matmul("cuda", smi)
     ext = run_extraction(smi)
-    launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr))
+    ttr = run_transformer_training(smi)
+    entry = run_entry_points(smi)
+    wide = run_wide_encoder(smi, clips)
+    launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr, ttr["train"], entry,
+                                                      wide))
                 + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}
     kernels = []

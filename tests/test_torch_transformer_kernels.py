@@ -178,7 +178,8 @@ def test_encoder_matches_jax(tr_config, ragged):
 def test_apply_model_eval_matches_jax(tr_config, ragged):
     """Eval-mode teacher forcing: logits and the last block's head-mean
     cross-attention weights; without a mask the decoder gets None, as in
-    the JAX package."""
+    the JAX package. Training mode without a generator draws no dropout
+    and gives the same logits."""
     params, model = _pair(tr_config, seed=3)
     feats, mask = _features(tr_config, 3, seed=4, ragged=ragged)
     toks = np.random.RandomState(5).randint(0, VOCAB, (3, 7)).astype(np.int32)
@@ -189,8 +190,10 @@ def test_apply_model_eval_matches_jax(tr_config, ragged):
     for key in ("logits", "attention_weights", "encoder_outputs"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=0, atol=2e-5,
                                    err_msg=key)
-    with pytest.raises(NotImplementedError, match="training the transformer"):
-        apply_model(model, port(tr_config), _t(feats), _t(toks).long(), _t(mask), train=True)
+    with torch.no_grad():
+        trained = apply_model(model, port(tr_config), _t(feats), _t(toks).long(), _t(mask),
+                              train=True)
+    assert torch.equal(trained["logits"], got["logits"])
 
 
 @pytest.mark.parametrize("merge_qkv", [False, True])

@@ -214,6 +214,37 @@ with tempfile.TemporaryDirectory() as tmp:
     convert_weights.main(["--input", str(Path(tmp) / "state.npz"), "--model-type", "resnet50",
                           "--output", str(Path(tmp) / "r.vcw.npz")])
     assert convert_weights.is_native(Path(tmp) / "r.vcw.npz")
+# A transformer training step (dropout on), then cli.predict, cli.evaluate
+# and cli.import_reference on the CPU.
+from video_captioning_tpu_torch.cli import evaluate, import_reference, predict
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    tcfg.experiment.checkpoint_dir = tmp / "ck"
+    tmodel = VideoCaptioningModel(tcfg, len(vocab))
+    tmodel.load_state_dict(state_dict_from_jax_params(init_params_numpy(tcfg, len(vocab)), tcfg))
+    tbatch = {k: v % len(vocab) if k != "video_features" else v for k, v in batch.items()}
+    trainer = VideoCaptioningTrainer(tmodel, tcfg, vocab, None, None, device="cpu")
+    assert np.isfinite(float(trainer.train_step(tbatch)))
+    params = init_params_numpy(cfg, len(vocab))
+    pkg = save_model_for_inference(params, vocab, cfg, tmp)
+    np.save(tmp / "f.npy", np.random.RandomState(0).randn(10, 24).astype(np.float32))
+    predict.main(["--model-path", str(pkg), "--device", "cpu", "--log-level", "WARNING",
+                  "--method", "beam", "--beam-size", "2", "multiple", "--video-path", "v.mp4",
+                  "--features-path", str(tmp / "f.npy"), "--num-captions", "2",
+                  "--output", str(tmp / "m.json")])
+    assert len(json.loads((tmp / "m.json").read_text())["captions"]) == 2
+    (tmp / "p.txt").write_text("a man rides\n")
+    (tmp / "r.txt").write_text("a man rides a horse\n")
+    assert "bleu_4" in evaluate.main(["--predictions", str(tmp / "p.txt"), "--references",
+                                      str(tmp / "r.txt"), "--log-level", "WARNING"])
+    torch.save(state_dict_from_jax_params(params, cfg), tmp / "state.pth")
+    vocab.save(tmp / "vocabulary.json")
+    (tmp / "base.json").write_text(json.dumps(cfg.to_dict()))
+    summary = import_reference.main(["--input", str(tmp / "state.pth"), "--output-dir",
+                                     str(tmp / "out"), "--vocabulary", str(tmp / "vocabulary.json"),
+                                     "--config", str(tmp / "base.json"), "--log-level", "WARNING"])
+    assert VideoCaptionPredictor(summary["output"], device="cpu").predict_from_features(
+        np.load(tmp / "f.npy"))["caption"] is not None
 print("JAX_LOADED=" + str("jax" in sys.modules))
 print("JAX_PACKAGE_MODULES=" + ",".join(sorted(
     n for n in sys.modules if n == "video_captioning_tpu" or n.startswith("video_captioning_tpu."))))

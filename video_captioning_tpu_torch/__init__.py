@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of video_captioning_tpu, for NVIDIA Hopper cards.
 
 The serving path (precomputed features -> BiLSTM encoder -> Bahdanau LSTM
-decoder -> greedy or beam search -> HTTP server) and the training path
-(teacher-forced loss, optimizer, trainer, ``cli.train``), with
-hand-written CUDA kernels where the JAX package has Pallas kernels
-(``ops/``). It imports ``torch`` and never ``jax`` nor anything of the
+decoder, or the pre-LN transformer -> greedy or beam search -> HTTP
+server), the training path of both families (teacher-forced loss,
+optimizer, trainer, ``cli.train``), feature extraction (``cli.preprocess``)
+and the other entry points (``cli.predict``, ``cli.evaluate``,
+``cli.import_reference``), with hand-written CUDA kernels where the JAX
+package has Pallas kernels (``ops/``). It imports ``torch`` and never ``jax`` nor anything of the
 JAX package: it keeps its own copies of the configuration, vocabulary and
 other plain-Python modules, and the checkpoints and inference packages it
 writes load in the JAX package and the other way round.

@@ -11,9 +11,10 @@ torch device and defaults to ``cuda``; ``--device cpu`` trains on the CPU
     python -m video_captioning_tpu_torch.cli.train --data-file captions.csv \
         --checkpoint-dir checkpoints --epochs 10
 
-Options the port does not run yet (``--compute-dtype bfloat16``, the
-orbax backend, ``--profile-dir``, ``--wandb``, a non-LSTM architecture or
-another attention type) raise ``NotImplementedError``.
+Both model families train (``--architecture lstm|transformer``). Options
+the port does not run yet (``--compute-dtype bfloat16``, the orbax
+backend, ``--profile-dir``, ``--wandb``, another attention type) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

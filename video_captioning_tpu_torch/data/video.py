@@ -1,7 +1,7 @@
 """Host-side video frame extraction (numpy and OpenCV, no torch).
 
-The port's copy of ``uniform_frame_indices`` and ``extract_frames`` from
-video_captioning_tpu/data/video.py: uniform ``linspace`` sampling of
+The port's copy of ``uniform_frame_indices``, ``extract_frames`` and
+``pixel_stub_features`` from video_captioning_tpu/data/video.py: uniform ``linspace`` sampling of
 ``num_frames`` frames in one sequential decode pass, BGR -> RGB, an
 optional resize, and padding with the last frame (``pad_mode="last"``) or
 zeros (``"zero"``). ``cv2`` is imported when a video is decoded, so the
@@ -97,3 +97,16 @@ def extract_frames(
             raise ValueError(f"Unknown pad_mode: {pad_mode}")
 
     return np.stack(frames[:num_frames])
+
+
+def pixel_stub_features(frames: np.ndarray, feature_dim: int = 4096) -> np.ndarray:
+    """The upstream predictor's on-the-fly "features": each frame's
+    flattened pixels, truncated or zero-padded to ``feature_dim``, as
+    float32 (a compatibility mode; ``feature_mode="cnn"`` runs a backbone)."""
+    out = []
+    for frame in frames:
+        flat = frame.reshape(-1)[:feature_dim].astype(np.float32)
+        if flat.size < feature_dim:
+            flat = np.pad(flat, (0, feature_dim - flat.size))
+        out.append(flat)
+    return np.stack(out)

@@ -8,6 +8,9 @@ from ..models.captioner import VideoCaptioningModel, encode
 from .beam import beam_search_generate  # noqa: F401
 from .greedy import greedy_generate  # noqa: F401
 
+SAMPLE_NOT_PORTED = ("method='sample' is not ported to video_captioning_tpu_torch yet "
+                     "(ROADMAP.md A4, the other decoder options)")
+
 
 def generate(
     model: VideoCaptioningModel,
@@ -27,7 +30,7 @@ def generate(
     elif method == "beam":
         fn = beam_search_generate
     elif method == "sample":
-        raise NotImplementedError("method='sample' is not ported to video_captioning_tpu_torch yet")
+        raise NotImplementedError(SAMPLE_NOT_PORTED)
     else:
         raise ValueError(f"Unsupported generation method: {method}")
     return fn(model, config, enc_outs, final, start_token_id, end_token_id,

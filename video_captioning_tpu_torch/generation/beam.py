@@ -34,7 +34,7 @@ from ..config import Config
 
 from ..models.captioner import VideoCaptioningModel
 from ..ops.topk import topk2d_lse, topk_stable
-from ..ops.vocab_topk import pad_vocab_weights, vocab_topk_lse
+from ..ops.vocab_topk import pad_vocab_weights, vocab_row_block_fits, vocab_topk_lse
 from .families import make_decode_family
 
 Tensor = torch.Tensor
@@ -51,10 +51,13 @@ def fused_vocab_eligible(config: Config, device: torch.device, B: int, K: int, V
     a TPU backend, the tensors are on CUDA; elsewhere the hierarchical
     float32 path runs, as the JAX package's does off the TPU. (Its other
     condition, an unquantized vocabulary projection, always holds: the port
-    has no int8 decode.) Tests force the fused path on the CPU by patching
-    this function."""
+    has no int8 decode.) The port's kernel adds its own domain: a row block
+    of the pre-vocab state (decoder_hidden_dim wide) fits in shared memory
+    (``vocab_row_block_fits``). Tests force the fused path on the CPU by
+    patching this function."""
     return (config.kernels.use_fused_vocab_topk and device.type == "cuda"
-            and B * K <= FUSED_VOCAB_MAX_ROWS and min(K, V) <= 16)
+            and B * K <= FUSED_VOCAB_MAX_ROWS and min(K, V) <= 16
+            and vocab_row_block_fits(config.model.decoder_hidden_dim))
 
 
 def beam_search_generate(

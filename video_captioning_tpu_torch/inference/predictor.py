@@ -1,12 +1,22 @@
-"""Inference API: captions from precomputed features.
+"""Inference API: captions from features or from a video.
 
-Counterpart of video_captioning_tpu/inference/predictor.py
-(VideoCaptionPredictor: load, power-of-two batch buckets,
-predict_from_features, predict_batch, greedy and beam). It runs on the
-card unless the caller names another device (``device="cpu"``). Batches
-are zero-padded to the next power of two as in the JAX package: the
-padded rows take part in the beam loop's batch-wide stop condition, so
-the padding is part of the result's definition.
+Counterpart of video_captioning_tpu/inference/predictor.py:
+``VideoCaptionPredictor`` (load, power-of-two batch buckets,
+``predict_from_features``, ``predict_batch``, ``predict_from_video``,
+``generate_multiple_captions``, ``explain_prediction``; greedy and beam)
+and ``BatchPredictor`` (videos in device batches, each failing video an
+error entry in its place). It runs on the card unless the caller names
+another device (``device="cpu"``); a CUDA device on a host without one
+raises. Batches are zero-padded to the next power of two as in the JAX
+package: the padded rows take part in the beam loop's batch-wide stop
+condition, so the padding is part of the result's definition.
+
+Video input decodes ``video_sequence_length`` frames (``data/video.py``,
+OpenCV) and turns them into features in one of two modes:
+``"pixel_stub"`` (the upstream predictor's flattened pixels, 224 x 224
+frames, the default) or ``"cnn"`` (``models.backbones.FeatureExtractor`` on
+the predictor's device: VGG16 for 4096-d models, ResNet50 in
+``kernels.resnet50_variant`` for 2048-d ones, built once and kept).
 """
 
 from __future__ import annotations
@@ -20,14 +30,17 @@ import torch
 
 from ..config import Config
 
+from ..data import video as video_mod
+from ..generation import SAMPLE_NOT_PORTED
 from ..generation.beam import beam_search_generate
 from ..generation.greedy import greedy_generate
-from ..models.captioner import VideoCaptioningModel, encode
+from ..models.captioner import VideoCaptioningModel, apply_model, encode
 from ..models.weights import state_dict_from_jax_params
 from ..utils.checkpoint import load_model_for_inference, vocabulary_from_package
 from .utils import resize_feature_sequence
 
 METHODS = ("greedy", "beam")
+FEATURE_MODES = ("pixel_stub", "cnn")
 
 
 class VideoCaptionPredictor:
@@ -40,7 +53,12 @@ class VideoCaptionPredictor:
         device: Union[str, torch.device] = "cuda",
         compute_dtype: Optional[str] = None,
         decode_int8: str = "off",
+        feature_mode: str = "pixel_stub",
+        cnn_weights_path: Optional[Union[str, Path]] = None,
+        allow_random_cnn_init: bool = False,
     ):
+        if feature_mode not in FEATURE_MODES:
+            raise ValueError(f"feature_mode {feature_mode!r} is not one of {FEATURE_MODES}")
         if compute_dtype not in (None, "float32"):
             raise NotImplementedError(
                 f"compute_dtype={compute_dtype!r} is not ported to video_captioning_tpu_torch yet")
@@ -51,7 +69,13 @@ class VideoCaptionPredictor:
             raise NotImplementedError(".vcx artifacts are not ported to video_captioning_tpu_torch yet")
         self.logger = logging.getLogger(__name__)
         self.device = torch.device(device)
+        self.feature_mode = feature_mode
+        self._cnn_weights_path = cnn_weights_path
+        self._allow_random_cnn_init = allow_random_cnn_init
+        self._backbone = None
         if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {device!r}: no CUDA device here; pass device='cpu'")
             # float32 products stay float32: only lstm_seq uses bf16 operands.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -84,6 +108,8 @@ class VideoCaptionPredictor:
         length_penalty: float,
         temperature: float,
     ) -> Dict[str, np.ndarray]:
+        if method == "sample":
+            raise NotImplementedError(SAMPLE_NOT_PORTED)
         if method not in METHODS:
             raise ValueError(
                 f"method {method!r} is not supported by video_captioning_tpu_torch "
@@ -154,3 +180,142 @@ class VideoCaptionPredictor:
             }
             for tokens in outputs["generated_tokens"]
         ]
+
+    def predict_from_video(
+        self,
+        video_path: Union[str, Path],
+        method: str = "greedy",
+        max_length: int = 20,
+        beam_size: int = 5,
+        length_penalty: float = 1.0,
+        temperature: float = 1.0,
+        extract_features: bool = True,
+    ) -> Dict[str, Union[str, List[int], np.ndarray]]:
+        """Caption a video file; with ``extract_features=False`` read the
+        features from the ``.npy`` beside it instead."""
+        video_path = Path(video_path)
+        if extract_features:
+            features = self._extract_video_features(video_path)
+        else:
+            feature_path = video_path.with_suffix(".npy")
+            if not feature_path.exists():
+                raise FileNotFoundError(f"Feature file not found: {feature_path}")
+            features = np.load(feature_path)
+        result = self.predict_from_features(features, method=method, max_length=max_length,
+                                            beam_size=beam_size, length_penalty=length_penalty,
+                                            temperature=temperature)
+        result["video_path"] = str(video_path)
+        return result
+
+    def _extract_video_features(self, video_path: Path) -> np.ndarray:
+        """(video_sequence_length, cnn_feature_dim) float32 features of a
+        video in the predictor's ``feature_mode``."""
+        num_frames = self.config.model.video_sequence_length
+        if self.feature_mode == "cnn":
+            return self._cnn_features(video_path, num_frames)
+        frames = video_mod.extract_frames(video_path, num_frames, resize=(224, 224),
+                                          pad_mode="zero")
+        return video_mod.pixel_stub_features(frames, self.config.model.cnn_feature_dim)
+
+    def _cnn_features(self, video_path: Path, num_frames: int) -> np.ndarray:
+        from ..models.backbones import FeatureExtractor
+
+        if self._backbone is None:
+            model_type = "vgg16" if self.config.model.cnn_feature_dim == 4096 else "resnet50"
+            self._backbone = FeatureExtractor(
+                model_type, self.config, weights_path=self._cnn_weights_path,
+                allow_random_init=self._allow_random_cnn_init, device=str(self.device))
+        frames = video_mod.extract_frames(video_path, num_frames,
+                                          resize=tuple(self.config.data.img_size),
+                                          pad_mode="zero")
+        return self._backbone.extract(frames)
+
+    def generate_multiple_captions(
+        self,
+        video_features: np.ndarray,
+        num_captions: int = 5,
+        method: str = "beam",
+        max_length: int = 20,
+        beam_size: int = 10,
+        temperature: float = 1.0,
+    ) -> List[Dict[str, Union[str, float, List[int]]]]:
+        """``num_captions`` captions of one clip: with ``method="beam"`` the
+        top hypotheses of one beam search by score (``beam_size`` raised to
+        ``num_captions`` where smaller); otherwise greedy decodes at
+        temperatures from 0.7 to 1.3, scored 1 / temperature."""
+        if method == "sample":
+            raise NotImplementedError(SAMPLE_NOT_PORTED)
+        captions: List[Dict[str, Union[str, float, List[int]]]] = []
+        if method == "beam":
+            beam_size = max(beam_size, num_captions)
+            features = self._prepare_features(video_features)[None]
+            outputs = self._run_generation(features, "beam", max_length, beam_size, 1.0,
+                                           temperature)
+            all_tokens, all_scores = outputs["all_tokens"][0], outputs["all_scores"][0]
+            for rank in np.argsort(-all_scores)[:num_captions]:
+                tokens = all_tokens[rank].tolist()
+                captions.append({"caption": self.vocabulary.decode_caption(tokens),
+                                 "score": float(all_scores[rank]), "tokens": tokens})
+            return captions
+        for temp in np.linspace(0.7, 1.3, num_captions):
+            result = self.predict_from_features(video_features, method="greedy",
+                                                max_length=max_length, temperature=float(temp))
+            captions.append({"caption": result["caption"], "score": 1.0 / float(temp),
+                             "tokens": result["tokens"], "temperature": float(temp)})
+        return captions
+
+    @torch.inference_mode()
+    def explain_prediction(self, video_features: np.ndarray,
+                           caption_tokens: List[int]) -> Dict[str, Union[np.ndarray, int]]:
+        """The teacher-forced pass of one clip over ``caption_tokens``: the
+        attention weights (1, T, S) and encoder outputs (1, S, H)."""
+        features = self._prepare_features(video_features)[None]
+        feats = torch.from_numpy(features).to(self.device)
+        tokens = torch.tensor([list(caption_tokens[:-1])], dtype=torch.int64, device=self.device)
+        out = apply_model(self.model, self.config, feats, tokens, train=False)
+        weights = out["attention_weights"]
+        return {
+            "attention_weights": None if weights is None else weights.cpu().numpy(),
+            "encoder_outputs": out["encoder_outputs"].cpu().numpy(),
+            "video_length": int(features.shape[1]),
+            "caption_length": len(caption_tokens),
+        }
+
+
+class BatchPredictor:
+    """Captions many videos, ``batch_size`` of them in each device batch;
+    a video that fails to decode becomes an error entry in its place."""
+
+    def __init__(self, predictor: VideoCaptionPredictor, batch_size: int = 8):
+        self.predictor = predictor
+        self.batch_size = batch_size
+        self.logger = logging.getLogger(__name__)
+
+    def predict_videos(self, video_paths: List[Union[str, Path]], method: str = "greedy",
+                       max_length: int = 20, **kwargs) -> List[Dict[str, Union[str, List[int]]]]:
+        results: List[Dict[str, Union[str, List[int]]]] = []
+        num_chunks = -(-len(video_paths) // self.batch_size)
+        for chunk_idx in range(num_chunks):
+            chunk = video_paths[chunk_idx * self.batch_size:(chunk_idx + 1) * self.batch_size]
+            self.logger.info(f"Processing batch {chunk_idx + 1}/{num_chunks}")
+            features, ok_paths, errors = [], [], {}
+            for path in chunk:
+                try:
+                    features.append(self.predictor._extract_video_features(Path(path)))
+                    ok_paths.append(str(path))
+                except Exception as e:
+                    self.logger.error(f"Error processing {path}: {e}")
+                    errors[str(path)] = str(e)
+            batch_results = (self.predictor.predict_batch(features, method=method,
+                                                          max_length=max_length, **kwargs)
+                             if features else [])
+            by_path = dict(zip(ok_paths, batch_results))
+            for path in chunk:
+                r = by_path.get(str(path))
+                if r is None:
+                    r = {"video_path": str(path), "caption": "",
+                         "error": errors.get(str(path), "unknown error")}
+                else:
+                    r["video_path"] = str(path)
+                results.append(r)
+        return results

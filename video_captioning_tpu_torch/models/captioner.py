@@ -75,15 +75,9 @@ def encode(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Returns (encoder_outputs, final_state, mask); the mask defaults to
     all frames valid."""
-    if is_transformer(config):
-        if train:
-            raise NotImplementedError("not ported to video_captioning_tpu_torch yet: "
-                                      "training the transformer family")
-        enc_outs, final = transformer_mod.apply_transformer_encoder(
-            model.encoder, config, video_features, video_mask)
-    else:
-        enc_outs, final = apply_encoder(model.encoder, config, video_features, video_mask,
-                                        train=train, generator=generator)
+    apply = transformer_mod.apply_transformer_encoder if is_transformer(config) else apply_encoder
+    enc_outs, final = apply(model.encoder, config, video_features, video_mask,
+                            train=train, generator=generator)
     if video_mask is None:
         video_mask = torch.ones(video_features.shape[:2], dtype=enc_outs.dtype,
                                 device=enc_outs.device)
@@ -101,13 +95,15 @@ def apply_model(
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, Tensor]:
     """Training forward pass (teacher forcing): ``logits`` (B, T, V),
-    ``encoder_outputs`` and ``attention_weights``."""
+    ``encoder_outputs`` and ``attention_weights``. Dropout draws from
+    ``generator`` in order, the encoder's sites before the decoder's."""
     enc_outs, final, mask = encode(model, config, video_features, video_mask,
                                    train=train, generator=generator)
     if is_transformer(config):
         # As in the JAX package, the decoder sees no mask when none was given.
         dec_out = transformer_mod.apply_transformer_decoder(
-            model.decoder, config, enc_outs, input_tokens, None if video_mask is None else mask)
+            model.decoder, config, enc_outs, input_tokens, None if video_mask is None else mask,
+            train=train, generator=generator)
     else:
         dec_out = apply_decoder(model.decoder, config, enc_outs, final, input_tokens, mask,
                                 train=train, generator=generator)

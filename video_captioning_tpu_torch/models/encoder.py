@@ -11,12 +11,17 @@ Kernel dispatch follows the JAX package, on CUDA tensors or with
 ``kernels.interpret`` set (on CPU that is each op's plain version under
 the same bf16-operand contract): at eval the ``lstm_seq`` op when
 ``kernels.use_pallas_lstm_seq`` is on, in training the differentiable
-``lstm_seq_train`` op when ``kernels.use_pallas_lstm_seq_train`` is on.
-Otherwise the float32 ``lstm_scan`` runs, under autograd in training.
+``lstm_seq_train`` op when ``kernels.use_pallas_lstm_seq_train`` is on,
+each within its domain (``ops.lstm_seq.lstm_seq_eligible``: on CUDA, H up
+to the kernel's limit). Otherwise the float32 ``lstm_scan`` runs, under
+autograd in training: the path the flags-off configuration and the JAX
+package's ``lax.scan`` take. The domain decision is made once per encoder,
+device, dtype and mode, before any launch, and logged with H and the limit.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -24,11 +29,12 @@ from torch import nn
 
 from ..config import Config
 
-from ..ops.lstm_seq import lstm_seq
+from ..ops.lstm_seq import kernel_max_hidden, lstm_seq, lstm_seq_eligible
 from ..ops.lstm_seq_train import lstm_seq_train
 from .layers import LSTMWeights, dropout, lstm_scan, reverse_sequence
 
 Tensor = torch.Tensor
+logger = logging.getLogger(__name__)
 
 
 class Encoder(nn.Module):
@@ -40,6 +46,22 @@ class Encoder(nn.Module):
         self.lstm = LSTMWeights(H, H, L, bidirectional=True)
         self.output_projection = nn.Linear(2 * H, H)
         self._staged: Dict[int, Tuple[tuple, Tensor]] = {}
+        self._kernel_route: Dict[tuple, bool] = {}
+
+    def takes_kernel(self, dtype: torch.dtype, device: torch.device, train: bool) -> bool:
+        """``lstm_seq_eligible`` for this encoder's H, decided once per
+        (device, dtype, mode) and logged with H and the kernel's limit."""
+        key = (device, dtype, train)
+        if key not in self._kernel_route:
+            H = self.lstm.hidden_size
+            ok = lstm_seq_eligible(H, dtype, device, train)
+            kernel = "lstm_seq_train" if train else "lstm_seq"
+            limit = kernel_max_hidden(train) if device.type == "cuda" else "none (plain version)"
+            logger.info(f"lstm_seq_eligible: encoder H={H}, {kernel} limit {limit} on "
+                        f"{device.type}, {dtype}: the encoder runs "
+                        f"{kernel if ok else 'lstm_scan (float32, no kernel)'}")
+            self._kernel_route[key] = ok
+        return self._kernel_route[key]
 
     def stacked_w_hh_bf16(self, l: int) -> Tensor:
         """Layer l's (2, H, 4H) bf16 recurrent weights for ``lstm_seq``,
@@ -69,12 +91,10 @@ def apply_encoder(
     x = encoder.feature_projection(video_features)  # (B, T, H)
     x = dropout(x, p_drop, generator, train)
     lengths = None if video_mask is None else video_mask.sum(dim=1).to(torch.int64)
-    on_kernel_backend = (
-        x.dtype in (torch.float32, torch.bfloat16)
-        and (x.is_cuda or config.kernels.interpret)
-    )
-    use_seq_kernel = config.kernels.use_pallas_lstm_seq and not train and on_kernel_backend
-    use_train_kernel = config.kernels.use_pallas_lstm_seq_train and train and on_kernel_backend
+    k = config.kernels
+    flag = k.use_pallas_lstm_seq_train if train else k.use_pallas_lstm_seq
+    use_kernel = (flag and (x.is_cuda or k.interpret)
+                  and encoder.takes_kernel(x.dtype, x.device, train))
     num_layers = encoder.lstm.num_layers
     h_fwd_last = h_bwd_last = None
     for l in range(num_layers):
@@ -84,13 +104,13 @@ def apply_encoder(
         # outputs un-reversed afterwards.
         x_rev = reverse_sequence(x, lengths)
         xs2 = torch.stack([x, x_rev])  # (2, B, T, in)
-        if use_seq_kernel or use_train_kernel:
+        if use_kernel:
             w_ih = torch.stack([fwd["w_ih"], bwd["w_ih"]])  # (2, 4H, in)
             bias = torch.stack([fwd["b_ih"] + fwd["b_hh"], bwd["b_ih"] + bwd["b_hh"]])
             xproj = torch.einsum("dbti,doi->dbto", xs2, w_ih) + bias[:, None, None, :]
             xproj_t = xproj.permute(2, 0, 1, 3).contiguous()  # (T, 2, B, 4H)
             mask = None if video_mask is None else video_mask.contiguous()
-            if use_train_kernel:
+            if train:
                 # The differentiable float32 stack: the op casts it to bf16.
                 w_hh = torch.stack([fwd["w_hh"].T, bwd["w_hh"].T])  # (2, H, 4H)
                 outs_t, (h_last2, _) = lstm_seq_train(xproj_t, w_hh, mask)

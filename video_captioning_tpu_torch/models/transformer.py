@@ -1,5 +1,6 @@
-"""Pre-LN encoder-decoder transformer captioner: eval forward and the
-incremental decode steps of greedy and beam search.
+"""Pre-LN encoder-decoder transformer captioner: the teacher-forced forward
+(training and eval) and the incremental decode steps of greedy and beam
+search.
 
 Counterpart of video_captioning_tpu/models/transformer.py. The modules
 mirror the JAX parameter pytree (``encoder.blocks.i.{ln1, self_attn.{wq,
@@ -22,7 +23,12 @@ cross-attention); otherwise both run here, as the JAX package's XLA path
 computes them, including its rounding of the query and the softmax
 weights to the cache dtype under bfloat16 caches.
 
-Training (dropout, the trainer's dispatch) is not ported yet.
+In training (``train=True`` with a ``torch.Generator``) dropout at rate
+``transformer_dropout`` runs where the JAX package applies it: on the
+embedding and on each residual branch (after self-attention and the MLP in
+an encoder block; after self-attention, cross-attention and the MLP in a
+decoder block), drawn from the caller's generator in that order. The
+decode steps take no dropout.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from torch import nn
 from ..config import Config
 
 from ..ops.transformer_attn import beam_cross_attention, beam_self_attention, gather_beam_prefix
+from .layers import dropout
 
 Tensor = torch.Tensor
 # One fused (3D, D) weight and (3D,) bias per decoder block, or None.
@@ -112,7 +119,7 @@ class TransformerDecoder(nn.Module):
 
 
 # --------------------------------------------------------------------------
-# Full-sequence attention, encoder, teacher forcing (eval)
+# Full-sequence attention, encoder, teacher forcing
 # --------------------------------------------------------------------------
 
 
@@ -135,10 +142,13 @@ def _mha(p: Attention, q_in: Tensor, kv_in: Tensor, num_heads: int,
 
 
 def apply_transformer_encoder(enc: TransformerEncoder, config: Config, video_features: Tensor,
-                              video_mask: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+                              video_mask: Optional[Tensor], *, train: bool = False,
+                              generator: Optional[torch.Generator] = None
+                              ) -> Tuple[Tensor, Tensor]:
     """Returns (encoder_outputs (B, S, D), final (B, D)); ``final`` is the
     mean over valid frames."""
     heads = config.model.transformer_num_heads
+    p_drop = config.model.transformer_dropout
     B, S, _ = video_features.shape
     if S > enc.pos_embedding.shape[0]:
         raise ValueError(
@@ -148,12 +158,13 @@ def apply_transformer_encoder(enc: TransformerEncoder, config: Config, video_fea
         )
     x = enc.feature_projection(video_features)
     x = x + enc.pos_embedding[None, :S].to(x.dtype)
+    x = dropout(x, p_drop, generator, train)
     attn_mask = None if video_mask is None else video_mask[:, None, :].expand(B, S, S)
     for blk in enc.blocks:
         h_in = blk.ln1(x)
         h, _ = _mha(blk.self_attn, h_in, h_in, heads, attn_mask)
-        x = x + h
-        x = x + blk.mlp(blk.ln2(x))
+        x = x + dropout(h, p_drop, generator, train)
+        x = x + dropout(blk.mlp(blk.ln2(x)), p_drop, generator, train)
     x = enc.ln_f(x)
     if video_mask is None:
         return x, x.mean(dim=1)
@@ -162,25 +173,28 @@ def apply_transformer_encoder(enc: TransformerEncoder, config: Config, video_fea
 
 
 def apply_transformer_decoder(dec: TransformerDecoder, config: Config, encoder_outputs: Tensor,
-                              input_tokens: Tensor,
-                              encoder_mask: Optional[Tensor]) -> Dict[str, Tensor]:
-    """Eval-mode teacher forcing in one pass: ``logits`` (B, T, V) and the
-    last block's head-mean cross-attention ``attention_weights`` (B, T, S)."""
+                              input_tokens: Tensor, encoder_mask: Optional[Tensor], *,
+                              train: bool = False,
+                              generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+    """Teacher forcing in one pass: ``logits`` (B, T, V) and the last
+    block's head-mean cross-attention ``attention_weights`` (B, T, S)."""
     heads = config.model.transformer_num_heads
+    p_drop = config.model.transformer_dropout
     B, T = input_tokens.shape
     S = encoder_outputs.shape[1]
     x = dec.embedding(input_tokens).to(encoder_outputs.dtype)
     x = x + dec.pos_embedding[None, :T].to(x.dtype)
+    x = dropout(x, p_drop, generator, train)
     causal = torch.tril(torch.ones((1, T, T), device=x.device))
     cross_mask = None if encoder_mask is None else encoder_mask[:, None, :].expand(B, T, S)
     cross_w = None
     for blk in dec.blocks:
         h_in = blk.ln1(x)
         h, _ = _mha(blk.self_attn, h_in, h_in, heads, causal)
-        x = x + h
+        x = x + dropout(h, p_drop, generator, train)
         h, cross_w = _mha(blk.cross_attn, blk.ln2(x), encoder_outputs, heads, cross_mask)
-        x = x + h
-        x = x + blk.mlp(blk.ln3(x))
+        x = x + dropout(h, p_drop, generator, train)
+        x = x + dropout(blk.mlp(blk.ln3(x)), p_drop, generator, train)
     return {"logits": dec.output_projection(dec.ln_f(x)), "attention_weights": cross_w}
 
 

@@ -89,6 +89,31 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def kernel_max_hidden(train: bool = False) -> int:
+    """The largest H the recurrence kernels take (``kMaxHidden``,
+    csrc/lstm_seq_fwd.cuh), read from the built library: ``lstm_seq``'s, or
+    ``lstm_seq_train``'s with ``train``. Builds the library on first use."""
+    if train:
+        from .lstm_seq_train import _kernel_lib as train_lib
+
+        return train_lib().vct_lstm_seq_train_max_hidden()
+    return _kernel_lib().vct_lstm_seq_max_hidden()
+
+
+def lstm_seq_eligible(H: int, dtype: torch.dtype, device: torch.device,
+                      train: bool = False) -> bool:
+    """The domain of the recurrence kernels (``lstm_seq``, or ``lstm_seq_train``
+    with ``train``): float32 or bfloat16 xproj, and on CUDA H a multiple of 8
+    up to the kernel's ``kernel_max_hidden``. The plain versions on the CPU
+    take every H. Callers take another path outside this domain; the
+    wrappers raise there."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if device.type == "cuda":
+        return H % 8 == 0 and H <= kernel_max_hidden(train)
+    return device.type == "cpu"
+
+
 def lstm_seq(
     xproj: Tensor, w_hh: Tensor, mask: Optional[Tensor] = None
 ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:

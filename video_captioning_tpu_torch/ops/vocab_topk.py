@@ -92,6 +92,13 @@ def vocab_smem_bytes(rows: int, h_pad: int) -> int:
     return 2048 + RING_STAGES * STAGE_BYTES + rows * h_pad * 2 + 2 * rows * 32 * 4
 
 
+def vocab_row_block_fits(H: int) -> bool:
+    """Whether ``vocab_partition`` finds a row block for H: the smallest
+    block, 64 rows of the padded bf16 x, fits in shared memory beside the
+    ring (H up to 1152)."""
+    return vocab_smem_bytes(64, -(-H // K_CHUNK) * K_CHUNK) <= MAX_SMEM
+
+
 def vocab_partition(N: int, H: int, Vp: int, n_sm: int) -> dict:
     """How the kernel splits the work: row blocks of ``rows`` rows (128, or
     64 where a 128-row bf16 x block does not fit in shared memory beside
@@ -102,7 +109,7 @@ def vocab_partition(N: int, H: int, Vp: int, n_sm: int) -> dict:
     large for a 64-row block."""
     h_pad = -(-H // K_CHUNK) * K_CHUNK
     fits = [r for r in (128, 64) if vocab_smem_bytes(r, h_pad) <= MAX_SMEM]
-    if not fits:
+    if not vocab_row_block_fits(H):
         raise ValueError(f"vocab_topk_lse: H={H} leaves no room for a row block in shared memory")
     rows = fits[0]
     row_blocks = -(-N // rows)

@@ -13,9 +13,13 @@ EMA, ``training_results.json`` and resume.
   device; the loss stays a device scalar and is read one step late, so the
   host never waits for the step it just issued (the NaN guard reads it
   there too).
-* On a CUDA device the encoder's recurrence runs in the ``lstm_seq_train``
-  kernels in training and in ``lstm_seq`` during validation's greedy
-  decode, as the configuration's kernel gates say.
+* Both model families train (``model.architecture``): the LSTM
+  captioner and the transformer (dropout at ``transformer_dropout``; the
+  transformer's teacher forcing needs no kernel). On a CUDA device the LSTM
+  encoder's recurrence runs in the ``lstm_seq_train`` kernels in training
+  and in ``lstm_seq`` during validation's greedy decode, as the
+  configuration's kernel gates and the kernels' domain
+  (``ops.lstm_seq.lstm_seq_eligible``) say.
 * Dropout draws from one ``torch.Generator`` on the model's device, seeded
   with ``training.seed``.
 * Checkpoints hold the parameters in the JAX package's layout, so its
@@ -56,7 +60,6 @@ def check_trainable(config: Config) -> None:
     """Raise NotImplementedError for the training options not ported yet."""
     t, e, p = config.training, config.experiment, config.parallel
     unsupported = [
-        (config.model.architecture == "transformer", "training the transformer family"),
         (e.checkpoint_backend == "orbax", "experiment.checkpoint_backend='orbax'"),
         (e.profile_dir is not None, "experiment.profile_dir"),
         (e.use_wandb, "experiment.use_wandb"),

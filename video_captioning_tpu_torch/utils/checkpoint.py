@@ -126,15 +126,19 @@ def load_model_for_inference(model_path: Path) -> Dict[str, Any]:
 
 
 def vocabulary_from_package(package: Dict[str, Any], config: Config) -> Vocabulary:
+    """The Vocabulary a package embeds: word maps and the special tokens it
+    names (an upstream package may leave some out; they keep the defaults)."""
     vocab_data = package["vocabulary"]
     vocab = Vocabulary(config)
     vocab.word2idx = dict(vocab_data["word2idx"])
     vocab.idx2word = {int(k): v for k, v in vocab_data["idx2word"].items()}
-    special = vocab_data["special_tokens"]
-    vocab.pad_idx = special["pad_idx"]
-    vocab.start_idx = special["start_idx"]
-    vocab.end_idx = special["end_idx"]
-    vocab.unk_idx = special["unk_idx"]
+    special = vocab_data.get("special_tokens", {})
+    for attr in ("pad_idx", "start_idx", "end_idx", "unk_idx"):
+        if attr in special:
+            setattr(vocab, attr, int(special[attr]))
+    for attr in ("pad_token", "start_token", "end_token", "unk_token"):
+        if attr in special:
+            setattr(vocab, attr, str(special[attr]))
     return vocab
 
 

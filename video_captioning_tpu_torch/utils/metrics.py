@@ -10,14 +10,19 @@ with the same numbers where its libraries are installed:
   (document frequencies over predictions and references together);
 * METEOR (the port's copy of ``utils/meteor.py``, which needs NLTK's
   Porter stemmer) and ROUGE (``rouge_score``) are reported only where
-  their libraries import, as in the JAX package.
+  their libraries import, as in the JAX package;
+* ``compute_diversity_metrics`` (vocabulary size, type-token ratio,
+  distinct-1..3, self-BLEU), ``evaluate_model_outputs`` (prediction and
+  reference files) and ``compute_metrics_multi_reference`` (every
+  reference of a clip at once: multi-reference BLEU and METEOR, the best
+  ROUGE and CIDEr over the references), as the JAX package scores them.
 """
 
 from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 try:
     from nltk.stem.porter import PorterStemmer  # noqa: F401  (METEOR's stemmer)
@@ -182,3 +187,116 @@ class CaptionMetrics:
                     s += dot / (p_norm * r_norm)
             score_sum += s / 4
         return score_sum / len(predictions) if predictions else 0.0
+
+    def compute_diversity_metrics(self, predictions: List[str]) -> Dict[str, float]:
+        """Vocabulary size, type-token ratio, distinct-1..3 and self-BLEU
+        (each prediction's BLEU-4 against every other one, averaged)."""
+        if not predictions:
+            return {}
+        all_tokens: List[str] = []
+        for p in predictions:
+            all_tokens.extend(p.lower().split())
+        vocab_size = len(set(all_tokens))
+        total = len(all_tokens)
+        out: Dict[str, float] = {"vocab_size": vocab_size,
+                                 "ttr": vocab_size / total if total else 0.0}
+        for n in range(1, 4):
+            grams: List[str] = []
+            for p in predictions:
+                toks = p.lower().split()
+                grams.extend(" ".join(toks[i: i + n]) for i in range(len(toks) - n + 1))
+            out[f"distinct_{n}"] = len(set(grams)) / len(grams) if grams else 0.0
+        self_bleu = 0.0
+        if len(predictions) > 1:
+            for i, pred in enumerate(predictions):
+                hyp = pred.lower().split()
+                others = predictions[:i] + predictions[i + 1:]
+                self_bleu += sum(sentence_bleu([o.lower().split()], hyp, (0.25,) * 4)
+                                 for o in others) / len(others)
+            self_bleu /= len(predictions)
+        out["self_bleu"] = self_bleu
+        return out
+
+
+def evaluate_model_outputs(predictions_file: str, references_file: str,
+                           vocabulary=None) -> Dict[str, Any]:
+    """Score a predictions text file against a references text file, one
+    caption a line: ``compute_metrics`` and the diversity metrics."""
+    with open(predictions_file, "r") as f:
+        predictions = [line.strip() for line in f]
+    with open(references_file, "r") as f:
+        references = [line.strip() for line in f]
+    scorer = CaptionMetrics(vocabulary)
+    results = scorer.compute_metrics(predictions, references)
+    results.update(scorer.compute_diversity_metrics(predictions))
+    return results
+
+
+def compute_metrics_multi_reference(predictions: List[str],
+                                    reference_groups: List[List[str]]) -> Dict[str, float]:
+    """Each prediction against all of its clip's references: sentence BLEU
+    and METEOR in their multi-reference forms, the best ROUGE f-measure
+    over the references, and the simplified CIDEr with document
+    frequencies over the whole corpus (predictions and every reference),
+    best cosine over the references."""
+    scorer = CaptionMetrics()
+    out: Dict[str, float] = {}
+    n = len(predictions)
+    if n == 0:
+        return out
+    sums = {f"bleu_{k}": 0.0 for k in range(1, 5)}
+    meteor_sum, meteor_ok = 0.0, METEOR_AVAILABLE
+    for pred, refs in zip(predictions, reference_groups):
+        hyp = pred.lower().split()
+        ref_tok = [r.lower().split() for r in refs]
+        for k in range(1, 5):
+            sums[f"bleu_{k}"] += sentence_bleu(ref_tok, hyp, tuple([1.0 / k] * k + [0.0] * (4 - k)))
+        if meteor_ok:
+            try:
+                meteor_sum += meteor_score(ref_tok, hyp)
+            except Exception:
+                meteor_ok = False
+    out.update({k: v / n for k, v in sums.items()})
+    if meteor_ok:
+        out["meteor"] = meteor_sum / n
+
+    if ROUGE_AVAILABLE:
+        sums = {"rouge1": 0.0, "rouge2": 0.0, "rougeL": 0.0}
+        for pred, refs in zip(predictions, reference_groups):
+            best = {k: 0.0 for k in sums}
+            for ref in refs:
+                scored = scorer._rouge.score(ref, pred)
+                for k in sums:
+                    best[k] = max(best[k], scored[k].fmeasure)
+            for k in sums:
+                sums[k] += best[k]
+        out.update({k: v / n for k, v in sums.items()})
+
+    all_texts = list(predictions) + [r for refs in reference_groups for r in refs]
+    doc_freq: Dict[str, int] = {}
+    for text in all_texts:
+        toks = text.lower().split()
+        for k in range(1, 5):
+            for g in _ngrams(toks, k):
+                doc_freq[g] = doc_freq.get(g, 0) + 1
+    n_docs = len(all_texts)
+
+    def tf_idf(tokens, k):
+        grams = _ngrams(tokens, k)
+        total = sum(grams.values())
+        return {g: (c / total) * math.log(n_docs / doc_freq.get(g, 1))
+                for g, c in grams.items()} if total else {}
+
+    def cosine(a, b):
+        dot = sum(v * b.get(g, 0.0) for g, v in a.items())
+        na = math.sqrt(sum(v * v for v in a.values()))
+        nb = math.sqrt(sum(v * v for v in b.values()))
+        return dot / (na * nb) if na > 0 and nb > 0 else 0.0
+
+    cider_sum = 0.0
+    for pred, refs in zip(predictions, reference_groups):
+        p_toks = pred.lower().split()
+        cider_sum += max([0.0] + [sum(cosine(tf_idf(p_toks, k), tf_idf(r.lower().split(), k))
+                                      for k in range(1, 5)) / 4 for r in refs])
+    out["cider"] = cider_sum / n
+    return out
