@@ -120,7 +120,26 @@ exits non-zero without printing the final result line:
    ``lstm_seq*`` launch counted, the encoder's log line naming the gate
    (``lstm_seq_eligible``), tokens equal to the CPU run and the loss within
    STEP_LOSS_RTOL;
-11. a JSON line of the kernels, the nvidia-smi line, then the result line.
+11. the LSTM decoder's other options at ``Config()`` widths
+   (``run_decoder_options``): Luong dot, general and concat, multi-head
+   with 8 heads and no attention, each served beam-5 at B = 128 (2
+   ``lstm_seq`` and 20 ``topk2d_lse`` launches exactly) and profiled once;
+   Luong general under the fused decode step (40 ``lstm_cell``, 20
+   ``vocab_topk_lse``, no ``bahdanau_attend``), also through the server; the
+   first 8 clips of each held against the CPU run; one training step of
+   Luong general and of multi-head against the CPU;
+12. ancestral sampling (``run_sampling``) on ``Config()`` at B = 128,
+   temperature 0.7, top_k 0 and 10: Gumbel noise drawn once on the CPU and
+   handed to the card's and the CPU's runs (the first 8 clips' tokens
+   equal, log-probabilities within SAMPLE_LOGP_ATOL), then the predictor's
+   own generator on the card (two predictors with one seed bitwise equal);
+13. bfloat16 serving (``run_bf16_serving``): ``Config()`` with
+   ``compute_dtype="bfloat16"``, greedy and beam-5 at B = 128, clip
+   agreement with the CPU port's bfloat16 run (16 clips; greedy at least
+   MIN_BF16_GREEDY_AGREEMENT) and with the card's float32 run (all 128),
+   first-divergence positions, and encode + beam-5 timed and profiled beside
+   float32;
+14. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -151,6 +170,7 @@ from video_captioning_tpu_torch.cli import preprocess as cli_preprocess
 from video_captioning_tpu_torch.cli import train as cli_train
 from video_captioning_tpu_torch.data import video as video_mod
 from video_captioning_tpu_torch.generation import beam as beam_mod
+from video_captioning_tpu_torch.generation import sampling as sampling_mod
 from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 from video_captioning_tpu_torch.inference.server import CaptionServer
 from video_captioning_tpu_torch.models.attention import BahdanauAttention, attend
@@ -243,6 +263,15 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 2e-2
 GRAD_FLOOR = 1e-3
 MIN_CLIP_AGREEMENT = 0.95
+# Sampling with the same noise on the card and the CPU: each step's
+# log-softmax of float32 logits that differ by sum order (about 1e-5 of
+# O(10) sharpened logits), summed over 20 steps.
+SAMPLE_LOGP_ATOL = 1e-3
+# bfloat16 serving, card against the CPU port's bfloat16 run: the same
+# parameters, but float32 sums in other orders ahead of each rounding to
+# bfloat16 (activations into the projections) can flip a near-tie; the
+# JAX package's own CPU test holds the port to 0.9 against JAX's bf16.
+MIN_BF16_GREEDY_AGREEMENT = 0.9
 # lstm_cell: the kernel takes each product by the 3xTF32 split (within
 # about 2^-21 of the float32 product, lo.lo dropped) and sums in float32, in
 # another order than the plain version's float32 products; over In + H =
@@ -1789,10 +1818,13 @@ def expected_launches(config: Config, batches: int, steps: int = 20) -> dict:
 
 
 def describe(config: Config) -> str:
-    k = config.kernels
-    if config.model.architecture == "transformer":
+    k, m = config.kernels, config.model
+    if m.architecture == "transformer":
         return f"transformer, {'fused' if k.transformer_fused_beam_attn else 'default'}"
-    return f"lstm, {'fused' if k.use_pallas_lstm else 'default'}"
+    attention = ("no attention" if not m.use_attention else
+                 f"luong {m.luong_score}" if m.attention_type == "luong" else
+                 f"multihead x{m.attention_num_heads}" if m.attention_type == "multihead" else "")
+    return f"lstm{' ' + attention if attention else ''}, {'fused' if k.use_pallas_lstm else 'default'}"
 
 
 GATE = beam_mod.fused_vocab_eligible
@@ -1829,7 +1861,9 @@ def profile_decode(predictor: VideoCaptionPredictor, batch: list, card: str) -> 
             and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[profile] {describe(config)}: encode + beam-5 at B={len(batch)} on the card "
+    dtype = next(model.parameters()).dtype
+    label = describe(config) + ("" if dtype == torch.float32 else f", {dtype}")
+    print(f"[profile] {label}: encode + beam-5 at B={len(batch)} on the card "
           f"(one-off, not a benchmark; {card}): {window_ms:.3f} ms from CUDA events; device "
           f"busy {busy:.3f} ms "
           f"in the profiled window, idle share {1 - busy / window_ms:.3f}; top device time:")
@@ -2408,6 +2442,224 @@ def run_wide_encoder(card: str, clips: np.ndarray, device: str = "cuda") -> dict
     return {"launches": {k: served[k] + n[k] for k in n}, "agreement": share,
             "loss_rel": parity["loss_rel"]}
 
+def options_config(attention: str, score: str = "general", use_attention: bool = True,
+                   fused: bool = False) -> Config:
+    """``Config()`` (or ``fused_config()``) with another decoder option:
+    Luong attention with ``score``, multi-head (8 heads) or no attention."""
+    config = fused_config() if fused else Config()
+    config.model.attention_type, config.model.luong_score = attention, score
+    config.model.use_attention = use_attention
+    config.validate()
+    return config
+
+
+DECODER_OPTIONS = (("luong", "dot", True), ("luong", "general", True), ("luong", "concat", True),
+                   ("multihead", "general", True), ("bahdanau", "general", False))
+
+
+def add_counts(total: dict, n: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in n.items()}
+
+
+def run_decoder_options(card: str, clips: np.ndarray, device: str = "cuda",
+                        cpu_clips: int = 8) -> dict:
+    """The LSTM decoder's other options at ``Config()`` widths: Luong dot,
+    general and concat, multi-head with 8 heads and no attention, each
+    served beam-5 on a B = 128 batch (2 ``lstm_seq`` and 20 ``topk2d_lse``
+    launches exactly), profiled once, and its first ``cpu_clips`` clips held
+    against the CPU run with the plain versions; then Luong general under
+    the fused decode step (40 ``lstm_cell``, 20 ``vocab_topk_lse``, no
+    ``bahdanau_attend`` and no ``topk2d_lse``), one ``/caption`` and one
+    ``/caption_batch`` of 8 through the server, and one training step of
+    Luong general and of multi-head against the CPU (check_step_parity)."""
+    out = {"launches": {}, "agreement": {}, "profile": {}}
+    batch = list(clips)
+    configs = [options_config(*o) for o in DECODER_OPTIONS]
+    configs.append(options_config("luong", "general", fused=True))
+    for config in configs:
+        label = describe(config)
+        L = config.model.encoder_num_layers
+        want = {"lstm_seq": L, "topk2d_lse": 20}
+        if config.kernels.use_pallas_lstm:
+            want = {"lstm_seq": L, "lstm_cell_fused": config.model.decoder_num_layers * 20,
+                    "vocab_topk_lse": 20, "bahdanau_attend": 0, "topk2d_lse": 0}
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            pkg = smoke_package(tmp, config)
+            predictor = VideoCaptionPredictor(pkg, device=device)
+            predictor.predict_batch(batch[:8], method="beam", beam_size=5)  # warm
+            results, n = counted(device, f"{label} beam-5 B={len(batch)}", want,
+                                 lambda: predictor.predict_batch(batch, method="beam",
+                                                                 beam_size=5))
+            out["launches"] = add_counts(out["launches"], n)
+            for i, r in enumerate(results):
+                _check_caption(r, config.model.vocab_size, f"{label} clip {i}")
+            if device == "cuda":
+                out["profile"][label] = profile_decode(predictor, batch, card)
+            if config.kernels.use_pallas_lstm:
+                server = CaptionServer(predictor, port=0, max_batch=8, max_wait_ms=200.0)
+                server.start()
+                try:
+                    feats = [np.round(c, 3).tolist() for c in clips[:8]]
+                    one = _http(server.port, "/caption",
+                                {"features": feats[0], "method": "beam", "beam_size": 5})
+                    many = _http(server.port, "/caption_batch",
+                                 {"items": [{"features": f} for f in feats], "method": "beam",
+                                  "beam_size": 5})
+                finally:
+                    server.close()
+                _check_caption(one, config.model.vocab_size, f"{label} /caption")
+                if len(many["results"]) != 8:
+                    raise AssertionError(f"{label} /caption_batch: {len(many['results'])} results")
+                for i, r in enumerate(many["results"]):
+                    _check_caption(r, config.model.vocab_size, f"{label} /caption_batch {i}")
+                print(f"[options] {label}: served /caption {one['caption'][:40]!r}... and a "
+                      f"/caption_batch of 8")
+            beam_mod.fused_vocab_eligible = gate_as_on_card
+            try:
+                cpu = VideoCaptionPredictor(pkg, config=interpret_config(config),
+                                            device="cpu").predict_batch(
+                    batch[:cpu_clips], method="beam", beam_size=5)
+            finally:
+                beam_mod.fused_vocab_eligible = GATE
+        share = agreement(results[:cpu_clips], cpu)
+        out["agreement"][label] = share
+        print(f"[options] {label}: beam-5 B={len(batch)} on {device}, launches "
+              f"{ {k: n[k] for k in want} }; tokens, card vs CPU plain versions, first "
+              f"{cpu_clips} clips: agreement {share:.4f}; {time.perf_counter() - t0:.1f} s "
+              f"in the configuration ({card})")
+        if share < MIN_CLIP_AGREEMENT:
+            raise AssertionError(f"{label}: clip agreement {share} < {MIN_CLIP_AGREEMENT}")
+    for config in (options_config("luong", "general"), options_config("multihead")):
+        parity = check_step_parity(card, config, device)
+        out["launches"] = add_counts(out["launches"], parity["launches"])
+    return out
+
+
+class HandedNoise:
+    """Stands in for ``sampling.gumbel_noise``: step t of a decode gets the
+    first rows of ``noise[t]``, whatever the batch's bucket."""
+
+    def __init__(self, noise: list):
+        self.noise, self.calls = noise, 0
+
+    def __call__(self, shape, generator, device):
+        t = self.calls % len(self.noise)
+        self.calls += 1
+        return self.noise[t][:shape[0]].to(device)
+
+
+def run_sampling(card: str, clips: np.ndarray, device: str = "cuda", cpu_clips: int = 8,
+                 temperature: float = 0.7) -> dict:
+    """Ancestral sampling on ``Config()`` at B = 128 through
+    ``predict_batch(method="sample")``: for top_k 0 and 10, Gumbel noise
+    drawn once on the CPU from a seeded generator and handed to the card's
+    run and to the CPU run with the plain versions (the first ``cpu_clips``
+    clips' tokens equal, log-probabilities within SAMPLE_LOGP_ATOL); then
+    the default path, the predictor's ``torch.Generator`` on the card: valid
+    tokens, and two predictors with the same seed bitwise equal."""
+    config = Config()
+    V, B = config.model.vocab_size, len(clips)
+    out = {"launches": {}}
+    batch = list(clips)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, config)
+        predictor = VideoCaptionPredictor(pkg, device=device)
+        cpu_pred = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu")
+        real_noise = sampling_mod.gumbel_noise
+        try:
+            for top_k in (0, 10):
+                gen = torch.Generator().manual_seed(11 + top_k)
+                noise = [real_noise((B, V), gen, torch.device("cpu")) for _ in range(20)]
+                predictor.sample_top_k = cpu_pred.sample_top_k = top_k
+                sampling_mod.gumbel_noise = HandedNoise(noise)
+                got, n = counted(device, f"sample top_k={top_k} B={B}",
+                                 {"lstm_seq": config.model.encoder_num_layers, "topk2d_lse": 0},
+                                 lambda: predictor._run_generation(
+                                     np.stack(batch), "sample", 20, 5, 1.0, temperature))
+                out["launches"] = add_counts(out["launches"], n)
+                sampling_mod.gumbel_noise = HandedNoise(noise)
+                want = cpu_pred._run_generation(np.stack(batch[:cpu_clips]), "sample", 20, 5,
+                                                1.0, temperature)
+                same = bool((got["generated_tokens"][:cpu_clips]
+                             == want["generated_tokens"]).all())
+                logp_err = float(np.abs(got["logprobs"][:cpu_clips] - want["logprobs"]).max())
+                print(f"[sample] top_k={top_k} T={temperature} B={B} on {device}, noise handed "
+                      f"in: first {cpu_clips} clips' tokens equal to the CPU run: {same}; "
+                      f"logprob max err {logp_err:.3g} (tol {SAMPLE_LOGP_ATOL}); launches "
+                      f"{ {k: n[k] for k in ('lstm_seq', 'topk2d_lse')} }")
+                if not same or logp_err > SAMPLE_LOGP_ATOL:
+                    raise AssertionError(f"sampling top_k={top_k}: tokens equal {same}, "
+                                         f"logprob err {logp_err}")
+        finally:
+            sampling_mod.gumbel_noise = real_noise
+        runs = []
+        for _ in range(2):
+            pred = VideoCaptionPredictor(pkg, device=device, sample_seed=5)
+            res, n = counted(device, "sample, the predictor's generator",
+                             {"lstm_seq": config.model.encoder_num_layers},
+                             lambda: pred.predict_batch(batch, method="sample",
+                                                        temperature=temperature))
+            out["launches"] = add_counts(out["launches"], n)
+            runs.append(res)
+        for i, r in enumerate(runs[0]):
+            _check_caption(r, V, f"sample clip {i}")
+        if [r["tokens"] for r in runs[0]] != [r["tokens"] for r in runs[1]]:
+            raise AssertionError("sampling: two predictors with the same seed disagree")
+        print(f"[sample] default path: generator on {pred._sample_generator.device}, "
+              f"{len(runs[0])} clips valid, two calls with the same seed bitwise equal")
+    return out
+
+
+def first_divergence(a: list, b: list) -> list:
+    """Per clip whose tokens differ, the first position where they do."""
+    return [next(i for i, (x, y) in enumerate(zip(r["tokens"], s["tokens"])) if x != y)
+            for r, s in zip(a, b) if r["tokens"] != s["tokens"]]
+
+
+def run_bf16_serving(card: str, clips: np.ndarray, device: str = "cuda",
+                     cpu_clips: int = 16) -> dict:
+    """``Config()`` served with ``compute_dtype="bfloat16"`` (the package of
+    smoke_package: projection sharpened x3, END suppressed, the protocol of
+    benchmarks/bf16_parity_gate.py), greedy and beam-5 at B = 128: clip
+    agreement with the CPU port's bfloat16 run on the first ``cpu_clips``
+    clips (greedy gated at MIN_BF16_GREEDY_AGREEMENT, beam recorded), with
+    the card's float32 run on all of them, first-divergence positions, and
+    one encode + beam-5 timed and profiled beside float32."""
+    config = Config()
+    L = config.model.encoder_num_layers
+    out = {"launches": {}, "agreement": {}, "profile": {}}
+    batch = list(clips)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, config)
+        p16 = VideoCaptionPredictor(pkg, device=device, compute_dtype="bfloat16")
+        p32 = VideoCaptionPredictor(pkg, device=device)
+        cpu16 = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
+                                      compute_dtype="bfloat16")
+        for method, want in (("greedy", {"lstm_seq": L, "topk2d_lse": 0}),
+                             ("beam", {"lstm_seq": L, "topk2d_lse": 20})):
+            card16, n = counted(device, f"bf16 {method} B={len(batch)}", want,
+                                lambda: p16.predict_batch(batch, method=method, beam_size=5))
+            out["launches"] = add_counts(out["launches"], n)
+            card32 = p32.predict_batch(batch, method=method, beam_size=5)
+            cpu = cpu16.predict_batch(batch[:cpu_clips], method=method, beam_size=5)
+            vs_cpu = agreement(card16[:cpu_clips], cpu)
+            vs_f32 = agreement(card16, card32)
+            out["agreement"][method] = {"card_vs_cpu_bf16": vs_cpu, "bf16_vs_f32": vs_f32}
+            print(f"[bf16] {method} B={len(batch)} on {device}: clip agreement with the CPU "
+                  f"port's bf16 run (first {cpu_clips}) {vs_cpu:.4f}, with the card's float32 "
+                  f"run {vs_f32:.4f}; first divergence vs float32 at "
+                  f"{first_divergence(card16, card32)[:16]}, vs CPU at "
+                  f"{first_divergence(card16[:cpu_clips], cpu)}; launches "
+                  f"{ {k: n[k] for k in want} }")
+        if out["agreement"]["greedy"]["card_vs_cpu_bf16"] < MIN_BF16_GREEDY_AGREEMENT:
+            raise AssertionError(f"bf16 greedy card vs CPU agreement "
+                                 f"{out['agreement']['greedy']} < {MIN_BF16_GREEDY_AGREEMENT}")
+        if device == "cuda":
+            out["profile"]["bfloat16"] = profile_decode(p16, batch, card)
+            out["profile"]["float32"] = profile_decode(p32, batch, card)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2452,8 +2704,11 @@ def main() -> int:
     ttr = run_transformer_training(smi)
     entry = run_entry_points(smi)
     wide = run_wide_encoder(smi, clips)
+    options = run_decoder_options(smi, clips)
+    sampling = run_sampling(smi, clips)
+    bf16 = run_bf16_serving(smi, clips)
     launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr, ttr["train"], entry,
-                                                      wide))
+                                                      wide, options, sampling, bf16))
                 + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}
     kernels = []

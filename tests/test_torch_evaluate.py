@@ -136,5 +136,3 @@ def test_cli_evaluate_defaults_to_the_card():
     assert t_cli.build_parser().parse_args([]).device == "cuda"
     with pytest.raises(SystemExit):
         t_cli.main([])
-    with pytest.raises(SystemExit, match="A4"):
-        t_cli.main(["--model-path", "m.pth", "--data-file", "d.csv", "--method", "sample"])

@@ -161,8 +161,6 @@ def test_migrated_package_serves_the_jax_greedy_tokens(upstream, tmp_path):
 def test_migrate_refuses_what_it_cannot_convert(upstream, tmp_path):
     with pytest.raises(SystemExit, match="--vocabulary"):
         t_ir.migrate(upstream / "checkpoint.pth", tmp_path)
-    with pytest.raises(NotImplementedError, match="luong"):
-        t_ir.migrate(upstream / "package.pth", tmp_path, attention_type="luong")
     torch.save({"weights": torch.zeros(2)}, tmp_path / "other.pth")
     with pytest.raises(SystemExit, match="upstream artifact"):
         t_ir.migrate(tmp_path / "other.pth", tmp_path)

@@ -97,7 +97,7 @@ def test_bahdanau_attention_matches_jax(tiny_config, beam):
         args = (attn, tcache, torch.from_numpy(enc), torch.from_numpy(hid),
                 torch.from_numpy(mask))
         if beam:
-            got_ctx, got_w = t_attn.attend_beam(*args)
+            got_ctx, got_w = t_attn.attend_beam(port(cfg), *args)
         else:
             got_ctx, got_w = t_attn.attend(port(cfg), *args)
     _close(tcache["enc_proj"], jcache["enc_proj"])

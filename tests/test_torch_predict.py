@@ -156,12 +156,6 @@ def test_generate_multiple_captions_matches_jax(lstm_pkg, method):
             assert [c["temperature"] for c in got] == [c["temperature"] for c in want]
 
 
-def test_generate_multiple_captions_sample_is_not_ported(lstm_pkg):
-    tp = VideoCaptionPredictor(lstm_pkg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tp.generate_multiple_captions(_features(1, _config(), n=1)[0], method="sample")
-
-
 @pytest.mark.parametrize("architecture", ["lstm", "transformer"])
 def test_explain_prediction_matches_jax(tmp_path, architecture):
     pkg = _package(tmp_path, _config(architecture=architecture))
@@ -255,9 +249,10 @@ def test_cli_predict_defaults_to_the_card_and_refuses_sampling(lstm_pkg):
     args = t_cli.build_parser().parse_args(["--model-path", "m.pth", "single",
                                             "--video-path", "v.mp4"])
     assert args.device == "cuda"
-    with pytest.raises(SystemExit, match="A4"):
-        t_cli.main(["--model-path", str(lstm_pkg), "--method", "sample", "single",
-                    "--video-path", "v.mp4"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             VideoCaptionPredictor(lstm_pkg)
+        # Sampling is ported: it reaches the predictor, on the card by default.
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_cli.main(["--model-path", str(lstm_pkg), "--method", "sample", "single",
+                        "--video-path", "v.mp4"])

@@ -127,7 +127,7 @@ def test_health_and_metrics(served):
     ("/caption", {"method": "greedy"}, 400),                          # no features
     ("/caption", {"features": [[0.0] * 5] * 3}, 400),                 # feature dim
     ("/caption", {"features": [[0.0] * 24, [0.0]]}, 400),             # ragged
-    ("/caption", {"features": [[0.0] * 24] * 3, "method": "sample"}, 400),  # not ported
+    ("/caption", {"features": [], "method": "sample"}, 400),          # no frames
     ("/caption", {"features": [[0.0] * 24] * 3, "method": "bogus"}, 400),
     ("/caption_batch", {"items": []}, 400),
     ("/caption_batch", {"items": [{"features": [[0.0] * 24]}, {}]}, 400),
@@ -182,7 +182,7 @@ def test_batcher_counts_every_concurrent_submit():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--compute-dtype", "bfloat16"], ["--decode-int8", "vocab"], ["--data-parallel"],
+    ["--decode-int8", "full"], ["--decode-int8", "vocab"], ["--data-parallel"],
 ])
 def test_serve_cli_refuses_flags_not_ported(extra, tmp_path):
     from video_captioning_tpu_torch.cli import serve

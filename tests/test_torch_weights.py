@@ -245,6 +245,20 @@ with tempfile.TemporaryDirectory() as tmp:
                                      "--config", str(tmp / "base.json"), "--log-level", "WARNING"])
     assert VideoCaptionPredictor(summary["output"], device="cpu").predict_from_features(
         np.load(tmp / "f.npy"))["caption"] is not None
+# A Luong model served by every method, sampling included, and a bfloat16
+# predictor.
+with tempfile.TemporaryDirectory() as tmp:
+    lcfg = Config.from_dict(cfg.to_dict())
+    lcfg.model.attention_type = "luong"
+    lcfg.kernels.interpret = False
+    pkg = save_model_for_inference(init_params_numpy(lcfg, len(vocab)), vocab, lcfg, tmp)
+    lp = VideoCaptionPredictor(pkg, device="cpu")
+    for method in ("greedy", "beam", "sample"):
+        assert lp.predict_from_features(x[0].numpy(), method=method, max_length=6)["caption"] \
+            is not None
+    lp16 = VideoCaptionPredictor(pkg, device="cpu", compute_dtype="bfloat16")
+    assert len(lp16.predict_batch([x[0].numpy(), x[1].numpy()], method="beam",
+                                  max_length=6)) == 2
 print("JAX_LOADED=" + str("jax" in sys.modules))
 print("JAX_PACKAGE_MODULES=" + ",".join(sorted(
     n for n in sys.modules if n == "video_captioning_tpu" or n.startswith("video_captioning_tpu."))))
@@ -297,11 +311,6 @@ def test_decode_kernel_flags_build_and_leave_training_unchanged(tiny_config, tmp
 def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 
-    for field, value in (("attention_type", "luong"), ("use_attention", False)):
-        cfg = port(tiny_config)
-        setattr(cfg.model, field, value)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            VideoCaptioningModel(cfg, 20)
     # The transformer family builds; its bfloat16 cross keys/values and
     # context parallelism do not.
     for section, field, value in (("kernels", "transformer_cross_kv_bf16", True),
@@ -313,8 +322,18 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         setattr(getattr(cfg, section), field, value)
         with pytest.raises(NotImplementedError, match=f"not ported.*{field}"):
             VideoCaptioningModel(cfg, 20)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        VideoCaptionPredictor(tmp_path / "m.pth", compute_dtype="bfloat16")
+    # bfloat16 serving, refused at load with a fused decode-step flag.
+    cfg = port(tiny_config)
+    vocab = PortVocabulary(cfg)
+    vocab.build_vocabulary(["a man rides a horse"])
+    pkg = port_ckpt.save_model_for_inference(init_params_numpy(cfg, len(vocab)), vocab, cfg,
+                                             tmp_path)
+    VideoCaptionPredictor(pkg, device="cpu", compute_dtype="bfloat16")
+    for flag in DECODE_KERNEL_FLAGS:
+        fused = PortConfig.from_dict(cfg.to_dict())
+        setattr(fused.kernels, flag, True)
+        with pytest.raises(NotImplementedError, match=f"bfloat16.*{flag}.*ROADMAP"):
+            VideoCaptionPredictor(pkg, config=fused, device="cpu", compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="decode_int8"):
         VideoCaptionPredictor(tmp_path / "m.pth", decode_int8="vocab")
     with pytest.raises(NotImplementedError, match="vcx"):

@@ -19,7 +19,8 @@ JSON:
           --model-path checkpoints/model_for_inference.pth --data-file captions.csv
 
 ``--device`` names the torch device and defaults to ``cuda``; on a host
-without one the predictor raises. ``--method sample`` is not ported yet.
+without one the predictor raises. ``--method sample`` draws from a generator
+seeded at 0, as the JAX CLI's key is.
 """
 
 from __future__ import annotations
@@ -116,10 +117,6 @@ def main(argv=None) -> dict:
     if args.predictions and args.references:
         results = evaluate_files(args)
     elif args.model_path and args.data_file:
-        if args.method == "sample":
-            from ..generation import SAMPLE_NOT_PORTED
-
-            raise SystemExit(SAMPLE_NOT_PORTED)
         results = evaluate_dataset(args)
     else:
         raise SystemExit("Provide either --predictions + --references (file mode) or "

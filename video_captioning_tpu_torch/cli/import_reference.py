@@ -16,8 +16,9 @@ and the package is written by ``utils.checkpoint``. Raw state dicts and
 training checkpoints carry no vocabulary: pass ``--vocabulary
 vocabulary.json``. Architecture fields come from the embedded upstream
 config where there is one, else from ``--config``. The upstream decoder
-is Bahdanau attention; the port serves no other attention type yet, so
-``--attention-type`` other than ``bahdanau`` raises.
+is Bahdanau attention; ``--attention-type luong|multihead`` converts a
+checkpoint of a decoder modified to another type (Luong's score comes
+from the config's ``luong_score``), as the JAX CLI does.
 
 Upstream packages pickle the upstream ``Config`` object, whose classes
 live in modules this project does not ship (``src.config.config``). The
@@ -156,9 +157,6 @@ def migrate(input_path: Path, output_dir: Path, vocabulary_path: Optional[Path] 
     from ..models.weights import jax_params_from_state_dict
     from ..utils.checkpoint import CheckpointManager, _leaves, vocabulary_from_package
 
-    if attention_type != "bahdanau":
-        raise NotImplementedError(f"attention_type={attention_type!r} is not ported to "
-                                  "video_captioning_tpu_torch yet")
     parts = extract_state_and_metadata(load_reference_file(Path(input_path)))
     config = config_from_reference(parts["ref_config"], base=base_config)
     # The upstream decoder is Bahdanau attention and its config has no
@@ -213,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "checkpoints, raw state dicts)")
     parser.add_argument("--attention-type", type=str, default="bahdanau",
                         choices=["bahdanau", "luong", "multihead"],
-                        help="The upstream decoder is bahdanau; only bahdanau is ported")
+                        help="Attention type of the migrated decoder (the upstream "
+                             "decoder is bahdanau)")
     parser.add_argument("--config", type=str, default=None,
                         help="YAML/JSON config seeding the architecture for artifacts that "
                              "embed none; an embedded upstream config overrides it")

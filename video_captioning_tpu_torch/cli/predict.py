@@ -14,7 +14,8 @@ without one the predictor raises (``--device cpu`` runs on the CPU).
 ``--feature-mode`` picks how a video becomes features: ``pixel_stub`` (the
 upstream predictor's flattened pixels, the default) or ``cnn`` (VGG16 or
 ResNet50 on the device; ``--cnn-weights`` or ``--allow-random-cnn-init``).
-``--method sample`` is not ported yet and exits with an error.
+``--method sample`` draws from a generator seeded at 0, as the JAX CLI's
+key is (``--temperature`` scales the logits).
 """
 
 from __future__ import annotations
@@ -203,10 +204,6 @@ def main(argv=None) -> None:
     if not args.command:
         parser.print_help()
         return
-    if args.method == "sample":
-        from ..generation import SAMPLE_NOT_PORTED
-
-        raise SystemExit(SAMPLE_NOT_PORTED)
     setup_logging(args.log_level)
     {"single": predict_single_video, "batch": predict_batch_videos,
      "multiple": predict_multiple_captions}[args.command](args)

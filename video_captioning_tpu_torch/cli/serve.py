@@ -5,9 +5,10 @@
         --device cuda --port 8080 --max-batch 64 --max-wait-ms 5
 
 Counterpart of video_captioning_tpu/cli/serve.py. It takes the same
-inference packages. Flags of that CLI that are not ported yet
-(``--compute-dtype bfloat16``, ``--decode-int8``, ``--data-parallel``,
-``.vcx`` artifacts) exit with an error instead of being ignored.
+inference packages; ``--compute-dtype bfloat16`` serves bfloat16
+parameters. Flags of that CLI that are not ported yet (``--decode-int8``,
+``--data-parallel``, ``.vcx`` artifacts) exit with an error instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Max time a lone request waits for batchmates")
     parser.add_argument("--compute-dtype", type=str, default=None,
                         choices=[None, "float32", "bfloat16"],
-                        help="only float32 is ported")
+                        help="bfloat16 casts the parameters once at load")
     parser.add_argument("--decode-int8", type=str, default="off",
                         choices=["off", "vocab", "full"], help="not ported")
     parser.add_argument("--data-parallel", action="store_true", help="not ported")
@@ -47,7 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     not_ported = [
-        (args.compute_dtype == "bfloat16", "--compute-dtype bfloat16"),
         (args.decode_int8 != "off", "--decode-int8"),
         (args.data_parallel, "--data-parallel"),
         (Path(args.model_path).suffix == ".vcx", ".vcx artifacts"),
@@ -60,7 +60,8 @@ def main(argv=None) -> None:
     from ..inference.predictor import VideoCaptionPredictor
     from ..inference.server import CaptionServer
 
-    predictor = VideoCaptionPredictor(args.model_path, device=args.device)
+    predictor = VideoCaptionPredictor(args.model_path, device=args.device,
+                                      compute_dtype=args.compute_dtype)
     server = CaptionServer(predictor, host=args.host, port=args.port,
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     print(f"caption server listening on {args.host}:{server.port}", flush=True)

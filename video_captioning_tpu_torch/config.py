@@ -8,8 +8,9 @@ every knob of the JAX package, including the ``KernelConfig`` gates that
 only steer the TPU's lowering; the port reads the gates it has a kernel
 for (``use_pallas_lstm_seq``, ``use_pallas_lstm_seq_train``,
 ``use_pallas_topk``, ``use_pallas_attention``, ``use_pallas_lstm``,
-``use_fused_vocab_topk``, ``interpret``) and refuses the others where they
-would change what runs (``models/captioner.py:check_supported``).
+``use_fused_vocab_topk``, ``attention_score_bf16``, ``interpret``) and
+refuses the others where they would change what runs
+(``models/captioner.py:check_supported``).
 
 Plain Python: nothing here imports torch or jax.
 """

@@ -15,7 +15,6 @@ import torch
 
 from ..config import Config
 
-from ..models import attention as attn_mod
 from ..models import decoder as decoder_mod
 from ..models import transformer as tr
 from ..models.captioner import VideoCaptioningModel, is_transformer
@@ -29,6 +28,8 @@ class DecodeFamily(NamedTuple):
     step_beam: (tokens (B, K), state, t) -> (logits (B*K, V), state, weights)
     step_beam_core: the same, stopped at the pre-vocab state (B*K, H)
     rebeam:    (state, beam_idx (B, K) old-beam index per new beam) -> state
+    has_weights: whether the steps give attention weights (not so for an
+               LSTM decoder without attention, whose steps give None)
     """
 
     state0: Any
@@ -36,6 +37,7 @@ class DecodeFamily(NamedTuple):
     step_beam: Callable
     step_beam_core: Callable
     rebeam: Callable
+    has_weights: bool
 
 
 def make_decode_family(
@@ -57,7 +59,7 @@ def make_decode_family(
 def _lstm_family(model, config, encoder_outputs, encoder_final_state, encoder_mask,
                  num_beams) -> DecodeFamily:
     dec = model.decoder
-    attn_cache = attn_mod.precompute(dec.attention, encoder_outputs)
+    attn_cache = decoder_mod.precompute_attention(dec, encoder_outputs)
     enc_final = encoder_final_state.repeat_interleave(num_beams, dim=0)
     state0 = decoder_mod.init_hidden_state(dec, config, enc_final)
 
@@ -85,7 +87,7 @@ def _lstm_family(model, config, encoder_outputs, encoder_final_state, encoder_ma
 
         return rb(state[0]), rb(state[1])
 
-    return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam)
+    return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam, dec.use_attention)
 
 
 def _transformer_family(model, config, encoder_outputs, encoder_mask, K,
@@ -93,8 +95,9 @@ def _transformer_family(model, config, encoder_outputs, encoder_mask, K,
     """KV-cache decoding. The JAX package's other transformer options need
     no counterpart here: ``transformer_beam_params_f32`` and
     ``transformer_bf16_beam_state`` act only on bfloat16 parameters, which
-    the port does not serve; ``transformer_decode_weights_bf16`` is gated to
-    the TPU; ``transformer_attn_dots_f32`` and ``transformer_select_gather``
+    the port does not serve for the transformer;
+    ``transformer_decode_weights_bf16`` is gated to the TPU;
+    ``transformer_attn_dots_f32`` and ``transformer_select_gather``
     give equal values in float32 (``transformer_cross_kv_bf16`` is refused
     by ``check_supported``)."""
     dec = model.decoder
@@ -138,4 +141,4 @@ def _transformer_family(model, config, encoder_outputs, encoder_mask, K,
         rows = (torch.arange(Bn, device=beam_idx.device)[:, None] * Kn + beam_idx).reshape(-1)
         return {name: [c.index_select(1, rows) for c in state[name]] for name in ("k", "v")}
 
-    return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam)
+    return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam, True)

@@ -33,8 +33,8 @@ def greedy_generate(
     encoder_mask: Optional[Tensor] = None,
     temperature: float = 1.0,
 ) -> Dict[str, Tensor]:
-    """Returns ``generated_tokens`` (B, max_length) and
-    ``attention_weights`` (B, max_length, S)."""
+    """Returns ``generated_tokens`` (B, max_length) and, where the decoder
+    has attention, ``attention_weights`` (B, max_length, S)."""
     B, S, _ = encoder_outputs.shape
     dev = encoder_outputs.device
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
@@ -52,8 +52,12 @@ def greedy_generate(
             logits = logits / temperature
         next_tok = torch.argmax(logits, dim=-1)
         tokens[:, t] = torch.where(active, next_tok, tokens[:, t])
-        weights[:, t] = torch.where(active, w, weights[:, t])
+        if family.has_weights:
+            weights[:, t] = torch.where(active, w, weights[:, t])
         ended = torch.where(active, ended | (next_tok == end_token_id), ended)
         input_tok = torch.where(active, next_tok, input_tok)
 
-    return {"generated_tokens": tokens.to(torch.int32), "attention_weights": weights}
+    out = {"generated_tokens": tokens.to(torch.int32)}
+    if family.has_weights:
+        out["attention_weights"] = weights
+    return out

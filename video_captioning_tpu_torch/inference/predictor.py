@@ -3,9 +3,9 @@
 Counterpart of video_captioning_tpu/inference/predictor.py:
 ``VideoCaptionPredictor`` (load, power-of-two batch buckets,
 ``predict_from_features``, ``predict_batch``, ``predict_from_video``,
-``generate_multiple_captions``, ``explain_prediction``; greedy and beam)
-and ``BatchPredictor`` (videos in device batches, each failing video an
-error entry in its place). It runs on the card unless the caller names
+``generate_multiple_captions``, ``explain_prediction``; greedy, beam and
+ancestral sampling) and ``BatchPredictor`` (videos in device batches, each
+failing video an error entry in its place). It runs on the card unless the caller names
 another device (``device="cpu"``); a CUDA device on a host without one
 raises. Batches are zero-padded to the next power of two as in the JAX
 package: the padded rows take part in the beam loop's batch-wide stop
@@ -31,16 +31,37 @@ import torch
 from ..config import Config
 
 from ..data import video as video_mod
-from ..generation import SAMPLE_NOT_PORTED
 from ..generation.beam import beam_search_generate
 from ..generation.greedy import greedy_generate
+from ..generation.sampling import sample_generate
 from ..models.captioner import VideoCaptioningModel, apply_model, encode
 from ..models.weights import state_dict_from_jax_params
 from ..utils.checkpoint import load_model_for_inference, vocabulary_from_package
 from .utils import resize_feature_sequence
 
-METHODS = ("greedy", "beam")
+METHODS = ("greedy", "beam", "sample")
 FEATURE_MODES = ("pixel_stub", "cnn")
+# The fused decode step's kernels take float32 operands only.
+BF16_FUSED_NOT_PORTED = ("compute_dtype='bfloat16' with kernels.{} is not ported to "
+                         "video_captioning_tpu_torch yet: the lstm_cell, bahdanau_attend and "
+                         "vocab_topk_lse kernels take float32 operands (ROADMAP.md B, their "
+                         "bfloat16 operand forms)")
+
+
+def check_compute_dtype(config: Config, compute_dtype: Optional[str]) -> None:
+    """Raise for a compute dtype the port does not serve with ``config``."""
+    if compute_dtype in (None, "float32"):
+        return
+    if compute_dtype != "bfloat16":
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not float32 or bfloat16")
+    if config.model.architecture == "transformer":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' for the transformer family is not ported to "
+            "video_captioning_tpu_torch yet (ROADMAP.md A4, bfloat16 transformer serving)")
+    k = config.kernels
+    for flag in ("use_pallas_lstm", "use_pallas_attention", "use_fused_vocab_topk"):
+        if getattr(k, flag):
+            raise NotImplementedError(BF16_FUSED_NOT_PORTED.format(flag))
 
 
 class VideoCaptionPredictor:
@@ -56,12 +77,11 @@ class VideoCaptionPredictor:
         feature_mode: str = "pixel_stub",
         cnn_weights_path: Optional[Union[str, Path]] = None,
         allow_random_cnn_init: bool = False,
+        sample_seed: int = 0,
+        sample_top_k: int = 0,
     ):
         if feature_mode not in FEATURE_MODES:
             raise ValueError(f"feature_mode {feature_mode!r} is not one of {FEATURE_MODES}")
-        if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported to video_captioning_tpu_torch yet")
         if decode_int8 != "off":
             raise NotImplementedError("decode_int8 is not ported to video_captioning_tpu_torch yet")
         model_path = Path(model_path)
@@ -73,6 +93,9 @@ class VideoCaptionPredictor:
         self._cnn_weights_path = cnn_weights_path
         self._allow_random_cnn_init = allow_random_cnn_init
         self._backbone = None
+        self.sample_seed = sample_seed
+        self.sample_top_k = sample_top_k
+        self._sample_generator: Optional[torch.Generator] = None
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device!r}: no CUDA device here; pass device='cpu'")
@@ -82,11 +105,14 @@ class VideoCaptionPredictor:
 
         package = load_model_for_inference(model_path)
         self.config = config if config is not None else Config.from_dict(package["model_config"])
+        check_compute_dtype(self.config, compute_dtype)
         self.vocabulary = vocabulary_from_package(package, self.config)
         params = package["model_state_dict"]
         vocab_size = np.asarray(params["decoder"]["output_projection"]["kernel"]).shape[1]
         model = VideoCaptioningModel(self.config, vocab_size)
         model.load_state_dict(state_dict_from_jax_params(params, self.config))
+        if compute_dtype == "bfloat16":
+            model = model.to(torch.bfloat16)
         self.model = model.to(self.device).eval()
         self.logger.info(f"Loaded model with {len(self.vocabulary)} vocabulary size on {self.device}")
 
@@ -108,8 +134,6 @@ class VideoCaptionPredictor:
         length_penalty: float,
         temperature: float,
     ) -> Dict[str, np.ndarray]:
-        if method == "sample":
-            raise NotImplementedError(SAMPLE_NOT_PORTED)
         if method not in METHODS:
             raise ValueError(
                 f"method {method!r} is not supported by video_captioning_tpu_torch "
@@ -125,6 +149,14 @@ class VideoCaptionPredictor:
         if method == "greedy":
             out = greedy_generate(self.model, config, enc_outs, final, vocab.start_idx,
                                   vocab.end_idx, max_length, mask, temperature=temperature)
+        elif method == "sample":
+            if self._sample_generator is None:
+                self._sample_generator = torch.Generator(device=self.device).manual_seed(
+                    self.sample_seed)
+            out = sample_generate(self.model, config, enc_outs, final, vocab.start_idx,
+                                  vocab.end_idx, max_length, mask, temperature=temperature,
+                                  top_k=int(self.sample_top_k),
+                                  generator=self._sample_generator)
         else:
             out = beam_search_generate(self.model, config, enc_outs, final, vocab.start_idx,
                                        vocab.end_idx, max_length, mask, beam_size=beam_size,
@@ -153,6 +185,8 @@ class VideoCaptionPredictor:
             "tokens": tokens,
             "method": method,
         }
+        if "logprobs" in outputs:
+            result["logprob"] = float(outputs["logprobs"][0])
         if "attention_weights" in outputs:
             result["attention_weights"] = outputs["attention_weights"][0]
         return result
@@ -241,10 +275,10 @@ class VideoCaptionPredictor:
     ) -> List[Dict[str, Union[str, float, List[int]]]]:
         """``num_captions`` captions of one clip: with ``method="beam"`` the
         top hypotheses of one beam search by score (``beam_size`` raised to
-        ``num_captions`` where smaller); otherwise greedy decodes at
-        temperatures from 0.7 to 1.3, scored 1 / temperature."""
-        if method == "sample":
-            raise NotImplementedError(SAMPLE_NOT_PORTED)
+        ``num_captions`` where smaller); with ``"sample"`` that many draws,
+        scored by their log-probability and sorted best first; otherwise
+        greedy decodes at temperatures from 0.7 to 1.3, scored 1 /
+        temperature."""
         captions: List[Dict[str, Union[str, float, List[int]]]] = []
         if method == "beam":
             beam_size = max(beam_size, num_captions)
@@ -256,6 +290,14 @@ class VideoCaptionPredictor:
                 tokens = all_tokens[rank].tolist()
                 captions.append({"caption": self.vocabulary.decode_caption(tokens),
                                  "score": float(all_scores[rank]), "tokens": tokens})
+            return captions
+        if method == "sample":
+            for _ in range(num_captions):
+                result = self.predict_from_features(video_features, method="sample",
+                                                    max_length=max_length, temperature=temperature)
+                captions.append({"caption": result["caption"],
+                                 "score": result.get("logprob", 0.0), "tokens": result["tokens"]})
+            captions.sort(key=lambda c: -c["score"])
             return captions
         for temp in np.linspace(0.7, 1.3, num_captions):
             result = self.predict_from_features(video_features, method="greedy",

@@ -20,9 +20,8 @@ Endpoints:
                               p50/p95/p99 (JSON; ?format=prometheus for
                               text exposition)
   POST /caption            -> body {"features": [[...],...], "method":
-                              "greedy"|"beam", "max_length": N,
+                              "greedy"|"beam"|"sample", "max_length": N,
                               "beam_size": K} -> {"caption": ..., ...}
-                              ("sample" is not ported yet: HTTP 400)
   POST /caption_batch      -> {"items": [{"features": ...}, ...]} +
                               shared options -> {"results": [...]}
 
@@ -50,7 +49,7 @@ _GEN_KEYS = ("method", "max_length", "beam_size", "length_penalty",
              "temperature")
 _DEFAULTS = {"method": "greedy", "max_length": 20, "beam_size": 5,
              "length_penalty": 1.0, "temperature": 1.0}
-_METHODS = ("greedy", "beam")
+_METHODS = ("greedy", "beam", "sample")
 
 
 class ServerFault(RuntimeError):
@@ -334,8 +333,6 @@ class CaptionServer:
 
     def _parse_options(self, payload: dict) -> dict:
         opts = {k: payload[k] for k in _GEN_KEYS if k in payload}
-        if opts.get("method") == "sample":
-            raise ValueError("method 'sample' is not ported to the PyTorch server yet")
         if "method" in opts and opts["method"] not in _METHODS:
             raise ValueError(f"unknown method: {opts['method']}")
         return opts

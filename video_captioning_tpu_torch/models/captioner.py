@@ -33,17 +33,14 @@ def check_supported(config: Config) -> None:
     The transformer family reads none of the LSTM decoder's options; of its
     own, ``transformer_cross_kv_bf16`` stores the cross keys and values in
     bfloat16, which changes results on every backend, so it is refused
-    (the others: generation/families.py:_transformer_family)."""
+    (the others: generation/families.py:_transformer_family). The LSTM
+    family runs every attention type, ``use_attention=False`` and
+    ``kernels.attention_score_bf16``."""
     m, k = config.model, config.kernels
     if is_transformer(config):
         unsupported = [(k.transformer_cross_kv_bf16, "kernels.transformer_cross_kv_bf16")]
     else:
-        unsupported = [
-            (m.architecture != "lstm", f"architecture={m.architecture!r}"),
-            (not m.use_attention, "use_attention=False"),
-            (m.attention_type != "bahdanau", f"attention_type={m.attention_type!r}"),
-            (k.attention_score_bf16, "kernels.attention_score_bf16"),
-        ]
+        unsupported = [(m.architecture != "lstm", f"architecture={m.architecture!r}")]
     unsupported.append((config.parallel.context_axis is not None, "parallel.context_axis"))
     names = [name for bad, name in unsupported if bad]
     if names:
@@ -95,7 +92,8 @@ def apply_model(
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, Tensor]:
     """Training forward pass (teacher forcing): ``logits`` (B, T, V),
-    ``encoder_outputs`` and ``attention_weights``. Dropout draws from
+    ``encoder_outputs`` and ``attention_weights`` (None for an LSTM
+    decoder without attention). Dropout draws from
     ``generator`` in order, the encoder's sites before the decoder's."""
     enc_outs, final, mask = encode(model, config, video_features, video_mask,
                                    train=train, generator=generator)
@@ -108,7 +106,7 @@ def apply_model(
         dec_out = apply_decoder(model.decoder, config, enc_outs, final, input_tokens, mask,
                                 train=train, generator=generator)
     return {"logits": dec_out["logits"], "encoder_outputs": enc_outs,
-            "attention_weights": dec_out["attention_weights"]}
+            "attention_weights": dec_out.get("attention_weights")}
 
 
 def count_params(model: nn.Module) -> int:

@@ -2,10 +2,14 @@
 
 Counterpart of video_captioning_tpu/models/decoder.py (init_hidden_state,
 decoder_core_step, decoder_step, decoder_step_beam(_core)): embedding ->
-Bahdanau attention over the encoder outputs with the previous top-layer h
--> LSTM stack on [embedding ; context] -> deep output
-tanh(W [lstm_top ; context ; embedding]) -> vocabulary projection. The
-state is (h, c), each (L, N, H).
+attention of ``config.model.attention_type`` (Bahdanau, Luong or
+multi-head, ``models/attention.py``) over the encoder outputs with the
+previous top-layer h -> LSTM stack on [embedding ; context] -> deep output
+tanh(W [lstm_top ; context ; embedding]) -> vocabulary projection. With
+``model.use_attention`` off the decoder has no attention and no deep
+output: the LSTM stack takes the embedding alone, its top h is the
+pre-vocab state, and the steps return no weights (``None``). The state is
+(h, c), each (L, N, H).
 
 ``apply_decoder`` is teacher forcing for training, with the JAX package's
 hoists: the embeddings and their slice of layer 1's input projection for
@@ -16,13 +20,19 @@ generator.
 
 The decode steps take the ``Config`` as the JAX functions do: with
 ``kernels.use_pallas_lstm`` every decoder cell runs the fused cell of
-``ops/lstm_cell.py``, and with ``kernels.use_pallas_attention`` the greedy
-step's and eval-mode teacher forcing's attention runs ``ops/attention.py``
-(each the kernel on CUDA tensors, its plain version on the CPU). Teacher
-forcing's own LSTM layers stay unfused, as in the JAX package. ``training.remat_attention`` recomputes each step's attention
-in the backward pass (``torch.utils.checkpoint``); the dropout multiplier
-of the weights is drawn outside the recomputed function, so values and
-gradients are the same either way.
+``ops/lstm_cell.py`` whatever the attention type, and with
+``kernels.use_pallas_attention`` a Bahdanau greedy step's and eval-mode
+teacher forcing's attention runs ``ops/attention.py`` (each the kernel on
+CUDA tensors, its plain version on the CPU). Teacher forcing's own LSTM
+layers stay unfused, as in the JAX package.
+``training.remat_attention`` recomputes each step's attention in the
+backward pass (``torch.utils.checkpoint``); the dropout multiplier of the
+weights is drawn outside the recomputed function for every attention type,
+so values and gradients are the same either way.
+
+Linears and cells follow ``layers.linear``'s dtype rule, so a decoder
+with bfloat16 parameters keeps float32 activations as the JAX package's
+does (the embeddings are bfloat16, as the table is).
 """
 
 from __future__ import annotations
@@ -36,8 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import Config
 
 from ..ops.lstm_cell import lstm_cell_fused
-from .attention import ATTN_DROPOUT, BahdanauAttention, attend, attend_beam, precompute
-from .layers import LSTMWeights, dropout, dropout_mask, gates_tail, lstm_cell
+from .attention import ATTN_DROPOUT, attend, attend_beam, dropout_shape, make_attention, precompute
+from .layers import LSTMWeights, dropout, dropout_mask, gates_tail, linear, lstm_cell
 
 Tensor = torch.Tensor
 State = Tuple[Tensor, Tensor]
@@ -48,10 +58,12 @@ class Decoder(nn.Module):
         super().__init__()
         m = config.model
         emb, H, E = m.embedding_dim, m.decoder_hidden_dim, m.encoder_hidden_dim
+        self.use_attention = m.use_attention
         self.embedding = nn.Embedding(vocab_size, emb)
-        self.attention = BahdanauAttention(config)
-        self.lstm = LSTMWeights(emb + E, H, m.decoder_num_layers)
-        self.context_projection = nn.Linear(E + H + emb, H)
+        self.lstm = LSTMWeights(emb + E if m.use_attention else emb, H, m.decoder_num_layers)
+        if m.use_attention:
+            self.attention = make_attention(config)
+            self.context_projection = nn.Linear(E + H + emb, H)
         self.output_projection = nn.Linear(H, vocab_size)
         if E != H:
             self.init_state_projection = nn.Linear(E, H)
@@ -61,7 +73,7 @@ def init_hidden_state(dec: Decoder, config: Config, encoder_final_state: Tensor)
     """The (projected) encoder final state in every layer; zero cell."""
     projected = encoder_final_state
     if hasattr(dec, "init_state_projection"):
-        projected = dec.init_state_projection(projected)
+        projected = linear(dec.init_state_projection, projected)
     h = projected[None].expand((config.model.decoder_num_layers,) + projected.shape)
     return h, torch.zeros_like(h)
 
@@ -85,6 +97,21 @@ def _lstm_stack_step(dec: Decoder, config: Config, x: Tensor,
     return inp, (torch.stack(hs), torch.stack(cs))
 
 
+def precompute_attention(dec: Decoder, encoder_outputs: Tensor) -> Dict[str, Tensor]:
+    """The attention's step-invariant cache; empty without attention."""
+    return precompute(dec.attention, encoder_outputs) if dec.use_attention else {}
+
+
+def _deep_output(dec: Decoder, lstm_top: Tensor, context: Optional[Tensor],
+                 embedded: Tensor) -> Tensor:
+    """The pre-vocab state: tanh(W [lstm_top ; context ; embedding]), or
+    lstm_top itself without attention."""
+    if not dec.use_attention:
+        return lstm_top
+    return torch.tanh(linear(dec.context_projection,
+                             torch.cat([lstm_top, context, embedded], dim=-1)))
+
+
 def decoder_core_step(
     dec: Decoder,
     config: Config,
@@ -93,14 +120,17 @@ def decoder_core_step(
     encoder_outputs: Tensor,   # (B, S, E)
     attn_cache: Dict[str, Tensor],
     encoder_mask: Optional[Tensor],
-) -> Tuple[Tensor, State, Tensor]:
-    """Returns the pre-vocab state (B, H), the new state, weights (B, S)."""
-    context, weights = attend(config, dec.attention, attn_cache, encoder_outputs,
-                              state[0][-1], encoder_mask)
-    lstm_top, new_state = _lstm_stack_step(dec, config, torch.cat([embedded, context], dim=-1),
-                                           state)
-    pre_vocab = torch.tanh(dec.context_projection(torch.cat([lstm_top, context, embedded], dim=-1)))
-    return pre_vocab, new_state, weights
+) -> Tuple[Tensor, State, Optional[Tensor]]:
+    """Returns the pre-vocab state (B, H), the new state and the weights
+    (B, S), or None without attention."""
+    context = weights = None
+    lstm_in = embedded
+    if dec.use_attention:
+        context, weights = attend(config, dec.attention, attn_cache, encoder_outputs,
+                                  state[0][-1], encoder_mask)
+        lstm_in = torch.cat([embedded, context], dim=-1)
+    lstm_top, new_state = _lstm_stack_step(dec, config, lstm_in, state)
+    return _deep_output(dec, lstm_top, context, embedded), new_state, weights
 
 
 def decoder_step(
@@ -117,7 +147,7 @@ def decoder_step(
         dec, config, dec.embedding(input_token), state, encoder_outputs, attn_cache,
         encoder_mask,
     )
-    return dec.output_projection(pre_vocab), new_state, weights
+    return linear(dec.output_projection, pre_vocab), new_state, weights
 
 
 def decoder_step_beam_core(
@@ -132,16 +162,17 @@ def decoder_step_beam_core(
     """Beam step up to the pre-vocab state (B*K, H); the encoder-side
     tensors are shared by the K beams of a clip."""
     B, K = input_tokens.shape
-    embedded = dec.embedding(input_tokens)  # (B, K, emb)
-    top_hidden = state[0][-1].reshape(B, K, -1)
-    context, weights = attend_beam(dec.attention, attn_cache, encoder_outputs,
-                                   top_hidden, encoder_mask)  # (B, K, E)
-    lstm_in = torch.cat([embedded, context], dim=-1).reshape(B * K, -1)
+    embedded = dec.embedding(input_tokens).reshape(B * K, -1)  # (B*K, emb)
+    context = weights = None
+    lstm_in = embedded
+    if dec.use_attention:
+        top_hidden = state[0][-1].reshape(B, K, -1)
+        context, weights = attend_beam(config, dec.attention, attn_cache, encoder_outputs,
+                                       top_hidden, encoder_mask)  # (B, K, E)
+        context = context.reshape(B * K, -1)
+        lstm_in = torch.cat([embedded, context], dim=-1)
     lstm_top, new_state = _lstm_stack_step(dec, config, lstm_in, state)
-    deep_in = torch.cat(
-        [lstm_top, context.reshape(B * K, -1), embedded.reshape(B * K, -1)], dim=-1
-    )
-    return torch.tanh(dec.context_projection(deep_in)), new_state, weights
+    return _deep_output(dec, lstm_top, context, embedded), new_state, weights
 
 
 def decoder_step_beam(
@@ -157,7 +188,7 @@ def decoder_step_beam(
     pre_vocab, new_state, weights = decoder_step_beam_core(
         dec, config, input_tokens, state, encoder_outputs, attn_cache, encoder_mask,
     )
-    return dec.output_projection(pre_vocab), new_state, weights
+    return linear(dec.output_projection, pre_vocab), new_state, weights
 
 
 def apply_decoder(
@@ -171,21 +202,23 @@ def apply_decoder(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, Tensor]:
-    """Teacher-forcing forward pass: ``logits`` (B, T, V) and
-    ``attention_weights`` (B, T, S)."""
+    """Teacher-forcing forward pass: ``logits`` (B, T, V) and, with
+    attention, ``attention_weights`` (B, T, S)."""
     B, T = target_tokens.shape
     S = encoder_outputs.shape[1]
     p_drop = config.model.decoder_dropout
     h_prev, c_prev = init_hidden_state(dec, config, encoder_final_state)
     embedded_all = dropout(dec.embedding(target_tokens), p_drop, generator, train)
-    cache = precompute(dec.attention, encoder_outputs)
+    cache = precompute_attention(dec, encoder_outputs)
 
     l1 = dec.lstm.layer(0)
     emb_dim = embedded_all.shape[-1]
     emb_gates_all = (embedded_all @ l1["w_ih"][:, :emb_dim].T
                      + l1["b_ih"] + l1["b_hh"])  # (B, T, 4H)
-    w_ctx_t = l1["w_ih"][:, emb_dim:].T          # (E, 4H)
-    w_hh1_t = l1["w_hh"].T
+    # The recurrent and context products promote as jnp's ``@`` does.
+    wdt = torch.promote_types(h_prev.dtype, l1["w_hh"].dtype)
+    w_ctx_t = l1["w_ih"][:, emb_dim:].T.to(wdt)  # (E, 4H); empty without attention
+    w_hh1_t = l1["w_hh"].T.to(wdt)
 
     def attn_step(top_hidden: Tensor, scale: Optional[Tensor]):
         return attend(config, dec.attention, cache, encoder_outputs, top_hidden, encoder_mask,
@@ -194,14 +227,18 @@ def apply_decoder(
     remat = train and config.training.remat_attention and torch.is_grad_enabled()
     tops, contexts, weights = [], [], []
     for t in range(T):
-        scale = (dropout_mask((B, S), ATTN_DROPOUT, generator, encoder_outputs.device)
-                 if train else None)
-        if remat:
-            context, w = checkpoint(attn_step, h_prev[-1], scale, use_reentrant=False)
-        else:
-            context, w = attn_step(h_prev[-1], scale)
-        gates1 = emb_gates_all[:, t] + context @ w_ctx_t + h_prev[0] @ w_hh1_t
-        h_top, c1 = gates_tail(gates1, c_prev[0])
+        gates1 = emb_gates_all[:, t]
+        if dec.use_attention:
+            scale = (dropout_mask(dropout_shape(dec.attention, B, S), ATTN_DROPOUT, generator,
+                                  encoder_outputs.device) if train else None)
+            if remat:
+                context, w = checkpoint(attn_step, h_prev[-1], scale, use_reentrant=False)
+            else:
+                context, w = attn_step(h_prev[-1], scale)
+            gates1 = gates1 + context.to(wdt) @ w_ctx_t
+            contexts.append(context)
+            weights.append(w)
+        h_top, c1 = gates_tail(gates1 + h_prev[0].to(wdt) @ w_hh1_t, c_prev[0])
         hs, cs = [h_top], [c1]
         for l in range(1, dec.lstm.num_layers):
             inp = dropout(hs[-1], p_drop, generator, train)
@@ -211,11 +248,10 @@ def apply_decoder(
             h_top = h_l
         h_prev, c_prev = torch.stack(hs), torch.stack(cs)
         tops.append(h_top)
-        contexts.append(context)
-        weights.append(w)
 
-    deep_in = torch.cat([torch.stack(tops, dim=1), torch.stack(contexts, dim=1),
-                         embedded_all], dim=-1)
-    pre_vocab = torch.tanh(dec.context_projection(deep_in))
-    return {"logits": dec.output_projection(pre_vocab),
+    top_seq = torch.stack(tops, dim=1)
+    if not dec.use_attention:
+        return {"logits": linear(dec.output_projection, top_seq)}
+    pre_vocab = _deep_output(dec, top_seq, torch.stack(contexts, dim=1), embedded_all)
+    return {"logits": linear(dec.output_projection, pre_vocab),
             "attention_weights": torch.stack(weights, dim=1)}

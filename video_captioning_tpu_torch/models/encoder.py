@@ -17,6 +17,12 @@ to the kernel's limit). Otherwise the float32 ``lstm_scan`` runs, under
 autograd in training: the path the flags-off configuration and the JAX
 package's ``lax.scan`` take. The domain decision is made once per encoder,
 device, dtype and mode, before any launch, and logged with H and the limit.
+
+With bfloat16 parameters (``compute_dtype="bfloat16"`` serving) the
+activations stay float32 as in the JAX package: the projections take
+``layers.linear``'s rule, the input-side products of the recurrence are
+float32 products of the bfloat16 weights, and ``lstm_seq`` gets float32
+``xproj`` with the bfloat16 recurrent weights it always takes.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..config import Config
 
 from ..ops.lstm_seq import kernel_max_hidden, lstm_seq, lstm_seq_eligible
 from ..ops.lstm_seq_train import lstm_seq_train
-from .layers import LSTMWeights, dropout, lstm_scan, reverse_sequence
+from .layers import LSTMWeights, dropout, linear, lstm_scan, promote, reverse_sequence
 
 Tensor = torch.Tensor
 logger = logging.getLogger(__name__)
@@ -88,7 +94,7 @@ def apply_encoder(
     """video_features (B, T, F), video_mask (B, T) with 1 = valid, or None.
     Returns encoded (B, T, H) and final_hidden (B, H)."""
     p_drop = config.model.encoder_dropout
-    x = encoder.feature_projection(video_features)  # (B, T, H)
+    x = linear(encoder.feature_projection, video_features)  # (B, T, H)
     x = dropout(x, p_drop, generator, train)
     lengths = None if video_mask is None else video_mask.sum(dim=1).to(torch.int64)
     k = config.kernels
@@ -107,7 +113,7 @@ def apply_encoder(
         if use_kernel:
             w_ih = torch.stack([fwd["w_ih"], bwd["w_ih"]])  # (2, 4H, in)
             bias = torch.stack([fwd["b_ih"] + fwd["b_hh"], bwd["b_ih"] + bwd["b_hh"]])
-            xproj = torch.einsum("dbti,doi->dbto", xs2, w_ih) + bias[:, None, None, :]
+            xproj = torch.einsum("dbti,doi->dbto", *promote(xs2, w_ih)) + bias[:, None, None, :]
             xproj_t = xproj.permute(2, 0, 1, 3).contiguous()  # (T, 2, B, 4H)
             mask = None if video_mask is None else video_mask.contiguous()
             if train:
@@ -129,6 +135,6 @@ def apply_encoder(
             x = dropout(x, p_drop, generator, train)
         h_fwd_last, h_bwd_last = h_last2[0], h_last2[1]
 
-    encoded = dropout(encoder.output_projection(x), p_drop, generator, train)
-    final_hidden = encoder.output_projection(torch.cat([h_fwd_last, h_bwd_last], dim=-1))
+    encoded = dropout(linear(encoder.output_projection, x), p_drop, generator, train)
+    final_hidden = linear(encoder.output_projection, torch.cat([h_fwd_last, h_bwd_last], dim=-1))
     return encoded, final_hidden

@@ -11,6 +11,14 @@ parameters under ``torch.nn.LSTM``'s names (``weight_ih_l0``,
 Dropout draws its keep mask from an explicit ``torch.Generator``; it cannot
 reproduce ``jax.random``'s bits, so it matches the JAX package in its
 statistics and placement, not in its masks.
+
+Dtypes follow the JAX package where parameters are bfloat16 (a predictor
+with ``compute_dtype="bfloat16"``): :func:`linear` and :func:`lstm_cell`
+take ``matmul_default``'s rule (a float32 activation against a bfloat16
+weight is rounded to bfloat16 and its products sum to a float32 result),
+and the plain ``@`` / einsum sites take :func:`promote`'s (the narrower
+operand is widened, exactly). In float32 every function computes what it
+did before.
 """
 
 from __future__ import annotations
@@ -18,9 +26,51 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
+
+
+def promote(*tensors: Tensor) -> Tuple[Tensor, ...]:
+    """The tensors in their common dtype, as jnp's type promotion gives it
+    (bfloat16 with float32 is float32; the widening is exact)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in tensors)
+
+
+def bf16_products_f32(x: Tensor, w: Tensor) -> Tensor:
+    """x (..., in) @ w (out, in).T for bfloat16 operands, float32 result:
+    on CUDA a bfloat16 GEMM with float32 output where the build has one
+    (``aten::mm.dtype``), else float32 products of the bfloat16 values
+    (each exact) with float32 sums."""
+    if x.is_cuda and hasattr(torch.ops.aten.mm, "dtype"):
+        y = torch.ops.aten.mm.dtype(x.reshape(-1, x.shape[-1]), w.T, torch.float32)
+        return y.reshape(x.shape[:-1] + (w.shape[0],))
+    return x.float() @ w.float().T
+
+
+def matmul_default(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w.T`` for a torch-layout (out, in) weight with the dtypes of
+    the JAX package's ``layers.matmul_default``: a float32 activation
+    against a bfloat16 weight is rounded to bfloat16 and accumulated to a
+    float32 result; equal dtypes give that dtype; other mixes promote."""
+    if w.dtype == torch.bfloat16 and x.dtype == torch.float32:
+        return bf16_products_f32(x.to(torch.bfloat16), w)
+    x, w = promote(x, w)
+    return x @ w.T
+
+
+def linear(mod: nn.Linear, x: Tensor) -> Tensor:
+    """``apply_linear``: ``mod(x)`` in float32, ``matmul_default`` plus the
+    bias otherwise (the bias added after the product, as in JAX)."""
+    w, b = mod.weight, mod.bias
+    if x.dtype == w.dtype == torch.float32:
+        return F.linear(x, w, b)
+    y = matmul_default(x, w)
+    return y if b is None else y + b
 
 
 def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
@@ -82,7 +132,8 @@ def gates_tail(gates: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
 
 def lstm_cell(layer: Dict[str, Tensor], x: Tensor, h: Tensor, c: Tensor) -> Tuple[Tensor, Tensor]:
     """One LSTM step. x: (N, in), h/c: (N, H) -> (h', c')."""
-    gates = x @ layer["w_ih"].T + h @ layer["w_hh"].T + layer["b_ih"] + layer["b_hh"]
+    gates = (matmul_default(x, layer["w_ih"]) + matmul_default(h, layer["w_hh"])
+             + layer["b_ih"] + layer["b_hh"])
     return gates_tail(gates, c)
 
 
@@ -93,13 +144,16 @@ def lstm_scan(
     c0: Tensor,
     mask: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-    """One float32 LSTM layer over time. xs: (B, T, in), mask (B, T) with
-    1 = valid. Returns outputs (B, T, H) and the final (h, c).
+    """One LSTM layer over time in the activations' dtype (float32
+    products of bfloat16 weights, as jnp's ``@`` promotes them). xs:
+    (B, T, in), mask (B, T) with 1 = valid. Returns outputs (B, T, H) and
+    the final (h, c).
 
     Masked semantics of packed sequences: at a padded step the state
     carries through and the output is zero."""
-    xs_proj = xs @ layer["w_ih"].T + (layer["b_ih"] + layer["b_hh"])  # (B, T, 4H)
-    w_hh_t = layer["w_hh"].T
+    xs_, w_ih = promote(xs, layer["w_ih"])
+    xs_proj = xs_ @ w_ih.T + (layer["b_ih"] + layer["b_hh"])  # (B, T, 4H)
+    w_hh_t = layer["w_hh"].T.to(torch.promote_types(h0.dtype, layer["w_hh"].dtype))
     h, c = h0, c0
     outs = []
     for t in range(xs.shape[1]):

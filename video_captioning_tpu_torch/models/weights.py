@@ -183,6 +183,20 @@ def _transformer_params(sd: Mapping[str, Tensor], config: Config) -> dict:
     return {"encoder": encoder, "decoder": decoder}
 
 
+def attention_linears(config: Config) -> tuple:
+    """The attention's linears, by the names of the JAX pytree and the
+    upstream torch model (video_captioning_tpu/models/torch_port.py)."""
+    m = config.model
+    if m.attention_type == "bahdanau":
+        return ("encoder_projection", "decoder_projection", "attention_linear")
+    if m.attention_type == "multihead":
+        return ("query_linear", "key_linear", "value_linear", "output_linear")
+    if m.attention_type != "luong":
+        raise ValueError(f"Unsupported attention type: {m.attention_type}")
+    return {"general": ("linear_in",), "concat": ("linear_query", "linear_context", "linear_v"),
+            "dot": ()}[m.luong_score]
+
+
 def jax_params_from_state_dict(state_dict: Mapping[str, Tensor], config: Config) -> dict:
     """The port's state_dict -> the JAX parameter pytree as float32 numpy
     arrays; the exact inverse of :func:`state_dict_from_jax_params`."""
@@ -201,11 +215,9 @@ def jax_params_from_state_dict(state_dict: Mapping[str, Tensor], config: Config)
         "lstm": [_lstm_back(sd, "decoder.lstm", l) for l in range(m.decoder_num_layers)],
         "output_projection": _linear_back(sd, "decoder.output_projection"),
     }
-    if "decoder.context_projection.weight" in sd:
-        decoder["attention"] = {
-            name: _linear_back(sd, f"decoder.attention.{name}")
-            for name in ("encoder_projection", "decoder_projection", "attention_linear")
-        }
+    if m.use_attention:
+        decoder["attention"] = {name: _linear_back(sd, f"decoder.attention.{name}")
+                                for name in attention_linears(config)}
         decoder["context_projection"] = _linear_back(sd, "decoder.context_projection")
     if "decoder.init_state_projection.weight" in sd:
         decoder["init_state_projection"] = _linear_back(sd, "decoder.init_state_projection")
@@ -293,18 +305,39 @@ def _init_transformer(rng: np.random.Generator, config: Config, vocab_size: int)
     return {"encoder": encoder, "decoder": decoder}
 
 
+def _init_attention(rng: np.random.Generator, config: Config) -> dict:
+    """``init_attention``'s distributions: torch-default linears, without
+    bias where the JAX package has none (Luong's ``linear_in`` and
+    ``linear_v``)."""
+    m = config.model
+    E, D, A = m.encoder_hidden_dim, m.decoder_hidden_dim, m.attention_dim
+    shapes = {"encoder_projection": (E, A), "decoder_projection": (D, A),
+              "attention_linear": (A, 1), "linear_in": (D, E), "linear_query": (D, A),
+              "linear_context": (E, A), "linear_v": (A, 1), "query_linear": (D, E),
+              "key_linear": (E, E), "value_linear": (E, E), "output_linear": (E, E)}
+    if m.attention_type == "luong" and m.luong_score == "dot" and D != E:
+        raise ValueError("dot attention requires decoder_dim == encoder_dim")
+    out = {}
+    for name in attention_linears(config):
+        p = _torch_linear(rng, *shapes[name])
+        if name in ("linear_in", "linear_v"):
+            del p["bias"]
+        out[name] = p
+    return out
+
+
 def init_params_numpy(config: Config, vocab_size: int, seed: int = 0) -> dict:
     """JAX-layout parameter pytree of the transformer family, or of the LSTM
-    family with Bahdanau attention, drawn from ``np.random.default_rng(seed)``."""
+    family with any attention type or none, drawn from
+    ``np.random.default_rng(seed)``."""
     m = config.model
     rng = np.random.default_rng(seed)
     if m.architecture == "transformer":
         return _init_transformer(rng, config, vocab_size)
-    if m.architecture != "lstm" or m.attention_type != "bahdanau" or not m.use_attention:
-        raise NotImplementedError("init_params_numpy covers the transformer family and the "
-                                  "LSTM family with Bahdanau attention")
+    if m.architecture != "lstm":
+        raise ValueError(f"Unsupported architecture: {m.architecture}")
     F, E, D = m.cnn_feature_dim, m.encoder_hidden_dim, m.decoder_hidden_dim
-    A, emb = m.attention_dim, m.embedding_dim
+    emb = m.embedding_dim
     encoder = {
         "feature_projection": _torch_linear(rng, F, E),
         "lstm": [
@@ -314,18 +347,16 @@ def init_params_numpy(config: Config, vocab_size: int, seed: int = 0) -> dict:
         ],
         "output_projection": _torch_linear(rng, 2 * E, E),
     }
+    lstm_in = emb + E if m.use_attention else emb
     decoder = {
         "embedding": {"table": _uniform(rng, (vocab_size, emb), 0.1)},
-        "lstm": [_lstm_orthogonal(rng, emb + E if l == 0 else D, D)
+        "lstm": [_lstm_orthogonal(rng, lstm_in if l == 0 else D, D)
                  for l in range(m.decoder_num_layers)],
         "output_projection": _xavier_linear(rng, D, vocab_size),
-        "attention": {
-            "encoder_projection": _torch_linear(rng, E, A),
-            "decoder_projection": _torch_linear(rng, D, A),
-            "attention_linear": _torch_linear(rng, A, 1),
-        },
-        "context_projection": _xavier_linear(rng, E + D + emb, D),
     }
+    if m.use_attention:
+        decoder["attention"] = _init_attention(rng, config)
+        decoder["context_projection"] = _xavier_linear(rng, E + D + emb, D)
     if E != D:
         decoder["init_state_projection"] = _torch_linear(rng, E, D)
     return {"encoder": encoder, "decoder": decoder}
