@@ -139,13 +139,30 @@ exits non-zero without printing the final result line:
    MIN_BF16_GREEDY_AGREEMENT) and with the card's float32 run (all 128),
    first-divergence positions, and encode + beam-5 timed and profiled beside
    float32;
-14. a JSON line of the kernels, the nvidia-smi line, then the result line.
+14. W8A8 decode (``run_int8_decode``) on a B = 128 batch of the sharpened,
+   END-suppressed package: ``Config()`` at ``vocab`` (greedy, beam-5),
+   ``fused_config()`` at ``vocab`` (beam-5, greedy), the transformer and
+   its fused beam attention at ``full`` (beam-5): launches exactly as
+   implied (no ``vocab_topk_lse`` with an int8 vocabulary) and the
+   ``torch._int_mm`` calls (one a step at ``vocab``; 17 a step and 4 a
+   decode at ``full``), the first 8 clips' tokens equal to the CPU port's
+   int8 run, int8 against float32 agreement on the card, the decode
+   weights' bytes, and encode + beam-5 profiled beside float32;
+15. bfloat16 training (``run_bf16_training``): both ``lstm_seq_train``
+   launches on bfloat16 xproj against their plain versions at
+   (80, 2, 32, 2048) and the odd shapes, then ``cli.train --compute-dtype
+   bfloat16 --profile-dir`` for 2 epochs at B = 32 on 96 clips through the
+   native batch loader (every batch native, lstm_seq_train launched on
+   bfloat16 xproj, the trace written, finite losses), one step at B = 8
+   against the CPU and one step at B = 32 profiled beside float32;
+16. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import importlib
 import io
 import itertools
 import json
@@ -1830,10 +1847,10 @@ def describe(config: Config) -> str:
 GATE = beam_mod.fused_vocab_eligible
 
 
-def gate_as_on_card(config, device, B, K, V):
+def gate_as_on_card(config, device, *args):
     """The fused-vocabulary gate evaluated as if the tensors were on the
     card, so a CPU reference run takes the card's branch."""
-    return GATE(config, torch.device("cuda"), B, K, V)
+    return GATE(config, torch.device("cuda"), *args)
 
 
 def profile_decode(predictor: VideoCaptionPredictor, batch: list, card: str) -> dict:
@@ -2660,6 +2677,427 @@ def run_bf16_serving(card: str, clips: np.ndarray, device: str = "cuda",
             out["profile"]["float32"] = profile_decode(p32, batch, card)
     return out
 
+# bfloat16 training, card against the CPU port's bfloat16 step: the
+# tolerances of tests/test_torch_bf16_train.py (the port against the JAX
+# cast policy on the CPU): the loss relative, every gradient's max error
+# over the largest gradient value of the step.
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_RTOL = 2e-2
+
+
+def check_lstm_train_bf16(device: str, card: str) -> dict:
+    """Both ``lstm_seq_train`` launches on bfloat16 xproj (the bfloat16
+    training step's) against their plain versions at (80, 2, 32, 2048) and
+    at LSTM_EDGE_SHAPES, each launched twice and required bitwise equal:
+    the forward's float32 residuals (h_keep, c_keep) at the float32
+    phase's LSTM_TRAIN_FWD_ATOL, its bfloat16 outputs (outs, h_last,
+    c_last, gact) at lstm_seq's bfloat16 tolerance (a bfloat16 rounding of
+    float32 values that agree within LSTM_TRAIN_FWD_ATOL), the backward at
+    LSTM_TRAIN_BWD_RTOL of each output's largest value."""
+    bf16 = torch.bfloat16
+    fwd_names = ("outs", "h_last", "c_last", "gact", "h_keep", "c_keep")
+    worst = {"fwd_bf16_outputs": 0.0, "fwd_f32_residuals": 0.0, "bwd": 0.0}
+    shapes = [(80, 32, 512)] + list(LSTM_EDGE_SHAPES)
+    for T, B, H in shapes:
+        if (T, B, H) == (80, 32, 512):
+            xproj, w, mask = lstm_inputs(device, bf16, T=T, B=B, H=H)
+        else:
+            xproj, w, mask = lstm_edge_inputs(device, bf16, T, B, H)
+        got = lstm_seq_train_fwd(xproj, w, mask)
+        again = lstm_seq_train_fwd(xproj, w, mask)
+        want = lstm_seq_train_fwd_reference(xproj, w, mask)
+        sync(device)
+        err = {n: (a.float() - b.float()).abs().max().item()
+               for n, a, b in zip(fwd_names, got, want)}
+        e16 = max(err[n] for n in fwd_names[:4])
+        e32 = max(err[n] for n in fwd_names[4:])
+        if (e16 > LSTM_ATOL[bf16] or e32 > LSTM_TRAIN_FWD_ATOL or not same_bits(got, again)
+                or any(a.dtype != b.dtype for a, b in zip(got, want))
+                or got[0].dtype != bf16):
+            raise AssertionError(f"lstm_seq_train_fwd bf16 xproj T={T} B={B} H={H}: max abs "
+                                 f"err {err} (tol {LSTM_ATOL[bf16]} bf16, "
+                                 f"{LSTM_TRAIN_FWD_ATOL} float32) or two launches differ")
+        worst["fwd_bf16_outputs"] = max(worst["fwd_bf16_outputs"], e16)
+        worst["fwd_f32_residuals"] = max(worst["fwd_f32_residuals"], e32)
+        g = torch.Generator(device="cpu").manual_seed(4)
+        douts = torch.randn((T, 2, B, H), generator=g).to(device, bf16)
+        dh_last, dc_last = (torch.randn((2, B, H), generator=g).to(device, bf16)
+                            for _ in range(2))
+        res = want[3:]
+        bgot = lstm_seq_train_bwd(*res, w, mask, douts, dh_last, dc_last)
+        bagain = lstm_seq_train_bwd(*res, w, mask, douts, dh_last, dc_last)
+        bwant = lstm_seq_train_bwd_reference(*res, w, mask, douts, dh_last, dc_last)
+        sync(device)
+        # dW_hh is all zeros at T = 1 (h_prev = 0): held absolutely there.
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1.0 if T == 1 else 0.0)).item()
+                  for a, b in zip(bgot, bwant))
+        if (rel > LSTM_TRAIN_BWD_RTOL or not same_bits(bgot, bagain)
+                or bgot[0].dtype != bf16):
+            raise AssertionError(f"lstm_seq_train_bwd bf16 xproj T={T} B={B} H={H}: max err "
+                                 f"relative to the largest value {rel:.3g} (tol "
+                                 f"{LSTM_TRAIN_BWD_RTOL}) or two launches differ")
+        worst["bwd"] = max(worst["bwd"], rel)
+        if (T, B, H) == (80, 32, 512):
+            main = {"fwd_err": err, "bwd_rel": rel,
+                    "fwd_ms": time_ms(lambda: lstm_seq_train_fwd(xproj, w, mask), calls=5),
+                    "bwd_ms": time_ms(lambda: lstm_seq_train_bwd(*res, w, mask, douts, dh_last,
+                                                                 dc_last), calls=5)}
+            print(f"[kernels] lstm_seq_train (80, 2, 32, 2048) bfloat16 xproj: forward max abs "
+                  f"err {err} (tol {LSTM_ATOL[bf16]} on the bf16 outputs, "
+                  f"{LSTM_TRAIN_FWD_ATOL} on the float32 residuals); backward max err "
+                  f"relative to the largest value {rel:.3g} (tol {LSTM_TRAIN_BWD_RTOL}); both "
+                  f"launched twice bitwise equal; fwd {main['fwd_ms']:.4f} ms, bwd "
+                  f"{main['bwd_ms']:.4f} ms from CUDA events ({card})")
+    print(f"[kernels] lstm_seq_train on bfloat16 xproj at {len(LSTM_EDGE_SHAPES)} odd shapes: "
+          f"worst errors {worst}, every launch twice bitwise equal ({card})")
+    return dict(main, worst=worst)
+
+
+@contextlib.contextmanager
+def int_mm_counter():
+    """Counts the ``torch._int_mm`` calls made in the block (the W8A8
+    decode's products: a library GEMM, not a kernel of this port)."""
+    calls = {"n": 0}
+    real = torch._int_mm
+
+    def counting(a, b):
+        calls["n"] += 1
+        return real(a, b)
+
+    torch._int_mm = counting
+    try:
+        yield calls
+    finally:
+        torch._int_mm = real
+
+
+def int8_step_products(config: Config, level: str) -> tuple:
+    """(``_int_mm`` calls a decode step, calls once a decode): the vocabulary
+    projection; at ``full`` in the transformer, each block's self-attention
+    q, k, v (left split) and o, cross-attention q and o and the two MLP
+    linears a step, and its cross-attention k and v once."""
+    if level == "full" and config.model.architecture == "transformer":
+        blocks = config.model.transformer_decoder_layers
+        return 1 + 8 * blocks, 2 * blocks
+    return 1, 0
+
+
+def decode_weight_bytes(model: torch.nn.Module) -> dict:
+    """Bytes of the decode linears that W8A8 replaces, as they are in
+    ``model`` (int8 weights with float32 scales and biases) and in float32."""
+    from video_captioning_tpu_torch.models.layers import Int8Linear
+
+    q = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    held = sum(t.numel() * t.element_size() for m in q for t in m.buffers())
+    f32 = sum(4 * (m.in_features + 1) * m.out_features for m in q)
+    return {"int8": held, "float32": f32, "linears": len(q)}
+
+
+# Whether the card's end-to-end int8 tokens must equal the CPU port's. At
+# ``full`` the transformer quantizes the cross-attention keys and values of
+# the float32 encoder's outputs, which the card and the CPU compute a few
+# ulps apart (5.75e-06 of 4.8 on 8 clips, NVIDIA H100 80GB HBM3, 700.00 W);
+# a round() near a half then lands one int8 step apart and the tokens can
+# part (there, 5 of 8 clips equal at B = 8, 3 at B = 128). The int8
+# linears themselves are bit-exact, and the card's decode of the CPU's
+# encoder outputs must equal the CPU's at every level.
+INT8_END_TO_END = {"vocab": True, "full": False}
+INT8_CASES = (("default", "vocab", ("greedy", "beam")), ("fused", "vocab", ("beam", "greedy")),
+              ("transformer", "full", ("beam",)), ("fused_transformer", "full", ("beam",)))
+
+
+def int8_expected(config: Config, method: str, steps: int = 20) -> dict:
+    """Launches of one decode of one batch with an int8 vocabulary: the
+    encoder's lstm_seq, the hierarchical top-k in every beam step (never
+    vocab_topk_lse), the fused cells and greedy attention under their flags,
+    the transformer's beam attention kernels once per block a step."""
+    k, m = config.kernels, config.model
+    beam = method == "beam"
+    if m.architecture == "transformer":
+        fused = beam and k.transformer_fused_beam_attn
+        per = m.transformer_decoder_layers * steps if fused else 0
+        return {"topk2d_lse": steps if beam else 0, "beam_self_attention": per,
+                "beam_cross_attention": per, "vocab_topk_lse": 0, "lstm_seq": 0}
+    return {"lstm_seq": m.encoder_num_layers, "topk2d_lse": steps if beam else 0,
+            "vocab_topk_lse": 0,
+            "lstm_cell_fused": m.decoder_num_layers * steps if k.use_pallas_lstm else 0,
+            "bahdanau_attend": steps if (k.use_pallas_attention and not beam) else 0}
+
+
+def int8_linears_exact(card_model: torch.nn.Module, cpu_model: torch.nn.Module, device: str,
+                       rows: int = 640) -> int:
+    """Each W8A8 linear of the card's model against the CPU's on the same
+    seeded (rows, in) input: the number of output entries whose bits
+    differ, summed (the int32 products are exact and the dequant rounds
+    the same on both)."""
+    from video_captioning_tpu_torch.models.layers import Int8Linear, int8_linear
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    cpu_mods = dict(cpu_model.named_modules())
+    differ = 0
+    for name, mod in card_model.named_modules():
+        if isinstance(mod, Int8Linear):
+            x = torch.randn((rows, mod.in_features), generator=g) * 3.0
+            got = int8_linear(mod, x.to(device)).cpu()
+            differ += int((bits(got) != bits(int8_linear(cpu_mods[name], x))).sum())
+    return differ
+
+
+def decode_tokens(predictor: VideoCaptionPredictor, enc, final, mask, method: str) -> list:
+    """Token lists of a greedy or beam-5 decode of 20 steps from the given
+    encoder outputs, on the predictor's model and device."""
+    from video_captioning_tpu_torch.generation.greedy import greedy_generate
+
+    dev, vocab, config = predictor.device, predictor.vocabulary, predictor.config
+    args = (predictor.model, config, enc.to(dev), final.to(dev), vocab.start_idx, vocab.end_idx,
+            20, mask.to(dev))
+    with torch.inference_mode():
+        out = (beam_mod.beam_search_generate(*args, beam_size=5) if method == "beam"
+               else greedy_generate(*args))
+    return [{"tokens": t} for t in out["generated_tokens"].cpu().tolist()]
+
+
+def run_int8_decode(card: str, clips: np.ndarray, device: str = "cuda",
+                    cpu_clips: int = 8) -> dict:
+    """W8A8 decode (``decode_int8``) at full width on a B = 128 batch, the
+    package of smoke_package (projection sharpened x3, END suppressed): the
+    LSTM default at ``vocab`` (greedy, beam-5), its fused decode step at
+    ``vocab`` (beam-5, greedy), the transformer and its fused beam attention
+    at ``full`` (beam-5). Each: launches and ``_int_mm`` calls exactly as
+    implied (no vocab_topk_lse with an int8 vocabulary); every int8 linear
+    bit for bit equal to the CPU's on the same input; the card's decode of
+    the CPU run's encoder outputs equal, token for token, to the CPU's on
+    the first ``cpu_clips`` clips; the end-to-end card-vs-CPU agreement of
+    those clips (required 1 at ``vocab``; recorded at ``full``, see
+    INT8_END_TO_END); int8 against float32 agreement on the card for all
+    clips; the decode weights' bytes; and encode + beam-5 profiled beside
+    float32."""
+    configs = {"default": Config, "fused": fused_config, "transformer": transformer_config,
+               "fused_transformer": fused_transformer_config}
+    batch = list(clips)
+    out = {"launches": {}, "cases": {}}
+    t0 = time.perf_counter()
+    for name, level, methods in INT8_CASES:
+        config = configs[name]()
+        with tempfile.TemporaryDirectory() as tmp:
+            pkg = smoke_package(tmp, config)
+            pq = VideoCaptionPredictor(pkg, device=device, decode_int8=level)
+            p32 = VideoCaptionPredictor(pkg, device=device)
+            cpu = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
+                                        decode_int8=level)
+            wbytes = decode_weight_bytes(pq.model)
+            differ = int8_linears_exact(pq.model, cpu.model, device)
+            print(f"[int8] {describe(config)} at {level}: {wbytes['linears']} decode linears "
+                  f"held in {wbytes['int8']} bytes (int8 weights, float32 scales and biases) "
+                  f"against {wbytes['float32']} bytes in float32; on the same 640-row inputs "
+                  f"{differ} output entries differ in bits from the CPU's")
+            if differ:
+                raise AssertionError(f"int8 {name}: {differ} int8 linear outputs differ")
+            feats = torch.from_numpy(np.stack([cpu._prepare_features(c)
+                                               for c in batch[:cpu_clips]]))
+            with torch.inference_mode():
+                cpu_enc = encode(cpu.model, cpu.config, feats)
+            per_step, per_decode = int8_step_products(config, level)
+            for method in methods:
+                want = int8_expected(config, method)
+                with int_mm_counter() as mm:
+                    got, n = counted(device, f"int8 {name} {level} {method}", want,
+                                     lambda: pq.predict_batch(batch, method=method,
+                                                              beam_size=5))
+                want_mm = 20 * per_step + per_decode
+                if mm["n"] != want_mm:
+                    raise AssertionError(f"int8 {name} {method}: {mm['n']} _int_mm calls, "
+                                         f"want {want_mm}")
+                out["launches"] = add_counts(out["launches"], n)
+                ref32 = p32.predict_batch(batch, method=method, beam_size=5)
+                beam_mod.fused_vocab_eligible = gate_as_on_card
+                try:
+                    cpu_res = cpu.predict_batch(batch[:cpu_clips], method=method, beam_size=5)
+                    cpu_dec = decode_tokens(cpu, *cpu_enc, method)
+                finally:
+                    beam_mod.fused_vocab_eligible = GATE
+                card_dec = decode_tokens(pq, *cpu_enc, method)
+                same_decode = agreement(card_dec, cpu_dec)
+                vs_cpu = agreement(got[:cpu_clips], cpu_res)
+                vs_f32 = agreement(got, ref32)
+                out["cases"][f"{name}/{level}/{method}"] = {
+                    "decode_vs_cpu": same_decode, "card_vs_cpu": vs_cpu, "int8_vs_f32": vs_f32,
+                    "int_mm": mm["n"], "weight_bytes": wbytes}
+                print(f"[int8] {describe(config)} {level} {method} B={len(batch)} on {device}: "
+                      f"decode of the CPU's encoder outputs, tokens equal to the CPU's for the "
+                      f"first {cpu_clips} clips: {same_decode:.4f}; end to end, card vs CPU: "
+                      f"{vs_cpu:.4f}; int8 vs float32 clip agreement on {device} {vs_f32:.4f} "
+                      f"(first divergence at {first_divergence(got, ref32)[:12]}); launches "
+                      f"{ {k: n[k] for k in want} }, _int_mm {mm['n']} "
+                      f"({per_step} a step + {per_decode})")
+                if same_decode < 1.0 or (INT8_END_TO_END[level] and vs_cpu < 1.0):
+                    raise AssertionError(f"int8 {name} {level} {method}: decode tokens "
+                                         f"{same_decode}, end to end {vs_cpu}")
+            if device == "cuda":
+                out["cases"][f"{name}/{level}/profile"] = {
+                    "int8": profile_decode(pq, batch, card),
+                    "float32": profile_decode(p32, batch, card)}
+    print(f"[int8] phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return out
+
+
+def _bf16_step(config: Config, device: str, batch: dict) -> tuple:
+    """Loss and gradients of one bfloat16 step of the trainer's cast policy
+    on ``device``, dropout off."""
+    config = Config.from_dict(config.to_dict())
+    config.experiment.use_tensorboard = False
+    with tempfile.TemporaryDirectory() as tmp:
+        config.experiment.checkpoint_dir = Path(tmp)
+        trainer = VideoCaptioningTrainer(_model(config, device), config, Vocabulary(config),
+                                         None, None, device=device)
+    trainer.generator = None
+    b = trainer._place(batch)
+    with trainer.compute_weights():
+        loss = trainer._loss(trainer.model, b["video_features"], b["input_tokens"],
+                             b["target_tokens"], train=True)
+        loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu()
+                         for n, p in trainer.model.named_parameters()}
+
+
+def check_bf16_step_parity(card: str, config: Config, device: str = "cuda", B: int = 8) -> dict:
+    """One bfloat16 step at full width on the card (the kernels) and on the
+    CPU with ``kernels.interpret`` (their plain versions): the loss within
+    BF16_STEP_LOSS_RTOL, every gradient within BF16_STEP_GRAD_RTOL of the
+    largest gradient value."""
+    batch = _step_batch(config, B, seed=5)
+    reset_launch_counts()
+    loss_gpu, g_gpu = _bf16_step(config, device, batch)
+    sync(device)
+    launches = launch_counts()
+    with recurrence_gate_as_on_card():
+        loss_cpu, g_cpu = _bf16_step(interpret_config(config), "cpu", batch)
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    errs = {n: (g_gpu[n] - g).abs().max().item() / top for n, g in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    print(f"[bf16-train] step parity B={B}, card vs CPU plain versions, bfloat16: loss "
+          f"{loss_gpu:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3g}, tol {BF16_STEP_LOSS_RTOL}); "
+          f"worst gradient {worst} max err {errs[worst]:.3g} of the largest gradient value "
+          f"(tol {BF16_STEP_GRAD_RTOL}); launches "
+          f"{ {k: launches[k] for k in ('lstm_seq_train_fwd', 'lstm_seq_train_bwd')} }")
+    if loss_rel > BF16_STEP_LOSS_RTOL or errs[worst] > BF16_STEP_GRAD_RTOL:
+        raise AssertionError(f"bf16 step parity: loss rel {loss_rel:.3g}, {worst} "
+                             f"{errs[worst]:.3g}")
+    return {"loss_rel": loss_rel, "grad_rel": errs[worst], "launches": launches}
+
+
+def run_bf16_training(card: str, device: str = "cuda", n_clips: int = 96) -> dict:
+    """bfloat16 training of ``Config()`` at full width: the recurrence
+    kernels checked on bfloat16 xproj first, then ``cli.train
+    --compute-dtype bfloat16 --profile-dir`` for 2 epochs at B = 32 on
+    ``n_clips`` seeded clips, through the native batch loader. Checked: the
+    library built; every batch from the native path; lstm_seq_train
+    launched on bfloat16 xproj, twice a step each way, and lstm_seq in
+    validation; the trace written; finite losses; then one step at B = 8
+    against the CPU, and one step at B = 32 profiled beside float32."""
+    from video_captioning_tpu_torch import native
+
+    # The module (the package exports a function of the same name).
+    lst_mod = importlib.import_module("video_captioning_tpu_torch.ops.lstm_seq_train")
+
+    out = {"kernels": check_lstm_train_bf16(device, card) if device == "cuda" else None}
+    if not native.native_available():
+        raise AssertionError("the native batch loader did not build")
+    config = Config()
+    config.training.compute_dtype = "bfloat16"
+    config.data.vocab_threshold = 1
+    config.validate()
+    # The xproj dtype of each lstm_seq_train_fwd launch, read where the
+    # wrapper fetches the library for it.
+    dtypes = []
+    real_lib = lst_mod._cuda_lib
+
+    def recording_lib(x, what):
+        if what == "lstm_seq_train_fwd":
+            dtypes.append(x.dtype)
+        return real_lib(x, what)
+
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            csv_path = training_data(Path(tmp), config, n_clips)
+            cfg_path = Path(tmp) / "config.json"
+            cfg_path.write_text(json.dumps(config.to_dict()))
+            reset_launch_counts()
+            lst_mod._cuda_lib = recording_lib
+            try:
+                t1 = time.perf_counter()
+                trainer = cli_train.main(["--config", str(cfg_path), "--data-file",
+                                          str(csv_path), "--checkpoint-dir", "ck", "--epochs",
+                                          "2", "--device", device, "--compute-dtype",
+                                          "bfloat16", "--profile-dir", "prof", "--log-level",
+                                          "WARNING"])
+                sync(device)
+            finally:
+                lst_mod._cuda_lib = real_lib
+            out["launches"] = launch_counts()
+            out["wall_s"] = time.perf_counter() - t1
+            results = json.loads(Path("ck/training_results.json").read_text())
+            steps = trainer.global_step
+            train_ds, val_ds = trainer.train_loader.dataset, trainer.val_loader.dataset
+            n_batches = 2 * len(trainer.train_loader) + len(results["val_history"]) * len(
+                trainer.val_loader)
+            native_batches = train_ds.native_batches + val_ds.native_batches
+            losses = ([h["loss"] for h in results["train_history"]]
+                      + [h["loss"] for h in results["val_history"]])
+            trace = Path("prof/trace_epoch0.pt.trace.json")
+            n = out["launches"]
+            print(f"[bf16-train] cli.train --compute-dtype bfloat16, 2 epochs, {steps} steps at "
+                  f"B={config.training.batch_size} on {device}: {out['wall_s']:.1f} s wall "
+                  f"({card}; one call, not a benchmark); train losses "
+                  f"{[h['loss'] for h in results['train_history']]}, val losses "
+                  f"{[h['loss'] for h in results['val_history']]}; {native_batches} of "
+                  f"{n_batches} batches from the native loader; lstm_seq_train_fwd xproj dtypes "
+                  f"{sorted(set(str(d) for d in dtypes))}; trace "
+                  f"{trace.stat().st_size if trace.exists() else 0} bytes; launches "
+                  f"{ {k: n[k] for k in ('lstm_seq', 'lstm_seq_train_fwd', 'lstm_seq_train_bwd')} }")
+            # Validation encodes each batch twice: its loss and its greedy decode.
+            L = config.model.encoder_num_layers
+            want = {"lstm_seq_train_fwd": L * steps, "lstm_seq_train_bwd": L * steps,
+                    "lstm_seq": 2 * L * len(results["val_history"]) * len(trainer.val_loader)}
+            bad = [
+                (steps > 0 and all(np.isfinite(losses)), f"losses {losses}"),
+                (native_batches == n_batches, f"{native_batches} of {n_batches} native"),
+                (trace.exists(), "no trace"),
+                (trainer.compute_dtype == torch.bfloat16, "not bfloat16"),
+            ]
+            if device == "cuda":
+                bad += [({k: n[k] for k in want} == want, f"launches {n}, want {want}"),
+                        (bool(dtypes) and set(dtypes) == {torch.bfloat16},
+                         f"xproj dtypes {set(dtypes)}")]
+            failed = [what for ok, what in bad if not ok]
+            if failed:
+                raise AssertionError(f"bf16 training: {failed}")
+        finally:
+            os.chdir(cwd)
+    parity = check_bf16_step_parity(card, config, device)
+    out["parity"] = {k: parity[k] for k in ("loss_rel", "grad_rel")}
+    out["launches"] = add_counts(out["launches"], parity["launches"])
+    if device == "cuda":
+        out["profile"] = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg = Config.from_dict(config.to_dict())
+            cfg.training.compute_dtype = dtype
+            cfg.experiment.use_tensorboard = False
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg.experiment.checkpoint_dir = Path(tmp)
+                trainer = VideoCaptioningTrainer(_model(cfg, device), cfg, Vocabulary(cfg),
+                                                 None, None, device=device)
+                print(f"[bf16-train] compute dtype {dtype}:")
+                out["profile"][dtype] = profile_train_step(
+                    trainer, _step_batch(cfg, cfg.training.batch_size, seed=7), card)
+    print(f"[bf16-train] phase: {time.perf_counter() - t0:.1f} s wall ({card})")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2707,8 +3145,11 @@ def main() -> int:
     options = run_decoder_options(smi, clips)
     sampling = run_sampling(smi, clips)
     bf16 = run_bf16_serving(smi, clips)
-    launches = {k: sum(run["launches"][k] for run in (sl, fsl, tsl, tfsl, tr, ttr["train"], entry,
-                                                      wide, options, sampling, bf16))
+    int8 = run_int8_decode(smi, clips)
+    bf16_train = run_bf16_training(smi)
+    runs = (sl, fsl, tsl, tfsl, tr, ttr["train"], entry, wide, options, sampling, bf16, int8,
+            bf16_train)
+    launches = {k: sum(run["launches"].get(k, 0) for run in runs)
                 + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}
     kernels = []

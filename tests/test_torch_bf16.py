@@ -173,4 +173,4 @@ def test_serve_cli_passes_the_compute_dtype(monkeypatch):
     monkeypatch.setattr(server, "CaptionServer", None)
     with pytest.raises(Stop):
         serve.main(["--model-path", "m.pth", "--device", "cpu", "--compute-dtype", "bfloat16"])
-    assert seen == {"device": "cpu", "compute_dtype": "bfloat16"}
+    assert seen == {"device": "cpu", "compute_dtype": "bfloat16", "decode_int8": "off"}

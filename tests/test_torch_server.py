@@ -185,9 +185,12 @@ def test_batcher_counts_every_concurrent_submit():
     ["--decode-int8", "full"], ["--decode-int8", "vocab"], ["--data-parallel"],
 ])
 def test_serve_cli_refuses_flags_not_ported(extra, tmp_path):
+    """--data-parallel is not ported. --decode-int8 is, and is refused with
+    a .vcx artifact, as the JAX CLI refuses it."""
     from video_captioning_tpu_torch.cli import serve
 
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--model-path", str(tmp_path / "m.pth"), *extra])
+    int8 = extra[0] == "--decode-int8"
+    with pytest.raises(SystemExit, match="model-load time" if int8 else "not ported"):
+        serve.main(["--model-path", str(tmp_path / ("m.vcx" if int8 else "m.pth")), *extra])
     with pytest.raises(SystemExit, match="not ported"):
         serve.main(["--model-path", str(tmp_path / "m.vcx")])

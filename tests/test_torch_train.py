@@ -396,6 +396,9 @@ def test_trainer_freeze_encoder_updates_the_decoder_only(tiny_config, tmp_path):
 
 @pytest.mark.parametrize("option", ["orbax", "profile_dir", "wandb", "bfloat16", "mesh"])
 def test_trainer_refuses_unported_options(tiny_config, tmp_path, option):
+    """The orbax backend and a device mesh are refused. profile_dir, wandb
+    and bfloat16 are ported and build; bfloat16 is refused beside a fused
+    decode-step flag, whose kernels take float32 operands only."""
     cfg = _tiny_port_config(tiny_config, tmp_path)
     if option == "orbax":
         cfg.experiment.checkpoint_backend = "orbax"
@@ -407,9 +410,20 @@ def test_trainer_refuses_unported_options(tiny_config, tmp_path, option):
         cfg.training.compute_dtype = "bfloat16"
     else:
         cfg.parallel.data_axis = 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        VideoCaptioningTrainer(VideoCaptioningModel(cfg, VOCAB), cfg, Vocabulary(cfg),
-                               None, None, device="cpu")
+
+    def build():
+        return VideoCaptioningTrainer(VideoCaptioningModel(cfg, VOCAB), cfg, Vocabulary(cfg),
+                                      None, None, device="cpu")
+
+    if option in ("orbax", "mesh"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build()
+        return
+    build()
+    if option == "bfloat16":
+        cfg.kernels.use_pallas_lstm = True
+        with pytest.raises(NotImplementedError, match="bfloat16.*not ported"):
+            build()
 
 
 def test_bridge_inverse_round_trip_is_exact(tiny_config):
@@ -424,11 +438,14 @@ def test_bridge_inverse_round_trip_is_exact(tiny_config):
 
 
 def test_resume_refuses_a_jax_written_training_checkpoint(tiny_config, tmp_path):
+    """A JAX-written checkpoint resumes when its optax state is of the JAX
+    trainer's optimizers (tests/test_torch_train_options.py); one of
+    another optimizer (lion here) is refused without importing optax."""
     import optax
 
     params = init_model(jax.random.PRNGKey(0), tiny_config, VOCAB)
     JaxCheckpointManager(tmp_path).save_checkpoint(
-        params, optax.adam(1e-3).init(params), 0, {}, config=tiny_config)
+        params, optax.lion(1e-3).init(params), 0, {}, config=tiny_config)
     with pytest.raises(ValueError, match="written by the JAX package"):
         CheckpointManager(tmp_path).load_checkpoint(tmp_path / "checkpoint_epoch_0000.pth")
 

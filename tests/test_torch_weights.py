@@ -259,6 +259,38 @@ with tempfile.TemporaryDirectory() as tmp:
     lp16 = VideoCaptionPredictor(pkg, device="cpu", compute_dtype="bfloat16")
     assert len(lp16.predict_batch([x[0].numpy(), x[1].numpy()], method="beam",
                                   max_length=6)) == 2
+# W8A8 decode (both levels, both families) and a bfloat16 training step on
+# a batch from the native loader.
+from video_captioning_tpu_torch import native
+from video_captioning_tpu_torch.data.pipeline import VideoCaptioningDataset
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    for c in (cfg, tcfg):
+        c.kernels.interpret = False
+        pkg = save_model_for_inference(init_params_numpy(c, len(vocab)), vocab, c, tmp)
+        for level in ("vocab", "full"):
+            q = VideoCaptionPredictor(pkg, device="cpu", decode_int8=level)
+            assert len(q.predict_batch([x[0].numpy(), x[1].numpy()], method="beam",
+                                       max_length=6)) == 2
+    rows = []
+    for i in range(4):
+        np.save(tmp / f"n{i}.npy", np.random.RandomState(i).randn(12, 24).astype(np.float32))
+        rows.append({"video_id": f"n{i}", "video_path": "", "feature_path": str(tmp / f"n{i}.npy"),
+                     "caption": "a man rides a horse"})
+    bcfg = Config.from_dict(cfg.to_dict())
+    bcfg.training.compute_dtype = "bfloat16"
+    bcfg.data.frames_per_video = 10
+    bcfg.experiment.checkpoint_dir = tmp / "bf16"
+    ds = VideoCaptioningDataset(rows, vocab, bcfg)
+    nb = ds.get_batch([0, 1, 2, 3])
+    assert native.native_available() and ds.native_batches == 1
+    nb = {k: v % len(vocab) if k in ("input_tokens", "target_tokens") else v
+          for k, v in nb.items()}
+    bmodel = VideoCaptioningModel(bcfg, len(vocab))
+    bmodel.load_state_dict(state_dict_from_jax_params(init_params_numpy(bcfg, len(vocab)), bcfg))
+    btrainer = VideoCaptioningTrainer(bmodel, bcfg, vocab, None, None, device="cpu")
+    assert np.isfinite(float(btrainer.train_step(nb)))
+    assert all(p.dtype == torch.float32 for p in bmodel.parameters())
 print("JAX_LOADED=" + str("jax" in sys.modules))
 print("JAX_PACKAGE_MODULES=" + ",".join(sorted(
     n for n in sys.modules if n == "video_captioning_tpu" or n.startswith("video_captioning_tpu."))))
@@ -334,7 +366,8 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         setattr(fused.kernels, flag, True)
         with pytest.raises(NotImplementedError, match=f"bfloat16.*{flag}.*ROADMAP"):
             VideoCaptionPredictor(pkg, config=fused, device="cpu", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="decode_int8"):
-        VideoCaptionPredictor(tmp_path / "m.pth", decode_int8="vocab")
+    # W8A8 decode is ported; an unknown level is refused with the JAX message.
+    with pytest.raises(ValueError, match="decode_int8 must be one of"):
+        VideoCaptionPredictor(pkg, device="cpu", decode_int8="int4")
     with pytest.raises(NotImplementedError, match="vcx"):
         VideoCaptionPredictor(tmp_path / "m.vcx")

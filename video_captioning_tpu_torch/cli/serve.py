@@ -6,8 +6,9 @@
 
 Counterpart of video_captioning_tpu/cli/serve.py. It takes the same
 inference packages; ``--compute-dtype bfloat16`` serves bfloat16
-parameters. Flags of that CLI that are not ported yet (``--decode-int8``,
-``--data-parallel``, ``.vcx`` artifacts) exit with an error instead of
+parameters and ``--decode-int8 vocab|full`` W8A8 decode matrices
+(``models/quantize.py``). Flags of that CLI that are not ported yet
+(``--data-parallel``, ``.vcx`` artifacts) exit with an error instead of
 being ignored.
 """
 
@@ -39,7 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=[None, "float32", "bfloat16"],
                         help="bfloat16 casts the parameters once at load")
     parser.add_argument("--decode-int8", type=str, default="off",
-                        choices=["off", "vocab", "full"], help="not ported")
+                        choices=["off", "vocab", "full"],
+                        help="Opt-in W8A8 decode quantization (models/quantize.py): "
+                             "approximate tokens")
     parser.add_argument("--data-parallel", action="store_true", help="not ported")
     parser.add_argument("--log-level", type=str, default="INFO")
     return parser
@@ -47,8 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if Path(args.model_path).suffix == ".vcx" and args.decode_int8 != "off":
+        raise SystemExit(
+            "--decode-int8 applies at model-load time; .vcx programs "
+            "are already compiled (serve the .pth package with "
+            "--decode-int8 instead)"
+        )
     not_ported = [
-        (args.decode_int8 != "off", "--decode-int8"),
         (args.data_parallel, "--data-parallel"),
         (Path(args.model_path).suffix == ".vcx", ".vcx artifacts"),
     ]
@@ -61,7 +69,8 @@ def main(argv=None) -> None:
     from ..inference.server import CaptionServer
 
     predictor = VideoCaptionPredictor(args.model_path, device=args.device,
-                                      compute_dtype=args.compute_dtype)
+                                      compute_dtype=args.compute_dtype,
+                                      decode_int8=args.decode_int8)
     server = CaptionServer(predictor, host=args.host, port=args.port,
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     print(f"caption server listening on {args.host}:{server.port}", flush=True)

@@ -11,10 +11,12 @@ torch device and defaults to ``cuda``; ``--device cpu`` trains on the CPU
     python -m video_captioning_tpu_torch.cli.train --data-file captions.csv \
         --checkpoint-dir checkpoints --epochs 10
 
-Both model families train (``--architecture lstm|transformer``). Options
-the port does not run yet (``--compute-dtype bfloat16``, the orbax
-backend, ``--profile-dir``, ``--wandb``, another attention type) raise
-``NotImplementedError``.
+Both model families train (``--architecture lstm|transformer``), in
+float32 or under the bfloat16 cast policy (``--compute-dtype bfloat16``),
+with a ``torch.profiler`` trace of epoch 0 (``--profile-dir``) and Weights &
+Biases logging (``--wandb``, a warning where ``wandb`` does not import).
+``--resume`` takes a training checkpoint of either package. The orbax
+backend raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -14,9 +14,16 @@ batches and splits.
   captions are encoded, shifted into (input, target) and PAD-padded to
   ``max_sequence_length``.
 * ``DataLoader`` yields numpy batches with the JAX package's per-epoch
-  ``RandomState(seed + epoch)`` shuffle and drop-last, loading items on
-  worker threads with a bounded prefetch queue. Features load one ``.npy``
-  at a time (the JAX package's native batch loader is not ported).
+  ``RandomState(seed + epoch)`` shuffle and drop-last, with a bounded
+  prefetch queue. A batch's features load through the native C++ loader
+  (``native.load_features_batch``: the whole batch in one call, files read
+  in parallel outside the GIL) where it takes the files, and otherwise one
+  ``.npy`` at a time on worker threads, as the JAX package's
+  ``get_batch`` does.
+* ``place_batch`` puts a batch's arrays on the device, casting the
+  features on the host first where training computes in bfloat16 (the JAX
+  trainer's ``_place``: half the bytes cross to the device; the values are
+  those of a cast on the device).
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config
+from ..native import load_features_batch
 from .vocabulary import Vocabulary
 
 logger = logging.getLogger(__name__)
@@ -66,6 +75,7 @@ class VideoCaptioningDataset:
         self.vocabulary = vocabulary
         self.config = config
         self.split = split
+        self.native_batches = 0
         self.rows = [r for r in rows if os.path.exists(r["feature_path"])]
         if len(self.rows) != len(rows):
             logger.warning(f"{len(rows) - len(self.rows)} feature files not found; dropping rows")
@@ -73,22 +83,50 @@ class VideoCaptioningDataset:
     def __len__(self) -> int:
         return len(self.rows)
 
-    def __getitem__(self, idx: int) -> Dict[str, object]:
-        row = self.rows[idx]
-        features = np.load(row["feature_path"]).astype(np.float32)
-        features = resample_features(features, self.config.data.frames_per_video)
-        token_ids = self.vocabulary.encode_caption(row["caption"])
+    def _encode_tokens(self, caption: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        token_ids = self.vocabulary.encode_caption(caption)
         max_len = self.config.model.max_sequence_length
         pad = self.vocabulary.pad_idx
         input_tokens = np.asarray(pad_tokens(token_ids[:-1], max_len, pad), np.int32)
         target_tokens = np.asarray(pad_tokens(token_ids[1:], max_len, pad), np.int32)
+        return input_tokens, target_tokens, (input_tokens != pad).astype(np.float32)
+
+    def __getitem__(self, idx: int) -> Dict[str, object]:
+        row = self.rows[idx]
+        features = np.load(row["feature_path"]).astype(np.float32)
+        features = resample_features(features, self.config.data.frames_per_video)
+        input_tokens, target_tokens, caption_mask = self._encode_tokens(row["caption"])
         return {
             "video_features": features,
             "input_tokens": input_tokens,
             "target_tokens": target_tokens,
-            "caption_mask": (input_tokens != pad).astype(np.float32),
+            "caption_mask": caption_mask,
             "video_id": row.get("video_id", f"video_{idx}"),
             "caption_text": row["caption"],
+        }
+
+    def get_batch(self, indices: Sequence[int], pool=None) -> Dict[str, object]:
+        """A whole batch: the features through the native loader in one
+        call, the tokens encoded here; where the loader does not take the
+        files, the items one at a time (over ``pool`` when given).
+        ``native_batches`` counts the batches the native path served."""
+        rows = [self.rows[int(i)] for i in indices]
+        features = load_features_batch([r["feature_path"] for r in rows],
+                                       self.config.data.frames_per_video,
+                                       self.config.model.cnn_feature_dim)
+        if features is None:
+            idx = [int(i) for i in indices]
+            return _collate(list(pool.map(self.__getitem__, idx)) if pool is not None
+                            else [self[i] for i in idx])
+        self.native_batches += 1
+        toks = [self._encode_tokens(r["caption"]) for r in rows]
+        return {
+            "video_features": features,
+            "input_tokens": np.stack([t[0] for t in toks]),
+            "target_tokens": np.stack([t[1] for t in toks]),
+            "caption_mask": np.stack([t[2] for t in toks]),
+            "video_id": [r.get("video_id", f"video_{i}") for i, r in zip(indices, rows)],
+            "caption_text": [r["caption"] for r in rows],
         }
 
 
@@ -154,8 +192,7 @@ class DataLoader:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for batch_idx in self._batches():
-                        if stop.is_set() or not put(
-                                _collate(list(pool.map(self.dataset.__getitem__, batch_idx)))):
+                        if stop.is_set() or not put(self.dataset.get_batch(batch_idx, pool)):
                             return
             except Exception as e:  # surface loader errors to the consumer
                 put(e)
@@ -180,6 +217,16 @@ class DataLoader:
             except queue.Empty:
                 pass
             thread.join(timeout=5)
+
+
+def place_batch(batch: Dict[str, object], device: torch.device,
+                feature_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors on ``device``; the features cast to
+    ``feature_dtype`` on the host before the copy."""
+    out = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    if feature_dtype != torch.float32 and "video_features" in out:
+        out["video_features"] = out["video_features"].to(feature_dtype)
+    return {k: v.to(device, non_blocking=True) for k, v in out.items()}
 
 
 def create_data_loaders(

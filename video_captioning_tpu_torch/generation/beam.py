@@ -2,7 +2,8 @@
 
 Counterpart of video_captioning_tpu/generation/beam.py: per step, the
 top-K tokens of each live beam over the raw logits (the ``topk2d_lse``
-kernel, which also gives the row logsumexp for the log-softmax) or, where
+kernel, which also gives the row logsumexp for the log-softmax; an int8
+vocabulary projection always takes this path) or, where
 ``fused_vocab_eligible`` holds, straight from the pre-vocab state (the
 ``vocab_topk_lse`` kernel: projection, top-K and logsumexp without the
 logits ever reaching device memory), the top-K of the K*K candidates, a
@@ -35,7 +36,7 @@ from ..config import Config
 from ..models.captioner import VideoCaptioningModel
 from ..ops.topk import topk2d_lse, topk_stable
 from ..ops.vocab_topk import pad_vocab_weights, vocab_row_block_fits, vocab_topk_lse
-from .families import make_decode_family
+from .families import make_decode_family, vocab_projection_info
 
 Tensor = torch.Tensor
 
@@ -45,17 +46,20 @@ NEG_INF = -1e9
 FUSED_VOCAB_MAX_ROWS = 2560
 
 
-def fused_vocab_eligible(config: Config, device: torch.device, B: int, K: int, V: int) -> bool:
+def fused_vocab_eligible(config: Config, device: torch.device, B: int, K: int, V: int,
+                         vocab_quantized: bool = False) -> bool:
     """The JAX gate of the fused vocabulary path (beam.py:88-94): the flag is
-    set, B*K <= 2560 and min(K, V) <= 16, and where the JAX package asks for
-    a TPU backend, the tensors are on CUDA; elsewhere the hierarchical
-    float32 path runs, as the JAX package's does off the TPU. (Its other
-    condition, an unquantized vocabulary projection, always holds: the port
-    has no int8 decode.) The port's kernel adds its own domain: a row block
-    of the pre-vocab state (decoder_hidden_dim wide) fits in shared memory
+    set, the vocabulary projection is not quantized (an int8 vocabulary
+    keeps the hierarchical path, as ``decode_int8`` does in the JAX
+    package), B*K <= 2560 and min(K, V) <= 16, and where the JAX package
+    asks for a TPU backend, the tensors are on CUDA; elsewhere the
+    hierarchical path runs, as the JAX package's does off the TPU. The
+    port's kernel adds its own domain: a row block of the pre-vocab state
+    (decoder_hidden_dim wide) fits in shared memory
     (``vocab_row_block_fits``). Tests force the fused path on the CPU by
     patching this function."""
-    return (config.kernels.use_fused_vocab_topk and device.type == "cuda"
+    return (config.kernels.use_fused_vocab_topk and not vocab_quantized
+            and device.type == "cuda"
             and B * K <= FUSED_VOCAB_MAX_ROWS and min(K, V) <= 16
             and vocab_row_block_fits(config.model.decoder_hidden_dim))
 
@@ -77,13 +81,16 @@ def beam_search_generate(
     B = encoder_outputs.shape[0]
     dev = encoder_outputs.device
     K = beam_size
-    V = model.decoder.output_projection.out_features
+    V, vocab_quantized = vocab_projection_info(model.decoder)
     L = max_length + 1
     kk = min(K, V)
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
                                 encoder_mask, num_beams=K, max_length=max_length)
     state = family.state0
-    use_fused_vocab = fused_vocab_eligible(config, dev, B, K, V)
+    # The fused kernel reads the float weight, which an Int8Linear has not,
+    # so no gate (not even one forced in a test) sends int8 to it.
+    use_fused_vocab = not vocab_quantized and fused_vocab_eligible(config, dev, B, K, V,
+                                                                   vocab_quantized)
     if use_fused_vocab:  # once per call, outside the loop
         out_proj = model.decoder.output_projection
         w_pad, b_pad, _ = pad_vocab_weights(out_proj.weight.T, out_proj.bias)

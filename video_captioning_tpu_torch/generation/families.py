@@ -9,7 +9,7 @@ caches and position table need.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ from ..config import Config
 from ..models import decoder as decoder_mod
 from ..models import transformer as tr
 from ..models.captioner import VideoCaptioningModel, is_transformer
+from ..models.layers import Int8Linear
 
 Tensor = torch.Tensor
 
@@ -38,6 +39,14 @@ class DecodeFamily(NamedTuple):
     step_beam_core: Callable
     rebeam: Callable
     has_weights: bool
+
+
+def vocab_projection_info(dec: torch.nn.Module) -> Tuple[int, bool]:
+    """(V, whether it is in W8A8 form) of a decoder's vocabulary
+    projection, read from whichever form it holds (the JAX package keys on
+    ``"kernel"`` / ``"kernel_q"``)."""
+    proj = dec.output_projection
+    return proj.out_features, isinstance(proj, Int8Linear)
 
 
 def make_decode_family(

@@ -4,7 +4,9 @@ Counterpart of video_captioning_tpu/inference/predictor.py:
 ``VideoCaptionPredictor`` (load, power-of-two batch buckets,
 ``predict_from_features``, ``predict_batch``, ``predict_from_video``,
 ``generate_multiple_captions``, ``explain_prediction``; greedy, beam and
-ancestral sampling) and ``BatchPredictor`` (videos in device batches, each
+ancestral sampling; ``compute_dtype="bfloat16"`` and W8A8 decode
+matrices, ``decode_int8="vocab"|"full"``, applied in that order at load)
+and ``BatchPredictor`` (videos in device batches, each
 failing video an error entry in its place). It runs on the card unless the caller names
 another device (``device="cpu"``); a CUDA device on a host without one
 raises. Batches are zero-padded to the next power of two as in the JAX
@@ -35,6 +37,7 @@ from ..generation.beam import beam_search_generate
 from ..generation.greedy import greedy_generate
 from ..generation.sampling import sample_generate
 from ..models.captioner import VideoCaptioningModel, apply_model, encode
+from ..models.quantize import quantize_decode_params
 from ..models.weights import state_dict_from_jax_params
 from ..utils.checkpoint import load_model_for_inference, vocabulary_from_package
 from .utils import resize_feature_sequence
@@ -58,6 +61,12 @@ def check_compute_dtype(config: Config, compute_dtype: Optional[str]) -> None:
         raise NotImplementedError(
             "compute_dtype='bfloat16' for the transformer family is not ported to "
             "video_captioning_tpu_torch yet (ROADMAP.md A4, bfloat16 transformer serving)")
+    check_fused_flags_bf16(config)
+
+
+def check_fused_flags_bf16(config: Config) -> None:
+    """Raise for bfloat16 with a fused decode-step flag, whose kernels take
+    float32 operands only (the trainer's refusal too)."""
     k = config.kernels
     for flag in ("use_pallas_lstm", "use_pallas_attention", "use_fused_vocab_topk"):
         if getattr(k, flag):
@@ -82,8 +91,6 @@ class VideoCaptionPredictor:
     ):
         if feature_mode not in FEATURE_MODES:
             raise ValueError(f"feature_mode {feature_mode!r} is not one of {FEATURE_MODES}")
-        if decode_int8 != "off":
-            raise NotImplementedError("decode_int8 is not ported to video_captioning_tpu_torch yet")
         model_path = Path(model_path)
         if model_path.suffix == ".vcx":
             raise NotImplementedError(".vcx artifacts are not ported to video_captioning_tpu_torch yet")
@@ -113,6 +120,13 @@ class VideoCaptionPredictor:
         model.load_state_dict(state_dict_from_jax_params(params, self.config))
         if compute_dtype == "bfloat16":
             model = model.to(torch.bfloat16)
+        if decode_int8 != "off":  # after the bfloat16 cast, as in the JAX package
+            model = quantize_decode_params(model, self.config, decode_int8)
+            self.logger.info(
+                f"decode path quantized to W8A8 (level={decode_int8}); "
+                "tokens are approximate vs fp32 — see "
+                "benchmarks/int8_decode_gate.py for measured agreement"
+            )
         self.model = model.to(self.device).eval()
         self.logger.info(f"Loaded model with {len(self.vocabulary)} vocabulary size on {self.device}")
 

@@ -19,6 +19,14 @@ weight is rounded to bfloat16 and its products sum to a float32 result),
 and the plain ``@`` / einsum sites take :func:`promote`'s (the narrower
 operand is widened, exactly). In float32 every function computes what it
 did before.
+
+W8A8 decode (``models/quantize.py``) replaces a decode linear with an
+:class:`Int8Linear`: per-output-channel symmetric int8 weights
+(:func:`quantize_linear_int8`) and per-row dynamic activation scales
+(:func:`int8_linear`), as the JAX package's ``layers.quantize_linear_int8``
+and ``int8_linear``. The int8 x int8 -> int32 product is exact; on the card
+it runs in cuBLASLt (``torch._int_mm``, as XLA's ``dot_general`` does on
+the TPU: no Pallas kernel computes it there either).
 """
 
 from __future__ import annotations
@@ -63,9 +71,65 @@ def matmul_default(x: Tensor, w: Tensor) -> Tensor:
     return x @ w.T
 
 
-def linear(mod: nn.Linear, x: Tensor) -> Tensor:
+def _q127(device: torch.device) -> Tensor:
+    """127 as a 0-d tensor on ``device``: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which rounds differently
+    from the division the JAX package does."""
+    return torch.full((), 127.0, dtype=torch.float32, device=device)
+
+
+class Int8Linear(nn.Module):
+    """A linear in W8A8 form: ``weight_q`` (out, in) int8, ``w_scale``
+    (out,) float32 and ``bias`` (out,) float32 (or None), all buffers; the
+    JAX form's ``kernel_q`` is ``weight_q`` transposed. Calling it is
+    :func:`int8_linear`."""
+
+    def __init__(self, weight_q: Tensor, w_scale: Tensor, bias: Optional[Tensor]):
+        super().__init__()
+        self.out_features, self.in_features = weight_q.shape
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return int8_linear(self, x)
+
+
+def quantize_linear_int8(mod: nn.Linear) -> Int8Linear:
+    """A float linear -> W8A8: per output channel ``s = max(max|w|, 1e-8) /
+    127`` and ``q = clip(round(w / s), -127, 127)`` (half to even), as the
+    JAX ``quantize_linear_int8`` with the weight held (out, in)."""
+    w = mod.weight.detach().float()
+    s = torch.clamp(w.abs().amax(dim=1), min=1e-8) / _q127(w.device)
+    q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    bias = None if mod.bias is None else mod.bias.detach().float().clone()
+    return Int8Linear(q, s, bias)
+
+
+def int8_linear(mod: Int8Linear, x: Tensor) -> Tensor:
+    """Dynamic-activation W8A8 product in the JAX ``int8_linear``'s order:
+    per-row ``sx = max(max|x|, 1e-8) / 127``, ``xq = clip(round(x / sx),
+    -127, 127)`` as int8, the exact int32 product, then ``acc * (sx *
+    w_scale) + bias``, returned in ``x.dtype``."""
+    from ..ops.int8_matmul import int_matmul
+
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / _q127(x.device)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    acc = int_matmul(xq.reshape(-1, x.shape[-1]), mod.weight_q)
+    acc = acc.reshape(x.shape[:-1] + (mod.out_features,))
+    y = acc.float() * (sx * mod.w_scale)
+    if mod.bias is not None:
+        y = y + mod.bias
+    return y.to(x.dtype)
+
+
+def linear(mod: nn.Module, x: Tensor) -> Tensor:
     """``apply_linear``: ``mod(x)`` in float32, ``matmul_default`` plus the
-    bias otherwise (the bias added after the product, as in JAX)."""
+    bias otherwise (the bias added after the product, as in JAX), and
+    :func:`int8_linear` for an :class:`Int8Linear`."""
+    if isinstance(mod, Int8Linear):
+        return int8_linear(mod, x)
     w, b = mod.weight, mod.bias
     if x.dtype == w.dtype == torch.float32:
         return F.linear(x, w, b)

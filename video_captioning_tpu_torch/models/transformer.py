@@ -44,11 +44,12 @@ from torch import nn
 from ..config import Config
 
 from ..ops.transformer_attn import beam_cross_attention, beam_self_attention, gather_beam_prefix
-from .layers import dropout
+from .layers import Int8Linear, dropout
 
 Tensor = torch.Tensor
-# One fused (3D, D) weight and (3D,) bias per decoder block, or None.
-MergedQKV = Optional[Sequence[Tuple[Tensor, Tensor]]]
+# One fused (3D, D) weight and (3D,) bias per decoder block (None for a
+# block in W8A8 form), or None.
+MergedQKV = Optional[Sequence[Optional[Tuple[Tensor, Tensor]]]]
 
 NEG_INF = -1e9
 LN_EPS = 1e-5
@@ -211,15 +212,20 @@ def precompute_cross_kv(dec: TransformerDecoder,
             "v": [blk.cross_attn.wv(encoder_outputs) for blk in dec.blocks]}
 
 
-def merge_self_attn_qkv(dec: TransformerDecoder) -> List[Tuple[Tensor, Tensor]]:
+def merge_self_attn_qkv(dec: TransformerDecoder) -> List[Optional[Tuple[Tensor, Tensor]]]:
     """Each block's self-attention wq, wk, wv as one (3D, D) linear, so a
     decode step projects q, k and v in one GEMM (kernels.transformer_merge_qkv,
     beam search only, as in the JAX package). Each output column keeps its
     own dot product; a GEMM library may block the merged product otherwise
-    than three separate ones, so values may differ in the last bits."""
-    merged = []
+    than three separate ones, so values may differ in the last bits. A
+    block quantized to W8A8 (``models/quantize.py``, level ``full``) is left
+    split, as in the JAX package: None in its place."""
+    merged: List[Optional[Tuple[Tensor, Tensor]]] = []
     for blk in dec.blocks:
         sa = blk.self_attn
+        if isinstance(sa.wq, Int8Linear):
+            merged.append(None)
+            continue
         merged.append((torch.cat([sa.wq.weight, sa.wk.weight, sa.wv.weight]),
                        torch.cat([sa.wq.bias, sa.wk.bias, sa.wv.bias])))
     return merged

@@ -16,6 +16,11 @@ numpy seed with the distributions of the JAX package's ``init_model``
 (models/layers.py), so a package can be written where no JAX is installed.
 The random streams differ from JAX's; only the distributions match.
 
+A linear in the W8A8 form of ``models/quantize.py`` (JAX ``kernel_q`` (in,
+out) int8, ``w_scale``, ``bias``) maps to an ``Int8Linear``'s ``weight_q``
+(out, in) int8, ``w_scale`` and ``bias``, both ways, so a tree that the
+JAX package quantized and the port's compare leaf for leaf.
+
 The transformer family has no upstream torch model, so its names follow
 the JAX pytree paths (``decoder.blocks.0.cross_attn.wq.weight``), with a
 layer norm's ``scale`` as ``weight`` and the embedding ``table`` as
@@ -40,7 +45,12 @@ def _t(a) -> Tensor:
 
 
 def _linear(out: Dict[str, Tensor], prefix: str, p: Mapping) -> None:
-    out[f"{prefix}.weight"] = _t(p["kernel"]).T.contiguous()
+    if "kernel_q" in p:  # W8A8 form (models/quantize.py): buffers of an Int8Linear
+        out[f"{prefix}.weight_q"] = torch.from_numpy(
+            np.array(p["kernel_q"], dtype=np.int8)).T.contiguous()
+        out[f"{prefix}.w_scale"] = _t(p["w_scale"])
+    else:
+        out[f"{prefix}.weight"] = _t(p["kernel"]).T.contiguous()
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -132,7 +142,11 @@ def _np(t: Tensor) -> np.ndarray:
 
 
 def _linear_back(sd: Mapping[str, Tensor], prefix: str) -> dict:
-    out = {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
+    if f"{prefix}.weight_q" in sd:
+        out = {"kernel_q": np.ascontiguousarray(sd[f"{prefix}.weight_q"].detach().cpu().numpy().T),
+               "w_scale": _np(sd[f"{prefix}.w_scale"]).copy()}
+    else:
+        out = {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T)}
     if f"{prefix}.bias" in sd:
         out["bias"] = _np(sd[f"{prefix}.bias"]).copy()
     return out

@@ -19,17 +19,28 @@ and the norm is taken over the decoder's gradients only.
 Schedules are stepped per epoch: ``cosine`` and ``step`` through
 :func:`lr_at_epoch`, ``plateau`` through :class:`PlateauScheduler`; the
 trainer writes the learning rate into the optimizer's ``param_groups``.
+
+:func:`torch_state_from_optax` turns the optax state of a JAX-written
+checkpoint (read as ``utils.checkpoint.OptaxState`` stand-ins) into the
+torch optimizer's: Adam's and AdamW's ``count``, ``mu`` and ``nu`` become
+``step``, ``exp_avg`` and ``exp_avg_sq``, SGD's trace the
+``momentum_buffer``, and the injected learning rate the group's ``lr``.
+The moment trees are in the JAX parameter layout and go through the
+weight bridge.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config import Config
+from ..models.weights import state_dict_from_jax_params
+from ..utils.checkpoint import OptaxState
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], config: Config) -> torch.optim.Optimizer:
@@ -66,6 +77,72 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
+
+
+def _find_states(tree: Any, kinds: Sequence[str]) -> List[OptaxState]:
+    """The optax states of ``kinds`` in the tree, in order."""
+    found: List[OptaxState] = []
+    if isinstance(tree, OptaxState):
+        if tree.kind in kinds:
+            found.append(tree)
+        for field in tree:
+            found += _find_states(field, kinds)
+    elif isinstance(tree, (list, tuple)):
+        for field in tree:
+            found += _find_states(field, kinds)
+    elif isinstance(tree, dict):
+        for field in tree.values():
+            found += _find_states(field, kinds)
+    return found
+
+
+def _fill_masked(tree: Any, params: Any) -> Any:
+    """The moment tree with each ``MaskedNode`` (a frozen parameter's
+    place under ``freeze_encoder``) replaced by zeros of the parameter's
+    shape, so that the bridge can map it whole."""
+    if isinstance(tree, OptaxState) and tree.kind == "MaskedNode":
+        return np.zeros_like(np.asarray(params, np.float32))
+    if isinstance(tree, dict):
+        return {k: _fill_masked(v, params[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_fill_masked(v, p) for v, p in zip(tree, params)]
+    return tree
+
+
+def torch_state_from_optax(opt_state: Any, params: Mapping, config: Config,
+                           names: Sequence[str], optimizer: torch.optim.Optimizer
+                           ) -> Dict[str, Any]:
+    """A ``state_dict`` for ``optimizer`` (over the trainable parameters
+    ``names``, in order) holding the optax state of a JAX-written
+    checkpoint; ``params`` is that checkpoint's parameter tree."""
+    name = config.training.optimizer.lower()
+    kind = {"adam": "ScaleByAdamState", "adamw": "ScaleByAdamState",
+            "sgd": "TraceState"}[name]
+    states = _find_states(opt_state, (kind,))
+    injected = _find_states(opt_state, ("InjectHyperparamsState",
+                                        "InjectStatefulHyperparamsState"))
+    if len(states) != 1 or len(injected) != 1:
+        raise ValueError(f"the checkpoint's optimizer state is not the JAX trainer's "
+                         f"{name} chain (found {len(states)} {kind}, {len(injected)} "
+                         "injected hyperparameter states)")
+
+    def by_name(tree) -> Dict[str, torch.Tensor]:
+        return state_dict_from_jax_params(_fill_masked(tree, params), config)
+
+    if kind == "ScaleByAdamState":
+        count, mu, nu = states[0]
+        mu, nu = by_name(mu), by_name(nu)
+        step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+        per_param = [{"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                     for n in names]
+    else:
+        trace = by_name(states[0][0])
+        per_param = [{"momentum_buffer": trace[n]} for n in names]
+    lr = float(np.asarray(injected[0][1]["learning_rate"]))
+    sd = optimizer.state_dict()
+    groups = [dict(g, lr=lr) for g in sd["param_groups"]]
+    ids = [i for g in groups for i in g["params"]]
+    return {"state": dict(zip(ids, per_param)), "param_groups": groups}
 
 
 def lr_at_epoch(config: Config, epoch: int) -> Optional[float]:

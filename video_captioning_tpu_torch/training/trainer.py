@@ -22,16 +22,32 @@ EMA, ``training_results.json`` and resume.
   (``ops.lstm_seq.lstm_seq_eligible``) say.
 * Dropout draws from one ``torch.Generator`` on the model's device, seeded
   with ``training.seed``.
+* ``training.compute_dtype="bfloat16"`` is the JAX trainer's cast policy:
+  the float32 master parameters are cast to bfloat16 inside the loss by a
+  differentiable ``.to()`` (gradients, clipping and the optimizer stay
+  float32), the features are cast on the host before the copy, the loss
+  reduces in float32, and validation runs its loss and greedy decode on a
+  bfloat16 copy of the weights. The fused decode-step flags are refused
+  with it when the trainer is built: validation would reach their
+  float32-only kernels.
+* ``experiment.profile_dir``: a ``torch.profiler`` trace of epoch 0's
+  first five steps (the JAX trainer's ``jax.profiler`` window), written
+  there as ``trace_epoch0.pt.trace.json``.
+* ``experiment.use_wandb``: ``wandb.init`` with the JAX trainer's project,
+  name and config, ``log`` at its points and keys, ``finish`` at the end;
+  where ``wandb`` does not import, a warning and training goes on.
 * Checkpoints hold the parameters in the JAX package's layout, so its
-  predictor loads them; the optimizer state is the port's own.
+  predictor loads them. The optimizer state is the port's own; resume
+  also reads a checkpoint the JAX trainer wrote, converting its optax
+  state (``utils.checkpoint``, ``optim.torch_state_from_optax``).
 
-Not ported: the orbax checkpoint backend, ``experiment.profile_dir``,
-Weights & Biases, device meshes and ``compute_dtype="bfloat16"``; each
-raises ``NotImplementedError`` when the trainer is built.
+Not ported: the orbax checkpoint backend and device meshes; each raises
+``NotImplementedError`` when the trainer is built (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -43,11 +59,13 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.pipeline import place_batch
 from ..data.vocabulary import Vocabulary
 from ..generation import greedy_generate
+from ..inference.predictor import check_fused_flags_bf16
 from ..models.captioner import VideoCaptioningModel, apply_model, count_params, encode
 from ..models.weights import jax_params_from_state_dict, state_dict_from_jax_params
-from ..utils.checkpoint import OPTIMIZER_FORMAT, CheckpointManager
+from ..utils.checkpoint import OPTIMIZER_FORMAT, CheckpointManager, OptaxState
 from ..utils.metrics import CaptionMetrics
 from ..utils.tb_writer import create_summary_writer
 from . import optim
@@ -57,19 +75,21 @@ Tensor = torch.Tensor
 
 
 def check_trainable(config: Config) -> None:
-    """Raise NotImplementedError for the training options not ported yet."""
-    t, e, p = config.training, config.experiment, config.parallel
+    """Raise NotImplementedError for the training options not ported yet
+    (the orbax backend and device meshes, ROADMAP A7), and for bfloat16
+    with a fused decode-step flag, which validation's greedy decode would
+    take into float32-only kernels (the predictor's refusal)."""
+    e, p = config.experiment, config.parallel
     unsupported = [
         (e.checkpoint_backend == "orbax", "experiment.checkpoint_backend='orbax'"),
-        (e.profile_dir is not None, "experiment.profile_dir"),
-        (e.use_wandb, "experiment.use_wandb"),
-        (t.compute_dtype == "bfloat16", "training.compute_dtype='bfloat16'"),
         (p.data_axis > 1 or p.model_axis > 1, "a device mesh (parallel.data_axis/model_axis)"),
     ]
     names = [name for bad, name in unsupported if bad]
     if names:
         raise NotImplementedError(
             f"not ported to video_captioning_tpu_torch yet: {', '.join(names)}")
+    if config.training.compute_dtype == "bfloat16":
+        check_fused_flags_bf16(config)
 
 
 def _to_numpy(tree):
@@ -117,6 +137,8 @@ class VideoCaptioningTrainer:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device)
+        self.compute_dtype = (torch.bfloat16 if config.training.compute_dtype == "bfloat16"
+                              else torch.float32)
 
         # freeze_encoder: the encoder gets no update and the clip norm is
         # taken over the decoder's gradients only (optax multi_transform).
@@ -142,6 +164,19 @@ class VideoCaptioningTrainer:
             self.tensorboard_writer = create_summary_writer(
                 Path(config.experiment.checkpoint_dir) / "tensorboard")
 
+        self.use_wandb = config.experiment.use_wandb
+        self._wandb = None
+        if self.use_wandb:
+            try:
+                import wandb
+
+                wandb.init(project=config.experiment.project_name,
+                           name=config.experiment.experiment_name, config=config.to_dict())
+                self._wandb = wandb
+            except Exception as e:
+                self.logger.warning(f"wandb unavailable: {e}")
+                self.use_wandb = False
+
         self.plateau = None
         if config.training.scheduler.lower() == "plateau":
             self.plateau = optim.PlateauScheduler(lr=config.training.learning_rate)
@@ -157,8 +192,28 @@ class VideoCaptioningTrainer:
     # ------------------------------------------------------------ steps
 
     def _place(self, batch: dict) -> Dict[str, Tensor]:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if isinstance(v, np.ndarray)}
+        return place_batch(batch, self.device, self.compute_dtype)
+
+    @contextlib.contextmanager
+    def compute_weights(self):
+        """The JAX trainer's cast policy for the block: each float32
+        parameter of the model reads as its cast to the compute dtype, made
+        once on entry by a differentiable ``.to()``, so the gradients land
+        on the float32 master copy. The block spans the backward pass too,
+        so the attention recomputed there (``training.remat_attention``)
+        reads the same casts. A no-op in float32."""
+        swapped = []
+        if self.compute_dtype != torch.float32:
+            for mod in self.model.modules():
+                for name, p in list(mod._parameters.items()):
+                    if p is not None and p.dtype == torch.float32:
+                        swapped.append((mod, name, p))
+                        mod._parameters[name] = p.to(self.compute_dtype)
+        try:
+            yield
+        finally:
+            for mod, name, p in swapped:
+                mod._parameters[name] = p
 
     def _loss(self, model, feats: Tensor, inp: Tensor, tgt: Tensor, train: bool) -> Tensor:
         out = apply_model(model, self.config, feats, inp, train=train,
@@ -178,8 +233,9 @@ class VideoCaptioningTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=self.device)
         for micro in zip(*(x.chunk(accum) for x in parts)):
-            micro_loss = self._loss(self.model, *micro, train=True)
-            (micro_loss / accum).backward()
+            with self.compute_weights():
+                micro_loss = self._loss(self.model, *micro, train=True)
+                (micro_loss / accum).backward()
             loss += micro_loss.detach()
         loss /= accum
         clip = self.config.training.gradient_clip_norm
@@ -201,7 +257,51 @@ class VideoCaptioningTrainer:
 
     # ------------------------------------------------------------ epoch
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = Path(self.config.experiment.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace_epoch0.pt.trace.json"))
+        self.logger.info(f"Wrote the profiler trace of epoch 0 to {out}")
+
+    def _epoch_batches(self):
+        """(index, batch) of the epoch; under ``experiment.profile_dir``,
+        epoch 0's first five steps are traced (the trace also ends with the
+        epoch, or where a step raises)."""
+        if self.config.experiment.profile_dir is None or self.current_epoch != 0:
+            yield from enumerate(self.train_loader)
+            return
+        prof = self._start_profile()
+        try:
+            for batch_idx, batch in enumerate(self.train_loader):
+                yield batch_idx, batch
+                if batch_idx == 4:
+                    self._stop_profile(prof)
+                    prof = None
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
+
     def train_epoch(self) -> Dict[str, float]:
+        batches = self._epoch_batches()
+        try:
+            return self._train_batches(batches)
+        finally:
+            batches.close()  # ends a trace at once where a step raised
+
+    def _train_batches(self, batches) -> Dict[str, float]:
         self.model.train()
         total_loss = 0.0
         num_batches = len(self.train_loader)
@@ -209,7 +309,7 @@ class VideoCaptioningTrainer:
         pending_loss = None
         bad_steps = 0
         max_bad = self.config.training.max_bad_steps
-        for batch_idx, batch in enumerate(self.train_loader):
+        for batch_idx, batch in batches:
             loss = self.train_step(batch)
             # Read the previous step's loss: the device queue never drains.
             if pending_loss is not None:
@@ -234,6 +334,9 @@ class VideoCaptioningTrainer:
                                                        self.global_step)
                     self.tensorboard_writer.add_scalar("Train/LearningRate", lr,
                                                        self.global_step)
+                if self.use_wandb:
+                    self._wandb.log({"train/batch_loss": loss_val, "train/learning_rate": lr,
+                                     "global_step": self.global_step})
         if pending_loss is not None:
             total_loss += float(pending_loss)
         return {"loss": total_loss / max(num_batches, 1)}
@@ -244,11 +347,13 @@ class VideoCaptioningTrainer:
         return self.ema if self.ema is not None else self.model.state_dict()
 
     def _eval_target(self) -> VideoCaptioningModel:
-        if self.ema is None:
+        """The model validation runs: the trained one itself, or a copy in
+        the compute dtype holding the EMA shadow or the weights."""
+        if self.ema is None and self.compute_dtype == torch.float32:
             return self.model
         if self._eval_model is None:
-            self._eval_model = copy.deepcopy(self.model)
-        self._eval_model.load_state_dict(self.ema)
+            self._eval_model = copy.deepcopy(self.model).to(self.compute_dtype)
+        self._eval_model.load_state_dict(self.eval_state_dict())
         return self._eval_model
 
     @torch.no_grad()
@@ -328,6 +433,8 @@ class VideoCaptioningTrainer:
             json.dump(results, f, indent=2)
         if self.tensorboard_writer:
             self.tensorboard_writer.close()
+        if self.use_wandb:
+            self._wandb.finish()
         return results
 
     # ---------------------------------------------------------- helpers
@@ -341,13 +448,17 @@ class VideoCaptioningTrainer:
             optim.set_learning_rate(self.optimizer, self.plateau.step(metric))
 
     def _log_epoch(self, epoch, train_metrics, val_metrics) -> None:
-        if not self.tensorboard_writer:
-            return
-        self.tensorboard_writer.add_scalar("Train/EpochLoss", train_metrics["loss"], epoch)
-        self.tensorboard_writer.add_scalar("Val/EpochLoss", val_metrics["loss"], epoch)
-        for name, value in val_metrics.items():
-            if name != "loss":
-                self.tensorboard_writer.add_scalar(f"Val/{name}", value, epoch)
+        if self.tensorboard_writer:
+            self.tensorboard_writer.add_scalar("Train/EpochLoss", train_metrics["loss"], epoch)
+            self.tensorboard_writer.add_scalar("Val/EpochLoss", val_metrics["loss"], epoch)
+            for name, value in val_metrics.items():
+                if name != "loss":
+                    self.tensorboard_writer.add_scalar(f"Val/{name}", value, epoch)
+        if self.use_wandb:
+            self._wandb.log({"train/epoch_loss": train_metrics["loss"],
+                             "val/epoch_loss": val_metrics["loss"],
+                             **{f"val/{k}": v for k, v in val_metrics.items() if k != "loss"},
+                             "epoch": epoch})
 
     def _optimizer_state(self) -> Dict[str, Any]:
         return {
@@ -382,21 +493,26 @@ class VideoCaptioningTrainer:
                 state_dict_from_jax_params(params, self.config).items()}
 
     def load_checkpoint(self, checkpoint_path: Path) -> Dict[str, Any]:
-        """Resume from a training checkpoint that this package wrote."""
+        """Resume from a training checkpoint that either package wrote (the
+        JAX trainer's optax state converted by ``optim.torch_state_from_optax``)."""
         checkpoint = self.checkpoint_manager.load_checkpoint(checkpoint_path)
         opt = checkpoint["optimizer_state_dict"]
-        if not isinstance(opt, dict) or opt.get("format") != OPTIMIZER_FORMAT:
-            raise ValueError(f"{checkpoint_path}: the optimizer state is not in "
-                             f"{OPTIMIZER_FORMAT!r} format; resume takes checkpoints "
-                             "written by video_captioning_tpu_torch")
-        if (opt["optimizer"] != type(self.optimizer).__name__
-                or opt["param_names"] != self.trainable_names):
-            raise ValueError(f"{checkpoint_path}: saved with a different optimizer "
-                             f"({opt['optimizer']}, {len(opt['param_names'])} trainable "
-                             "tensors); resume with the training config used at save time")
         raw = checkpoint.get("raw_model_state_dict", checkpoint["model_state_dict"])
+        if isinstance(opt, dict) and opt.get("format") == OPTIMIZER_FORMAT:
+            if (opt["optimizer"] != type(self.optimizer).__name__
+                    or opt["param_names"] != self.trainable_names):
+                raise ValueError(f"{checkpoint_path}: saved with a different optimizer "
+                                 f"({opt['optimizer']}, {len(opt['param_names'])} trainable "
+                                 "tensors); resume with the training config used at save time")
+            opt_state = _to_torch(opt["state"])
+        elif isinstance(opt, (tuple, OptaxState)):  # the JAX trainer's optax state
+            opt_state = optim.torch_state_from_optax(opt, raw, self.config, self.trainable_names,
+                                                     self.optimizer)
+        else:
+            raise ValueError(f"{checkpoint_path}: the optimizer state is neither "
+                             f"{OPTIMIZER_FORMAT!r} nor an optax state of the JAX trainer")
         self.model.load_state_dict(self._state_dict_on_device(raw))
-        self.optimizer.load_state_dict(_to_torch(opt["state"]))
+        self.optimizer.load_state_dict(opt_state)
         if self.plateau is not None and "scheduler_state_dict" in checkpoint:
             self.plateau.load_state_dict(checkpoint["scheduler_state_dict"])
         if self.ema is not None:

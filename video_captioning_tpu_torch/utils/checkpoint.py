@@ -13,10 +13,17 @@ Counterpart of video_captioning_tpu/utils/checkpoint.py.
   last 5, with the same keys: ``epoch``, ``model_state_dict`` (the JAX
   pytree, through ``models.weights.jax_params_from_state_dict``),
   ``optimizer_state_dict``, ``metrics``, ``model_config``. The optimizer
-  state is the port's own (``torch.optim`` state with numpy arrays, marked
-  by ``OPTIMIZER_FORMAT``), so resuming reads only checkpoints the port
-  wrote. A JAX-written training checkpoint pickles optax types: reading one
-  here is refused with an error instead of importing optax.
+  state the port writes is its own (``torch.optim`` state with numpy
+  arrays, marked by ``OPTIMIZER_FORMAT``).
+* A training checkpoint that the JAX trainer wrote pickles optax's state
+  classes. The reader maps those of the chains that the JAX trainer builds
+  (``ScaleByAdamState``, ``TraceState``, ``InjectHyperparamsState`` and
+  ``InjectStatefulHyperparamsState``, ``EmptyState``, and for
+  ``freeze_encoder`` ``MultiTransformState`` / ``PartitionState``,
+  ``MaskedState`` and ``MaskedNode``), by module and name, to the plain
+  stand-ins below without importing optax or JAX; ``training.optim``
+  converts them into the port's optimizer state. Any other class of the JAX
+  stack is refused: unpickling runs code.
 """
 
 from __future__ import annotations
@@ -47,16 +54,41 @@ def _leaves(tree):
         yield tree
 
 
+class OptaxState(tuple):
+    """An optax state read from a JAX-written checkpoint: its fields in
+    the order of the optax class named by ``kind``."""
+
+    kind = ""
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+    def __repr__(self) -> str:
+        return f"{self.kind}{tuple.__repr__(self)}"
+
+
+# The optax state classes of the chains in the JAX package's
+# training/optim.py; optax has moved them between private modules.
+OPTAX_STATES = ("EmptyState", "ScaleByAdamState", "TraceState", "InjectHyperparamsState",
+                "InjectStatefulHyperparamsState", "MultiTransformState", "PartitionState",
+                "MaskedState", "MaskedNode")
+_STAND_INS = {name: type(name, (OptaxState,), {"kind": name, "__slots__": ()})
+              for name in OPTAX_STATES}
+
+
 class _NoJaxUnpickler(pickle.Unpickler):
-    """Refuses the types of the JAX stack instead of importing them."""
+    """Refuses the types of the JAX stack instead of importing them, except
+    the optax state classes of ``OPTAX_STATES``, read as stand-ins."""
 
     def find_class(self, module: str, name: str):
-        if module.split(".")[0] in _JAX_MODULES:
+        top = module.split(".")[0]
+        if top == "optax" and name in _STAND_INS:
+            return _STAND_INS[name]
+        if top in _JAX_MODULES:
             raise ValueError(
-                f"this file holds {module}.{name}: it was written by the JAX package "
-                "(its optimizer state is optax's); video_captioning_tpu_torch resumes "
-                "only training checkpoints it wrote, and reads inference packages of "
-                "either package"
+                f"this file holds {module}.{name}: it was written by the JAX package, "
+                "and video_captioning_tpu_torch reads of the JAX stack only the optax "
+                f"states of its trainer's optimizers ({', '.join(OPTAX_STATES)})"
             )
         return super().find_class(module, name)
 
