@@ -155,7 +155,29 @@ exits non-zero without printing the final result line:
    native batch loader (every batch native, lstm_seq_train launched on
    bfloat16 xproj, the trace written, finite losses), one step at B = 8
    against the CPU and one step at B = 32 profiled beside float32;
-16. a JSON line of the kernels, the nvidia-smi line, then the result line.
+16. bfloat16 under the fused decode-step flags (``run_bf16_fused``):
+   ``fused_config()`` with ``compute_dtype="bfloat16"``, greedy and beam-5
+   at B = 128, launches exactly as implied (40 ``lstm_cell`` a decode,
+   ``bahdanau_attend`` once a greedy step, ``vocab_topk_lse`` once a beam
+   step), clip agreement with the CPU port's bfloat16 run (greedy at least
+   MIN_BF16_GREEDY_AGREEMENT), encode + beam-5 profiled beside float32;
+17. the exported serving artifact (``run_export``): ``cli.export`` on the
+   card of the LSTM default (buckets 8 and 128) and the fused transformer
+   (bucket 128); ``ExportedPredictor`` serves 100 and 8 clips with tokens
+   equal to the live predictor's, the programs' ``vct::`` custom ops
+   counted as kernel launches (2 ``lstm_seq`` and 20 ``topk2d_lse`` a call;
+   40 of each beam attention kernel), exported encode + beam-5 profiled
+   beside the live one;
+18. data parallelism (``run_parallel``): a one-rank NCCL process group
+   whose DP train step at B = 32 equals the step without one (loss and
+   every gradient; both ``lstm_seq_train`` kernels launched), the DP step
+   across 2 NCCL ranks where two cards are visible (a line says so
+   otherwise), ``cli.serve --data-parallel`` answering ``/caption`` with
+   the tokens of a predictor without a mesh, and the orbax backend
+   (``torch.distributed.checkpoint``) through ``cli.train``: 2 epochs, a
+   resume whose parameters and Adam moments equal the trained ones, one
+   more epoch through ``--resume``;
+19. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -289,6 +311,11 @@ SAMPLE_LOGP_ATOL = 1e-3
 # bfloat16 (activations into the projections) can flip a near-tie; the
 # JAX package's own CPU test holds the port to 0.9 against JAX's bf16.
 MIN_BF16_GREEDY_AGREEMENT = 0.9
+# A data-parallel step against the step without a process group: the
+# tests' DP tolerances (tests/test_torch_parallel.py), here over every
+# gradient's max error relative to the largest gradient value.
+DP_LOSS_RTOL = 1e-6
+DP_GRAD_RTOL = 1e-5
 # lstm_cell: the kernel takes each product by the 3xTF32 split (within
 # about 2^-21 of the float32 product, lo.lo dropped) and sums in float32, in
 # another order than the plain version's float32 products; over In + H =
@@ -3099,6 +3126,346 @@ def run_bf16_training(card: str, device: str = "cuda", n_clips: int = 96) -> dic
     return out
 
 
+# ----------------------------------------------------------------------------
+# bfloat16 under the fused decode-step flags
+# ----------------------------------------------------------------------------
+
+
+def run_bf16_fused(card: str, clips: np.ndarray, device: str = "cuda",
+                   cpu_clips: int = 16) -> dict:
+    """``fused_config()`` served with ``compute_dtype="bfloat16"`` (the
+    wrappers cast as the JAX ones do: float32 operands for ``lstm_cell`` and
+    ``bahdanau_attend``, bf16 x for ``vocab_topk_lse``), greedy and beam-5 at
+    B = 128 (smoke_package's protocol): a greedy decode launches
+    ``bahdanau_attend`` once a step and ``lstm_cell`` once a layer and step,
+    a beam search ``lstm_cell`` as often and ``vocab_topk_lse`` once a
+    step; clip agreement with the CPU port's bfloat16 run on the first
+    ``cpu_clips`` clips (greedy gated at MIN_BF16_GREEDY_AGREEMENT, beam
+    recorded), and encode + beam-5 profiled beside float32."""
+    config = fused_config()
+    L, steps = config.model.encoder_num_layers, 20
+    cells = config.model.decoder_num_layers * steps
+    out = {"launches": {}, "agreement": {}, "profile": {}}
+    batch = list(clips)
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, config)
+        p16 = VideoCaptionPredictor(pkg, device=device, compute_dtype="bfloat16")
+        p32 = VideoCaptionPredictor(pkg, device=device)
+        cpu16 = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
+                                      compute_dtype="bfloat16")
+        wants = (("greedy", {"lstm_seq": L, "lstm_cell_fused": cells, "bahdanau_attend": steps,
+                             "vocab_topk_lse": 0, "topk2d_lse": 0}),
+                 ("beam", {"lstm_seq": L, "lstm_cell_fused": cells, "bahdanau_attend": 0,
+                           "vocab_topk_lse": steps, "topk2d_lse": 0}))
+        for method, want in wants:
+            card16, n = counted(device, f"bf16 fused {method} B={len(batch)}", want,
+                                lambda: p16.predict_batch(batch, method=method, beam_size=5))
+            out["launches"] = add_counts(out["launches"], n)
+            beam_mod.fused_vocab_eligible = gate_as_on_card
+            try:
+                cpu = cpu16.predict_batch(batch[:cpu_clips], method=method, beam_size=5)
+            finally:
+                beam_mod.fused_vocab_eligible = GATE
+            card32 = p32.predict_batch(batch, method=method, beam_size=5)
+            vs_cpu, vs_f32 = agreement(card16[:cpu_clips], cpu), agreement(card16, card32)
+            out["agreement"][method] = {"card_vs_cpu_bf16": vs_cpu, "bf16_vs_f32": vs_f32}
+            print(f"[bf16 fused] {method} B={len(batch)} on {device}: clip agreement with the "
+                  f"CPU port's bf16 run (first {cpu_clips}) {vs_cpu:.4f}, with the card's "
+                  f"float32 fused run {vs_f32:.4f}; first divergence vs CPU at "
+                  f"{first_divergence(card16[:cpu_clips], cpu)}; launches "
+                  f"{ {k: n[k] for k in want} }")
+        if out["agreement"]["greedy"]["card_vs_cpu_bf16"] < MIN_BF16_GREEDY_AGREEMENT:
+            raise AssertionError(f"bf16 fused greedy card vs CPU agreement "
+                                 f"{out['agreement']['greedy']} < {MIN_BF16_GREEDY_AGREEMENT}")
+        if device == "cuda":
+            out["profile"]["bfloat16"] = profile_decode(p16, batch, card)
+            out["profile"]["float32"] = profile_decode(p32, batch, card)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# The exported serving artifact
+# ----------------------------------------------------------------------------
+
+
+def profile_window(window, label: str, card: str) -> dict:
+    """One-off, not a benchmark: CUDA-event time of ``window`` (median of
+    3) and torch.profiler's device-busy time of one more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window_ms = time_ms(window, calls=1, runs=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        window()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[profile] {label} (one-off, not a benchmark; {card}): {window_ms:.3f} ms from CUDA "
+          f"events; device busy {busy:.3f} ms, idle share {1 - busy / window_ms:.3f}")
+    return {"window_ms": window_ms, "device_busy_ms": busy}
+
+
+def run_export(card: str, clips: np.ndarray, device: str = "cuda") -> dict:
+    """``cli.export`` on the card: the LSTM default (buckets 8 and 128) and
+    the fused transformer (bucket 128), beam-5; ``ExportedPredictor`` serves
+    100 clips (padded to 128) and 8, every clip's tokens equal to the live
+    predictor's on the card, the program's kernel launches counted (2
+    ``lstm_seq`` and 20 ``topk2d_lse`` a call; the fused transformer's two
+    attention kernels once a decoder block and step), and the exported
+    encode + beam-5 timed and profiled beside the live predictor's."""
+    from video_captioning_tpu_torch.cli import export as cli_export
+    from video_captioning_tpu_torch.inference.export import ExportedPredictor
+
+    out = {"launches": {}, "export_s": {}, "profile": {}}
+    steps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (config, buckets) in enumerate(((Config(), "8,128"),
+                                               (fused_transformer_config(), "128"))):
+            label = describe(config)
+            pkg = smoke_package(tmp, config)
+            t0 = time.perf_counter()
+            vcx = cli_export.main(["--model-path", pkg, "--output", f"{tmp}/model{i}.vcx",
+                                   "--batch-sizes", buckets, "--method", "beam",
+                                   "--beam-size", "5", "--max-length", str(steps),
+                                   "--platforms", device, "--log-level", "WARNING"])
+            out["export_s"][label] = time.perf_counter() - t0
+            aot = ExportedPredictor(vcx, device=device)
+            live = VideoCaptionPredictor(pkg, device=device)
+            if config.model.architecture == "transformer":
+                blocks = config.model.transformer_decoder_layers * steps
+                want = {"beam_self_attention": blocks, "beam_cross_attention": blocks,
+                        "topk2d_lse": steps}
+            else:
+                want = {"lstm_seq": config.model.encoder_num_layers, "topk2d_lse": steps}
+            for n_clips in ((100, 8) if "," in buckets else (100,)):
+                batch = list(clips[:n_clips])
+                got, n = counted(device, f"exported {label} B={n_clips}", want,
+                                 lambda: aot.predict_batch(batch))
+                out["launches"] = add_counts(out["launches"], n)
+                ref = live.predict_batch(batch, method="beam", beam_size=5, max_length=steps)
+                if [r["tokens"] for r in got] != [r["tokens"] for r in ref]:
+                    raise AssertionError(f"exported {label}: tokens differ from the live "
+                                         f"predictor at {first_divergence(got, ref)}")
+                for i, r in enumerate(got):
+                    _check_caption(r, config.model.vocab_size, f"exported clip {i}")
+                print(f"[export] {label}: {n_clips} clips served by the exported program "
+                      f"(bucket {aot._bucket_in(aot.batch_sizes, n_clips)}), tokens equal to "
+                      f"the live predictor's on every clip; launches "
+                      f"{ {k: n[k] for k in want} }")
+            print(f"[export] {label}: cli.export of buckets {buckets} on {device} in "
+                  f"{out['export_s'][label]:.1f} s; artifact "
+                  f"{Path(vcx).stat().st_size / 2**20:.1f} MiB")
+            if device == "cuda":
+                feats = torch.from_numpy(np.stack(list(clips))).cuda()
+                program = aot._load_program("programs", 128)
+                vocab = live.vocabulary
+
+                @torch.inference_mode()
+                def live_window():
+                    enc, final, mask = encode(live.model, live.config, feats)
+                    return beam_mod.beam_search_generate(live.model, live.config, enc, final,
+                                                         vocab.start_idx, vocab.end_idx, steps,
+                                                         mask, beam_size=5)
+
+                @torch.inference_mode()
+                def exported_window():
+                    return program(feats)
+
+                out["profile"][label] = {
+                    "exported": profile_window(exported_window, f"{label}, exported encode + "
+                                               f"beam-5 at B=128", card),
+                    "live": profile_window(live_window, f"{label}, live encode + beam-5 at "
+                                           f"B=128", card)}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# Data-parallel training and serving, the orbax (DCP) backend
+# ----------------------------------------------------------------------------
+
+
+def _grads(trainer: VideoCaptioningTrainer) -> dict:
+    return {n: p.grad.detach().clone() for n, p in zip(trainer.trainable_names,
+                                                        trainer.trainable)}
+
+
+def dp_step_rank(rank: int, world: int, config_dict: dict, batch: dict) -> dict:
+    """One data-parallel step of ``world`` NCCL ranks (rank r on card r):
+    this rank's rows of ``batch``; returns the loss and the gradients."""
+    from video_captioning_tpu_torch.parallel import make_mesh, shard_batch
+
+    config = Config.from_dict(config_dict)
+    mesh = make_mesh(config)
+    trainer = VideoCaptioningTrainer(_model(config, f"cuda:{rank}"), config,
+                                     Vocabulary(config), None, None, device=f"cuda:{rank}",
+                                     mesh=mesh)
+    trainer.generator = None
+    loss = trainer.train_step(shard_batch(mesh, batch))
+    return {"loss": loss.item(), "grads": {k: v.cpu() for k, v in _grads(trainer).items()}}
+
+
+def _compare_steps(what: str, got_loss: float, got: dict, want_loss: float, want: dict) -> dict:
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    top = max(g.abs().max().item() for g in want.values())
+    worst = max(((g.cpu() - want[n].cpu()).abs().max().item() / top, n) for n, g in got.items())
+    print(f"[parallel] {what}: loss {got_loss:.7f} vs {want_loss:.7f} (rel {loss_rel:.3g}, tol "
+          f"{DP_LOSS_RTOL}); worst gradient {worst[1]} {worst[0]:.3g} of the largest gradient "
+          f"value (tol {DP_GRAD_RTOL}) over {len(got)} tensors")
+    if loss_rel > DP_LOSS_RTOL or worst[0] > DP_GRAD_RTOL:
+        raise AssertionError(f"{what}: loss rel {loss_rel:.3g}, {worst}")
+    return {"loss_rel": loss_rel, "grad_rel": worst[0]}
+
+
+def run_parallel(card: str, clips: np.ndarray, device: str = "cuda") -> dict:
+    """Data parallelism on the card: a one-rank NCCL process group whose DP
+    step at B = 32 (the loss's token count and the gradients all-reduced
+    over the data group) equals the step without a process group (loss and
+    every gradient) and launches both ``lstm_seq_train`` kernels;
+    ``cli.serve --data-parallel`` (a subprocess) answering ``/caption``
+    requests with the tokens of a predictor without a mesh; the orbax
+    backend (torch.distributed.checkpoint) through ``cli.train`` for 2
+    epochs, resumed once, the restored parameters and Adam moments equal to
+    the trained ones; and, with two or more cards, the DP step across 2
+    NCCL ranks."""
+    import socket
+
+    import torch.distributed as dist
+
+    from video_captioning_tpu_torch.parallel import make_mesh
+    from video_captioning_tpu_torch.parallel.multihost import spawn_ranks
+
+    config = Config()
+    m = config.model
+    m.encoder_dropout = m.decoder_dropout = 0.0
+    L = config.model.encoder_num_layers
+    batch = _step_batch(config, 32, seed=11)
+    out = {"launches": {}}
+
+    def step(mesh=None):
+        trainer = VideoCaptioningTrainer(_model(config, device), config, Vocabulary(config),
+                                         None, None, device=device, mesh=mesh)
+        trainer.generator = None
+        return trainer.train_step(batch).item(), _grads(trainer)
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    want_loss, want = step()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_mesh(config)
+            (loss, grads), n = counted(device, f"DP step B=32, one {backend} rank",
+                                       {"lstm_seq_train_fwd": L, "lstm_seq_train_bwd": L},
+                                       lambda: step(mesh))
+            out["launches"] = add_counts(out["launches"], n)
+            out["one_rank"] = _compare_steps(f"DP step B=32 on a {mesh.shape} {backend} mesh vs "
+                                             "no process group", loss, grads, want_loss, want)
+        finally:
+            dist.destroy_process_group()
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if cards > 1:
+        ranks = spawn_ranks(dp_step_rank, 2, (config.to_dict(), batch), backend="nccl",
+                            timeout=300.0)
+        for r in ranks:
+            out["two_ranks"] = _compare_steps("DP step B=32 over 2 NCCL ranks (16 rows each) vs "
+                                              "one process", r["loss"], r["grads"], want_loss,
+                                              want)
+    else:
+        print(f"[parallel] DP step across 2 NCCL ranks: not run ({cards} card(s) visible)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, Config())
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        proc = subprocess.Popen([sys.executable, "-m", "video_captioning_tpu_torch.cli.serve",
+                                 "--model-path", pkg, "--data-parallel", "--port", str(port),
+                                 "--device", device, "--max-batch", "8",
+                                 "--log-level", "WARNING"],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                cwd=Path(__file__).resolve().parent)
+        try:
+            seen = []
+            for line in proc.stdout:  # up to the server's ready line
+                seen.append(line)
+                if "listening" in line:
+                    break
+            else:
+                raise AssertionError(f"cli.serve --data-parallel exited: {''.join(seen)[-3000:]}")
+            feats = [np.round(c, 3) for c in clips[:4]]
+            got = [_http(port, "/caption", {"features": f.tolist(), "method": "beam",
+                                            "beam_size": 5}) for f in feats]
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+        ref = VideoCaptionPredictor(pkg, device=device).predict_batch(feats, method="beam",
+                                                                      beam_size=5)
+        for g, r in zip(got, ref):
+            if g["tokens"] != r["tokens"]:
+                raise AssertionError("cli.serve --data-parallel: tokens differ from no mesh")
+        print(f"[parallel] cli.serve --data-parallel over {max(cards, 1)} device(s): "
+              f"{len(got)} /caption requests answered, tokens equal to a predictor without a "
+              "mesh")
+
+    out["orbax"] = run_orbax_training(card, device)
+    return out
+
+
+def run_orbax_training(card: str, device: str = "cuda", n_clips: int = 64) -> dict:
+    """``cli.train --checkpoint-backend orbax`` for 2 epochs at B = 32, the
+    final state saved once more, then a fresh trainer resumed from that
+    epoch's directory (its parameters and Adam moments equal to the trained
+    ones), then ``cli.train --resume`` from it for one epoch more."""
+    config = Config()
+    config.data.vocab_threshold = 1
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            csv_path = training_data(Path(tmp), config, n_clips)
+            cfg_path = Path(tmp) / "config.json"
+            cfg_path.write_text(json.dumps(config.to_dict()))
+            args = ["--config", str(cfg_path), "--data-file", str(csv_path),
+                    "--checkpoint-dir", "ck", "--checkpoint-backend", "orbax",
+                    "--device", device, "--log-level", "WARNING"]
+            t0 = time.perf_counter()
+            trainer = cli_train.main(args + ["--epochs", "2"])
+            out["wall_s"] = time.perf_counter() - t0
+            trainer._save(trainer.current_epoch, {}, is_best=False)  # the final state
+            trainer.orbax_manager.wait()
+            epochs = trainer.orbax_manager.all_epochs()
+            fresh = VideoCaptioningTrainer(_model(trainer.config, device), trainer.config,
+                                           trainer.vocabulary, None, None, device=device)
+            fresh.load_orbax_checkpoint()
+            for k, v in trainer.model.state_dict().items():
+                if not torch.equal(fresh.model.state_dict()[k], v):
+                    raise AssertionError(f"orbax resume: parameter {k} differs")
+            want, got = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+            for i, entry in want["state"].items():
+                for key, value in entry.items():
+                    if not torch.equal(got["state"][i][key].cpu(), value.cpu()):
+                        raise AssertionError(f"orbax resume: optimizer {i} {key} differs")
+            resumed = cli_train.main(args + ["--resume", f"ck/orbax/{epochs[-1]}",
+                                             "--epochs", str(epochs[-1] + 2)])
+            sync(device)
+            history = [h["loss"] for h in resumed.train_history]
+            if not (history and np.isfinite(history).all()) or not Path(
+                    "ck/model_for_inference.pth").exists():
+                raise AssertionError(f"orbax resume run: losses {history}")
+            print(f"[parallel] orbax backend (torch.distributed.checkpoint): cli.train 2 epochs "
+                  f"at B={config.training.batch_size} in {out['wall_s']:.1f} s ({card}); epochs "
+                  f"on disk {epochs}; a fresh trainer's resume has every parameter and Adam "
+                  f"moment equal to the trained ones; cli.train --resume ran epochs "
+                  f"{[h['epoch'] for h in resumed.train_history]} (losses {history})")
+        finally:
+            os.chdir(cwd)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3147,8 +3514,11 @@ def main() -> int:
     bf16 = run_bf16_serving(smi, clips)
     int8 = run_int8_decode(smi, clips)
     bf16_train = run_bf16_training(smi)
+    bf16_fused = run_bf16_fused(smi, clips)
+    exported = run_export(smi, clips)
+    parallel = run_parallel(smi, clips)
     runs = (sl, fsl, tsl, tfsl, tr, ttr["train"], entry, wide, options, sampling, bf16, int8,
-            bf16_train)
+            bf16_train, bf16_fused, exported, parallel)
     launches = {k: sum(run["launches"].get(k, 0) for run in runs)
                 + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}

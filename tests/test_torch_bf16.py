@@ -3,8 +3,9 @@ JAX package's bfloat16 parameters on the CPU: the predictor casts every
 float32 parameter once; encoder outputs, decode-step logits and states and
 teacher-forced logits stay within 2e-2 of the largest JAX value for every
 attention option; greedy tokens agree with JAX's on at least 90% of 64
-sharpened clips (the beam figure is printed); and bfloat16 with a fused
-decode-step flag is refused at load."""
+sharpened clips (the beam figure is printed); and bfloat16 for the
+transformer family is refused at load. bfloat16 under the fused
+decode-step flags is held in tests/test_torch_bf16_fused.py."""
 
 from pathlib import Path
 
@@ -137,22 +138,17 @@ def test_bf16_greedy_clip_agreement_with_jax(tmp_path):
     assert agreement["greedy"] >= 0.9
 
 
-@pytest.mark.parametrize("flag", ["use_pallas_lstm", "use_pallas_attention",
-                                  "use_fused_vocab_topk", "transformer"])
+@pytest.mark.parametrize("flag", ["transformer"])
 def test_bf16_with_a_fused_decode_flag_is_refused_at_load(tmp_path, flag):
+    """Only the transformer family is still refused in bfloat16: the fused
+    decode-step flags serve it (tests/test_torch_bf16_fused.py)."""
     cfg = _config()
-    if flag == "transformer":
-        cfg.model.architecture = "transformer"
-        cfg.model.embedding_dim, cfg.model.transformer_num_heads = 16, 4
+    cfg.model.architecture = "transformer"
+    cfg.model.embedding_dim, cfg.model.transformer_num_heads = 16, 4
     pkg = _package(tmp_path, cfg)
     pcfg = _port(cfg)
-    if flag == "transformer":
-        match = "transformer family"
-    else:
-        setattr(pcfg.kernels, flag, True)
-        match = f"bfloat16.*{flag}.*ROADMAP"
     VideoCaptionPredictor(pkg, config=pcfg, device="cpu")  # float32 serves
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="transformer family"):
         VideoCaptionPredictor(pkg, config=pcfg, device="cpu", compute_dtype="bfloat16")
 
 

@@ -3,8 +3,9 @@ against the JAX trainer's cast policy on the CPU (float32 master
 parameters cast to bfloat16 inside the loss, features cast to bfloat16,
 the loss reduced in float32), dropout off on both sides: one step's loss
 within 1e-2 relative of ``jax.value_and_grad``'s and every gradient within
-2e-2 of the largest gradient value, for both families; the refusal with
-each fused decode-step flag; the host cast of the features; and a
+2e-2 of the largest gradient value, for both families; the host cast of
+the features (bfloat16 training under a fused decode-step flag is in
+tests/test_torch_bf16_fused.py); and a
 two-epoch ``cli.train --compute-dtype bfloat16`` run whose package the JAX
 predictor loads. The JAX encoder runs its Pallas recurrence in interpret
 mode (``kernels.interpret``), the contract of the port's plain
@@ -145,17 +146,6 @@ def test_bf16_step_matches_jax_cast_policy(arch, tmp_path):
           f"gradient value; worst over its own largest value {worst_own} {own[worst_own]:.3g}")
     assert loss_rel <= LOSS_RTOL
     assert errs[worst] <= GRAD_RTOL, (worst, errs[worst])
-
-
-@pytest.mark.parametrize("flag", FUSED_FLAGS)
-def test_trainer_refuses_bf16_with_a_fused_decode_flag(flag, tmp_path):
-    pcfg = _port(_config(), tmp_path)
-    VideoCaptioningTrainer(VideoCaptioningModel(pcfg, VOCAB), pcfg, Vocabulary(pcfg), None,
-                           None, device="cpu")
-    setattr(pcfg.kernels, flag, True)
-    with pytest.raises(NotImplementedError, match=f"bfloat16.*{flag}.*ROADMAP"):
-        VideoCaptioningTrainer(VideoCaptioningModel(pcfg, VOCAB), pcfg, Vocabulary(pcfg), None,
-                               None, device="cpu")
 
 
 def test_host_cast_equals_a_device_cast():

@@ -339,14 +339,14 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take():
         lstm_cell_fused(layer, x, h, torch.zeros(3, 8))
     with pytest.raises(ValueError):
         lstm_cell_fused({**layer, "w_ih": torch.zeros(12, 64)}, x, h, h)  # not (4H, In)
-    with pytest.raises(ValueError):
-        lstm_cell_fused(layer, x.double(), h, h)
+    # Other dtypes are cast to float32, as the JAX wrapper casts every operand.
+    assert all(t.dtype == torch.float32 for t in lstm_cell_fused(layer, x.double(), h, h))
     args = [torch.zeros(2, 16), torch.zeros(8, 16), torch.zeros(8), torch.zeros(2, 5, 8),
             torch.zeros(2, 5, 6), torch.zeros(8), torch.zeros(1), None]
     with pytest.raises(ValueError):
         bahdanau_attend(*args[:-2], torch.zeros(()), None)  # b_v must be (1,)
-    with pytest.raises(ValueError):
-        bahdanau_attend(*args[:-1], torch.ones(2, 5, dtype=torch.bool))
+    # A bool mask is cast to float32, as the JAX wrapper casts it.
+    assert bahdanau_attend(*args[:-1], torch.ones(2, 5, dtype=torch.bool))[1].dtype == torch.float32
     with pytest.raises(ValueError):
         bahdanau_attend(args[0], args[1].T, *args[2:])  # W_d (D, A), not (A, D)
     w, b, _ = pad_vocab_weights(torch.zeros(16, 30), torch.zeros(30))

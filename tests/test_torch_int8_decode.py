@@ -339,7 +339,7 @@ def test_predictor_and_serve_refuse_what_jax_refuses(tmp_path):
     pkg = _package(tmp_path, cfg)
     with pytest.raises(ValueError, match="decode_int8 must be one of"):
         VideoCaptionPredictor(pkg, device="cpu", decode_int8="int4")
-    with pytest.raises(NotImplementedError, match="vcx"):
+    with pytest.raises(ValueError, match="vcx.*decode_int8 applies at model-load time"):
         VideoCaptionPredictor(tmp_path / "m.vcx", decode_int8="vocab")
     for level in ("vocab", "full"):
         with pytest.raises(SystemExit, match="model-load time"):

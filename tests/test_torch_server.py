@@ -184,13 +184,31 @@ def test_batcher_counts_every_concurrent_submit():
 @pytest.mark.parametrize("extra", [
     ["--decode-int8", "full"], ["--decode-int8", "vocab"], ["--data-parallel"],
 ])
-def test_serve_cli_refuses_flags_not_ported(extra, tmp_path):
-    """--data-parallel is not ported. --decode-int8 is, and is refused with
-    a .vcx artifact, as the JAX CLI refuses it."""
+def test_serve_cli_refuses_flags_not_ported(extra, tmp_path, monkeypatch):
+    """Every flag is ported. With a .vcx artifact --decode-int8 and
+    --data-parallel are refused, as the JAX CLI refuses them;
+    --data-parallel with a package serves one replica a device of an
+    (n, 1) mesh, here the CPU."""
     from video_captioning_tpu_torch.cli import serve
+    from video_captioning_tpu_torch.config import Config as PortConfig
+    from video_captioning_tpu_torch.data.vocabulary import Vocabulary as PortVocabulary
+    from video_captioning_tpu_torch.models.weights import init_params_numpy
+    from video_captioning_tpu_torch.utils.checkpoint import save_model_for_inference
 
-    int8 = extra[0] == "--decode-int8"
-    with pytest.raises(SystemExit, match="model-load time" if int8 else "not ported"):
-        serve.main(["--model-path", str(tmp_path / ("m.vcx" if int8 else "m.pth")), *extra])
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--model-path", str(tmp_path / "m.vcx")])
+    match = "model-load time" if extra[0] == "--decode-int8" else "data-parallel"
+    with pytest.raises(SystemExit, match=match):
+        serve.main(["--model-path", str(tmp_path / "m.vcx"), *extra])
+    if extra[0] != "--data-parallel":
+        return
+    cfg = PortConfig()
+    cfg.model.cnn_feature_dim, cfg.model.encoder_hidden_dim = 24, 16
+    cfg.model.decoder_hidden_dim, cfg.model.embedding_dim, cfg.model.attention_dim = 16, 12, 16
+    cfg.data.vocab_threshold = 1
+    vocab = PortVocabulary(cfg)
+    vocab.build_vocabulary(["a man rides a horse"])
+    pkg = save_model_for_inference(init_params_numpy(cfg, len(vocab)), vocab, cfg, tmp_path)
+    served = {}
+    monkeypatch.setattr(serve, "_serve", lambda predictor, args: served.update(p=predictor))
+    serve.main(["--model-path", str(pkg), "--device", "cpu", *extra])
+    assert served["p"].mesh.shape == {"data": 1, "model": 1}
+    assert len(served["p"].replicas) == 1

@@ -396,9 +396,11 @@ def test_trainer_freeze_encoder_updates_the_decoder_only(tiny_config, tmp_path):
 
 @pytest.mark.parametrize("option", ["orbax", "profile_dir", "wandb", "bfloat16", "mesh"])
 def test_trainer_refuses_unported_options(tiny_config, tmp_path, option):
-    """The orbax backend and a device mesh are refused. profile_dir, wandb
-    and bfloat16 are ported and build; bfloat16 is refused beside a fused
-    decode-step flag, whose kernels take float32 operands only."""
+    """Every option is ported and builds: the orbax backend (on
+    torch.distributed.checkpoint), a one-device mesh (a mesh of more devices
+    without a process group gets the JAX package's size error),
+    profile_dir, wandb, and bfloat16, also beside a fused decode-step
+    flag."""
     cfg = _tiny_port_config(tiny_config, tmp_path)
     if option == "orbax":
         cfg.experiment.checkpoint_backend = "orbax"
@@ -415,15 +417,16 @@ def test_trainer_refuses_unported_options(tiny_config, tmp_path, option):
         return VideoCaptioningTrainer(VideoCaptioningModel(cfg, VOCAB), cfg, Vocabulary(cfg),
                                       None, None, device="cpu")
 
-    if option in ("orbax", "mesh"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    if option == "mesh":
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
             build()
-        return
-    build()
+        cfg.parallel.data_axis = 1
+    trainer = build()
+    assert trainer.mesh.shape == {"data": 1, "model": 1}
+    assert (trainer.orbax_manager is not None) == (option == "orbax")
     if option == "bfloat16":
         cfg.kernels.use_pallas_lstm = True
-        with pytest.raises(NotImplementedError, match="bfloat16.*not ported"):
-            build()
+        build()
 
 
 def test_bridge_inverse_round_trip_is_exact(tiny_config):

@@ -291,6 +291,30 @@ with tempfile.TemporaryDirectory() as tmp:
     btrainer = VideoCaptioningTrainer(bmodel, bcfg, vocab, None, None, device="cpu")
     assert np.isfinite(float(btrainer.train_step(nb)))
     assert all(p.dtype == torch.float32 for p in bmodel.parameters())
+# A .vcx exported by cli.export, served by ExportedPredictor in a process
+# that loads no model code, and a data-parallel step over two gloo ranks
+# (dryrun_multihost: each rank's shard, rank 0's checkpoint, the replay).
+import subprocess
+from video_captioning_tpu_torch.cli import export as export_cli
+from video_captioning_tpu_torch.parallel import dryrun_multihost
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    pkg = save_model_for_inference(init_params_numpy(cfg, len(vocab)), vocab, cfg, tmp)
+    vcx = export_cli.main(["--model-path", str(pkg), "--output", str(tmp / "m.vcx"),
+                           "--batch-sizes", "2", "--method", "beam", "--beam-size", "2",
+                           "--max-length", "4", "--device", "cpu", "--log-level", "WARNING"])
+    serve_vcx = (
+        "import sys, numpy as np\n"
+        "from video_captioning_tpu_torch.inference.export import ExportedPredictor\n"
+        "p = ExportedPredictor(sys.argv[1], device='cpu')\n"
+        "assert len(p.predict_batch([np.zeros((10, 24), np.float32)] * 3)) == 3\n"
+        "print(sorted(n for n in sys.modules if n == 'jax' or n.startswith(("
+        "'video_captioning_tpu.', 'video_captioning_tpu_torch.models'))))\n")
+    res = subprocess.run([sys.executable, "-c", serve_vcx, str(vcx)], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+    assert dryrun_multihost(2, workdir=tmp / "dp")["ok"]
 print("JAX_LOADED=" + str("jax" in sys.modules))
 print("JAX_PACKAGE_MODULES=" + ",".join(sorted(
     n for n in sys.modules if n == "video_captioning_tpu" or n.startswith("video_captioning_tpu."))))
@@ -343,8 +367,8 @@ def test_decode_kernel_flags_build_and_leave_training_unchanged(tiny_config, tmp
 def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 
-    # The transformer family builds; its bfloat16 cross keys/values and
-    # context parallelism do not.
+    # The transformer family builds, with context parallelism too; its
+    # bfloat16 cross keys/values do not.
     for section, field, value in (("kernels", "transformer_cross_kv_bf16", True),
                                   ("parallel", "context_axis", "model")):
         cfg = port(tiny_config)
@@ -352,9 +376,12 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         cfg.model.embedding_dim = cfg.model.decoder_hidden_dim
         VideoCaptioningModel(cfg, 20)
         setattr(getattr(cfg, section), field, value)
+        if field == "context_axis":
+            VideoCaptioningModel(cfg, 20)
+            continue
         with pytest.raises(NotImplementedError, match=f"not ported.*{field}"):
             VideoCaptioningModel(cfg, 20)
-    # bfloat16 serving, refused at load with a fused decode-step flag.
+    # bfloat16 serving, with each fused decode-step flag too.
     cfg = port(tiny_config)
     vocab = PortVocabulary(cfg)
     vocab.build_vocabulary(["a man rides a horse"])
@@ -364,10 +391,11 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     for flag in DECODE_KERNEL_FLAGS:
         fused = PortConfig.from_dict(cfg.to_dict())
         setattr(fused.kernels, flag, True)
-        with pytest.raises(NotImplementedError, match=f"bfloat16.*{flag}.*ROADMAP"):
-            VideoCaptionPredictor(pkg, config=fused, device="cpu", compute_dtype="bfloat16")
+        VideoCaptionPredictor(pkg, config=fused, device="cpu", compute_dtype="bfloat16")
     # W8A8 decode is ported; an unknown level is refused with the JAX message.
     with pytest.raises(ValueError, match="decode_int8 must be one of"):
         VideoCaptionPredictor(pkg, device="cpu", decode_int8="int4")
-    with pytest.raises(NotImplementedError, match="vcx"):
-        VideoCaptionPredictor(tmp_path / "m.vcx")
+    # A .vcx artifact loads as its ExportedPredictor (tests/test_torch_export.py);
+    # the arguments it cannot honour are refused before the file is read.
+    with pytest.raises(ValueError, match="vcx.*single-device"):
+        VideoCaptionPredictor(tmp_path / "m.vcx", mesh=object())

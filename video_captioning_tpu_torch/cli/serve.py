@@ -6,10 +6,14 @@
 
 Counterpart of video_captioning_tpu/cli/serve.py. It takes the same
 inference packages; ``--compute-dtype bfloat16`` serves bfloat16
-parameters and ``--decode-int8 vocab|full`` W8A8 decode matrices
-(``models/quantize.py``). Flags of that CLI that are not ported yet
-(``--data-parallel``, ``.vcx`` artifacts) exit with an error instead of
-being ignored.
+parameters, ``--decode-int8 vocab|full`` W8A8 decode matrices
+(``models/quantize.py``) and ``--data-parallel`` one replica on each
+visible card (an ``(n_devices, 1)`` mesh, ``inference/predictor.py``).
+``--model-path`` also takes a ``.vcx`` artifact (``cli/export.py``),
+served by ``ExportedPredictor`` with no model code; the flags such an
+artifact cannot honour (``--data-parallel``, ``--decode-int8``, a
+``--compute-dtype`` other than the baked one) exit with the JAX CLI's
+errors. ``--compilation-cache-dir`` is accepted and logged.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="HTTP captioning server with dynamic batching (PyTorch)")
     parser.add_argument("--model-path", type=str, required=True,
-                        help="Inference package (.pth)")
+                        help="Inference package (.pth) or serving artifact (.vcx, from "
+                             "the export CLI)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on, e.g. cuda, cuda:1, cpu")
     parser.add_argument("--host", type=str, default="127.0.0.1")
@@ -43,34 +48,66 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["off", "vocab", "full"],
                         help="Opt-in W8A8 decode quantization (models/quantize.py): "
                              "approximate tokens")
-    parser.add_argument("--data-parallel", action="store_true", help="not ported")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="One replica on each visible card, device batches split over them")
+    parser.add_argument("--compilation-cache-dir", type=str, default=None,
+                        help="Accepted for the JAX CLI's flags; PyTorch has no such cache")
     parser.add_argument("--log-level", type=str, default="INFO")
     return parser
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if Path(args.model_path).suffix == ".vcx" and args.decode_int8 != "off":
-        raise SystemExit(
-            "--decode-int8 applies at model-load time; .vcx programs "
-            "are already compiled (serve the .pth package with "
-            "--decode-int8 instead)"
-        )
-    not_ported = [
-        (args.data_parallel, "--data-parallel"),
-        (Path(args.model_path).suffix == ".vcx", ".vcx artifacts"),
-    ]
-    for bad, name in not_ported:
-        if bad:
-            raise SystemExit(f"{name} is not ported to video_captioning_tpu_torch yet")
+    model_path = Path(args.model_path)
+    if model_path.suffix == ".vcx":
+        # The artifact's programs carry their options, dtype and device:
+        # the flags they cannot honour are errors, not silent ignores.
+        if args.data_parallel:
+            raise SystemExit(
+                "--data-parallel is not supported with .vcx artifacts (exported programs "
+                "are single-device; run one server per card behind a load balancer)")
+        if args.decode_int8 != "off":
+            raise SystemExit(
+                "--decode-int8 applies at model-load time; .vcx programs "
+                "are already compiled (serve the .pth package with "
+                "--decode-int8 instead)"
+            )
     setup_logging(args.log_level)
 
+    if model_path.suffix == ".vcx":
+        from ..inference.export import ExportedPredictor
+
+        predictor = ExportedPredictor(model_path, device=args.device)
+        baked = predictor.manifest.get("compute_dtype", "float32")
+        if args.compute_dtype and args.compute_dtype != baked:
+            raise SystemExit(
+                f"--compute-dtype {args.compute_dtype} conflicts with this artifact's baked "
+                f"compute_dtype={baked} (re-export with --compute-dtype to change it)")
+        logger.info("serving artifact %s (method=%s, buckets=%s)", model_path,
+                    predictor.method, predictor.batch_sizes)
+        _serve(predictor, args)
+        return
+
     from ..inference.predictor import VideoCaptionPredictor
+
+    kwargs = {}
+    if args.data_parallel:
+        from ..config import Config
+        from ..parallel import make_mesh
+
+        kwargs["mesh"] = make_mesh(Config())  # (visible cards, 1)
+        logger.info(f"data-parallel serving over {kwargs['mesh'].shape['data']} devices")
+    if args.compilation_cache_dir:
+        kwargs["compilation_cache_dir"] = args.compilation_cache_dir
+    predictor = VideoCaptionPredictor(model_path, device=args.device,
+                                      compute_dtype=args.compute_dtype,
+                                      decode_int8=args.decode_int8, **kwargs)
+    _serve(predictor, args)
+
+
+def _serve(predictor, args) -> None:
     from ..inference.server import CaptionServer
 
-    predictor = VideoCaptionPredictor(args.model_path, device=args.device,
-                                      compute_dtype=args.compute_dtype,
-                                      decode_int8=args.decode_int8)
     server = CaptionServer(predictor, host=args.host, port=args.port,
                            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     print(f"caption server listening on {args.host}:{server.port}", flush=True)

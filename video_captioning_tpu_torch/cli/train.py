@@ -15,14 +15,23 @@ Both model families train (``--architecture lstm|transformer``), in
 float32 or under the bfloat16 cast policy (``--compute-dtype bfloat16``),
 with a ``torch.profiler`` trace of epoch 0 (``--profile-dir``) and Weights &
 Biases logging (``--wandb``, a warning where ``wandb`` does not import).
-``--resume`` takes a training checkpoint of either package. The orbax
-backend raises ``NotImplementedError``.
+``--resume`` takes a training checkpoint of either package, or, under
+``--checkpoint-backend orbax``, an epoch directory of this backend
+(``<checkpoint-dir>/orbax/<epoch>``; a JAX orbax directory is refused).
+
+Data-parallel training: one process a card, started by ``torchrun`` (or
+any launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
+``MASTER_ADDR``/``MASTER_PORT`` rendezvous): the process group is made
+here (``nccl`` on cards, ``gloo`` on the CPU), each rank reads its own
+rows and its device is ``cuda:LOCAL_RANK``; ``parallel.model_axis`` splits
+the vocabulary matrices. Rank 0 writes the checkpoints and the package.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 
 from ..config import Config
@@ -119,24 +128,49 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu")
-    logger.info(f"Device: {device}")
+    from ..parallel import make_mesh
+    from ..parallel.mesh import distributed
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not distributed():
+        import torch.distributed as dist
+
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    mesh = make_mesh(config, None if distributed() else [device])
+    logger.info(f"Device: {device}, mesh {mesh.shape}")
 
     logger.info("Preparing data...")
     train_rows, val_rows, test_rows = prepare_data(config)
 
     vocabulary_path = config.experiment.checkpoint_dir / "vocabulary.json"
-    if vocabulary_path.exists():
+    exists = vocabulary_path.exists()
+    if distributed():  # every rank has looked before rank 0 may write it
+        import torch.distributed as dist
+
+        dist.barrier()
+    if exists:
         logger.info("Loading existing vocabulary...")
         vocabulary = Vocabulary.load(vocabulary_path, config)
     else:
         logger.info("Building new vocabulary...")
         vocabulary = build_vocabulary_from_csv(config.data.captions_file, config, "caption")
-        vocabulary.save(vocabulary_path)
+        if mesh.rank == 0:  # every rank builds the same one; rank 0 writes it
+            vocabulary.save(vocabulary_path)
     config.model.vocab_size = len(vocabulary)
 
     logger.info("Creating data loaders...")
-    train_loader, val_loader, _ = create_data_loaders(config, vocabulary, train_rows, val_rows,
-                                                      test_rows)
+    data_size = mesh.shape["data"]
+    if config.training.batch_size % data_size:
+        raise ValueError(f"batch_size {config.training.batch_size} does not split over the "
+                         f"data mesh axis ({data_size} devices)")
+    train_loader, _, _ = create_data_loaders(
+        config, vocabulary, train_rows, val_rows, test_rows,
+        shard_index=mesh.axis_index("data"), num_shards=data_size,
+        batch_size=config.training.batch_size // data_size)
+    # Every rank validates on the whole split (the loss and BLEU it logs).
+    _, val_loader, _ = create_data_loaders(config, vocabulary, train_rows, val_rows, test_rows)
 
     logger.info("Initializing model...")
     model = VideoCaptioningModel(config, len(vocabulary))
@@ -145,10 +179,17 @@ def main(argv=None):
     logger.info(f"Model has {count_params(model):,} trainable parameters")
 
     trainer = VideoCaptioningTrainer(model, config, vocabulary, train_loader, val_loader,
-                                     device=device)
+                                     device=device, mesh=mesh)
     if args.resume:
         logger.info(f"Resuming from checkpoint: {args.resume}")
-        trainer.load_checkpoint(Path(args.resume))
+        resume = Path(args.resume)
+        if trainer.orbax_manager is not None and resume.is_dir():
+            from ..utils.orbax_ckpt import refuse_jax_orbax
+
+            refuse_jax_orbax(resume)
+            trainer.load_orbax_checkpoint(int(resume.name) if resume.name.isdigit() else None)
+        else:
+            trainer.load_checkpoint(resume)
 
     logger.info("Starting training...")
     try:
@@ -157,18 +198,28 @@ def main(argv=None):
         logger.info(f"Best validation score: {results['best_val_score']:.4f}")
         # Package the weights that earned best_val_score: the best
         # checkpoint's model_state_dict (the EMA shadow with ema_decay).
-        best = trainer.checkpoint_manager.load_best_model()
-        if best is not None:
-            export_params = best["model_state_dict"]
-            logger.info(f"Packaging best-epoch weights (epoch {best.get('epoch')})")
-        else:
-            export_params = jax_params_from_state_dict(trainer.eval_state_dict(), config)
-        pkg = trainer.checkpoint_manager.save_model_for_inference(export_params, vocabulary,
-                                                                  config)
-        logger.info(f"Saved inference model to: {pkg}")
+        from ..parallel.sharding import gather_state_dict
+
+        current = gather_state_dict(trainer.eval_state_dict(), mesh)  # every rank gathers
+        if trainer.is_chief:
+            best = trainer.checkpoint_manager.load_best_model()
+            if best is not None:
+                export_params = best["model_state_dict"]
+                logger.info(f"Packaging best-epoch weights (epoch {best.get('epoch')})")
+            elif trainer.best_eval_state is not None:
+                # Orbax backend: no best_model.pth; the best epoch's snapshot.
+                export_params = jax_params_from_state_dict(trainer.best_eval_state, config)
+                logger.info("Packaging best-epoch weights (orbax-backend snapshot)")
+            else:
+                export_params = jax_params_from_state_dict(current, config)
+            pkg = trainer.checkpoint_manager.save_model_for_inference(export_params, vocabulary,
+                                                                      config)
+            logger.info(f"Saved inference model to: {pkg}")
     except KeyboardInterrupt:
         logger.info("Training interrupted by user")
         trainer._save(trainer.current_epoch, {}, is_best=False)
+        if trainer.orbax_manager is not None:
+            trainer.orbax_manager.wait()  # the save is asynchronous
         logger.info("Saved current training state")
     return trainer
 

@@ -140,11 +140,21 @@ def _collate(items: List[Dict[str, object]]) -> Dict[str, object]:
 
 
 class DataLoader:
-    """Batched iterator with worker-thread loading and a bounded prefetch."""
+    """Batched iterator with worker-thread loading and a bounded prefetch.
+
+    Sharding: with ``num_shards > 1`` (data-parallel processes) each
+    process reads the strided slice ``idx[shard_index::num_shards]`` of
+    the (shuffled) index list, so the processes' batches are disjoint;
+    batches of that slice come in order, through the native loader or the
+    Python one alike."""
 
     def __init__(self, dataset: VideoCaptioningDataset, batch_size: int, *,
                  shuffle: bool = False, drop_last: bool = False, num_workers: int = 4,
-                 prefetch: int = 2, seed: int = 42):
+                 prefetch: int = 2, seed: int = 42, shard_index: int = 0, num_shards: int = 1):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} is not in [0, {num_shards})")
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -161,10 +171,12 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_index::self.num_shards]
         return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(range(self.shard_index, len(self.dataset), self.num_shards))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batches(self) -> Iterator[np.ndarray]:
@@ -235,11 +247,18 @@ def create_data_loaders(
     train_rows: Sequence[Row],
     val_rows: Sequence[Row],
     test_rows: Optional[Sequence[Row]] = None,
+    *,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    batch_size: Optional[int] = None,
 ) -> Tuple[DataLoader, DataLoader, Optional[DataLoader]]:
-    """Train shuffles and drops the ragged tail; val and test do not."""
+    """Train shuffles and drops the ragged tail; val and test do not. Each
+    loader reads shard ``shard_index`` of ``num_shards``, ``batch_size``
+    rows a batch (default ``training.batch_size``)."""
     common = dict(num_workers=config.training.num_workers,
-                  prefetch=config.training.prefetch_batches, seed=config.training.seed)
-    bs = config.training.batch_size
+                  prefetch=config.training.prefetch_batches, seed=config.training.seed,
+                  shard_index=shard_index, num_shards=num_shards)
+    bs = batch_size or config.training.batch_size
 
     def loader(rows, split, train):
         return DataLoader(VideoCaptioningDataset(rows, vocabulary, config, split=split), bs,

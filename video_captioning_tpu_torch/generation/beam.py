@@ -27,7 +27,7 @@ early.)
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -75,9 +75,11 @@ def beam_search_generate(
     encoder_mask: Optional[Tensor] = None,
     beam_size: int = 5,
     length_penalty: float = 1.0,
+    batch_active: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Dict[str, Tensor]:
     """Returns ``generated_tokens`` (B, max_length+1) starting with START,
-    ``all_tokens`` (B, K, max_length+1) and ``all_scores`` (B, K)."""
+    ``all_tokens`` (B, K, max_length+1) and ``all_scores`` (B, K).
+    ``batch_active``: as in ``greedy_generate``."""
     B = encoder_outputs.shape[0]
     dev = encoder_outputs.device
     K = beam_size
@@ -89,8 +91,10 @@ def beam_search_generate(
     state = family.state0
     # The fused kernel reads the float weight, which an Int8Linear has not,
     # so no gate (not even one forced in a test) sends int8 to it.
-    use_fused_vocab = not vocab_quantized and fused_vocab_eligible(config, dev, B, K, V,
-                                                                   vocab_quantized)
+    # A vocabulary split over a mesh's model axis takes the gathered logits.
+    split = getattr(model.decoder.output_projection, "vocab_split", False)
+    use_fused_vocab = (not vocab_quantized and not split
+                       and fused_vocab_eligible(config, dev, B, K, V, vocab_quantized))
     if use_fused_vocab:  # once per call, outside the loop
         out_proj = model.decoder.output_projection
         w_pad, b_pad, _ = pad_vocab_weights(out_proj.weight.T, out_proj.bias)
@@ -109,6 +113,8 @@ def beam_search_generate(
 
     for t in range(max_length):
         active = (scores > NEG_INF / 2).any()
+        if batch_active is not None:
+            active = batch_active(active)
         if use_fused_vocab:
             pre_vocab, new_state, _ = family.step_beam_core(last_tokens, state, t)
             top_logits, top_tokens, lse = vocab_topk_lse(pre_vocab, w_pad, b_pad, kk)

@@ -46,7 +46,7 @@ def vocab_projection_info(dec: torch.nn.Module) -> Tuple[int, bool]:
     projection, read from whichever form it holds (the JAX package keys on
     ``"kernel"`` / ``"kernel_q"``)."""
     proj = dec.output_projection
-    return proj.out_features, isinstance(proj, Int8Linear)
+    return getattr(proj, "full_out_features", proj.out_features), isinstance(proj, Int8Linear)
 
 
 def make_decode_family(

@@ -10,7 +10,7 @@ reached. The decode state is not frozen (see generation/beam.py).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -32,9 +32,13 @@ def greedy_generate(
     max_length: int = 20,
     encoder_mask: Optional[Tensor] = None,
     temperature: float = 1.0,
+    batch_active: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Dict[str, Tensor]:
     """Returns ``generated_tokens`` (B, max_length) and, where the decoder
-    has attention, ``attention_weights`` (B, max_length, S)."""
+    has attention, ``attention_weights`` (B, max_length, S).
+    ``batch_active`` maps this batch's "any row still live" flag to the
+    flag of the whole served batch, where replicas on several devices
+    decode one batch (``inference/predictor.py``'s mesh)."""
     B, S, _ = encoder_outputs.shape
     dev = encoder_outputs.device
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
@@ -47,6 +51,8 @@ def greedy_generate(
 
     for t in range(max_length):
         active = ~ended.all()
+        if batch_active is not None:
+            active = batch_active(active)
         logits, state, w = family.step(input_tok, state, t)
         if temperature != 1.0:
             logits = logits / temperature

@@ -17,7 +17,7 @@ generation/greedy.py). A step after the stop still draws its noise.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -49,9 +49,11 @@ def sample_generate(
     top_k: int = 0,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Sequence[Tensor]] = None,
+    batch_active: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Dict[str, Tensor]:
     """Returns ``generated_tokens`` (B, max_length) and per-clip
-    ``logprobs`` (B,) summed over the sampled tokens up to END."""
+    ``logprobs`` (B,) summed over the sampled tokens up to END.
+    ``batch_active``: as in ``greedy_generate``."""
     B = encoder_outputs.shape[0]
     dev = encoder_outputs.device
     family = make_decode_family(model, config, encoder_outputs, encoder_final_state,
@@ -64,6 +66,8 @@ def sample_generate(
 
     for t in range(max_length):
         active = ~ended.all()
+        if batch_active is not None:
+            active = batch_active(active)
         logits, state, _ = family.step(input_tok, state, t)
         logits = logits.float() / max(temperature, 1e-6)
         if top_k and top_k > 0:

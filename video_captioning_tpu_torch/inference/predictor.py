@@ -13,6 +13,14 @@ raises. Batches are zero-padded to the next power of two as in the JAX
 package: the padded rows take part in the beam loop's batch-wide stop
 condition, so the padding is part of the result's definition.
 
+With ``mesh`` (``parallel.make_mesh`` over one process's devices, a
+``data`` axis required) the model is replicated on each ``data`` device
+once at load; a batch is padded to ``nd * bucket(ceil(B / nd))`` rows
+(the JAX predictor's bucket), split in ``nd`` equal blocks, decoded by the
+replicas in lockstep threads that share the batch-wide stop condition
+(one host read a step), and the blocks' results concatenated, so the
+tokens are the single-device program's on the same padded batch.
+
 Video input decodes ``video_sequence_length`` frames (``data/video.py``,
 OpenCV) and turns them into features in one of two modes:
 ``"pixel_stub"`` (the upstream predictor's flattened pixels, 224 x 224
@@ -23,7 +31,9 @@ the predictor's device: VGG16 for 4096-d models, ResNet50 in
 
 from __future__ import annotations
 
+import copy
 import logging
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
@@ -40,15 +50,11 @@ from ..models.captioner import VideoCaptioningModel, apply_model, encode
 from ..models.quantize import quantize_decode_params
 from ..models.weights import state_dict_from_jax_params
 from ..utils.checkpoint import load_model_for_inference, vocabulary_from_package
+from ..utils.compile_cache import enable_compilation_cache
 from .utils import resize_feature_sequence
 
 METHODS = ("greedy", "beam", "sample")
 FEATURE_MODES = ("pixel_stub", "cnn")
-# The fused decode step's kernels take float32 operands only.
-BF16_FUSED_NOT_PORTED = ("compute_dtype='bfloat16' with kernels.{} is not ported to "
-                         "video_captioning_tpu_torch yet: the lstm_cell, bahdanau_attend and "
-                         "vocab_topk_lse kernels take float32 operands (ROADMAP.md B, their "
-                         "bfloat16 operand forms)")
 
 
 def check_compute_dtype(config: Config, compute_dtype: Optional[str]) -> None:
@@ -61,20 +67,33 @@ def check_compute_dtype(config: Config, compute_dtype: Optional[str]) -> None:
         raise NotImplementedError(
             "compute_dtype='bfloat16' for the transformer family is not ported to "
             "video_captioning_tpu_torch yet (ROADMAP.md A4, bfloat16 transformer serving)")
-    check_fused_flags_bf16(config)
-
-
-def check_fused_flags_bf16(config: Config) -> None:
-    """Raise for bfloat16 with a fused decode-step flag, whose kernels take
-    float32 operands only (the trainer's refusal too)."""
-    k = config.kernels
-    for flag in ("use_pallas_lstm", "use_pallas_attention", "use_fused_vocab_topk"):
-        if getattr(k, flag):
-            raise NotImplementedError(BF16_FUSED_NOT_PORTED.format(flag))
 
 
 class VideoCaptionPredictor:
-    """Generate captions with a trained inference package."""
+    """Generate captions with a trained inference package. Given a
+    ``.vcx`` serving artifact it returns the artifact's
+    ``inference.export.ExportedPredictor`` (its programs carry their
+    weights, dtype and options), refusing the arguments such an artifact
+    cannot honour as the JAX serve CLI does."""
+
+    def __new__(cls, model_path=None, *args, **kwargs):
+        if model_path is None or Path(model_path).suffix != ".vcx":
+            return super().__new__(cls)
+        if kwargs.get("decode_int8", "off") != "off":
+            raise ValueError(f"{model_path}: .vcx decode_int8 applies at model-load time; .vcx "
+                             "programs are already compiled (load the .pth package with "
+                             "decode_int8 instead)")
+        if kwargs.get("mesh") is not None:
+            raise ValueError(f"{model_path}: .vcx programs are single-device; a mesh needs "
+                             "the .pth package")
+        from .export import ExportedPredictor
+
+        predictor = ExportedPredictor(model_path, device=kwargs.get("device", "cuda"))
+        dtype, baked = kwargs.get("compute_dtype"), predictor.manifest["compute_dtype"]
+        if dtype and dtype != baked:
+            raise ValueError(f"compute_dtype {dtype} conflicts with {model_path}'s baked "
+                             f"compute_dtype={baked} (re-export to change it)")
+        return predictor
 
     def __init__(
         self,
@@ -88,13 +107,19 @@ class VideoCaptionPredictor:
         allow_random_cnn_init: bool = False,
         sample_seed: int = 0,
         sample_top_k: int = 0,
+        mesh=None,
+        compilation_cache_dir: Optional[Union[str, Path]] = None,
     ):
         if feature_mode not in FEATURE_MODES:
             raise ValueError(f"feature_mode {feature_mode!r} is not one of {FEATURE_MODES}")
         model_path = Path(model_path)
-        if model_path.suffix == ".vcx":
-            raise NotImplementedError(".vcx artifacts are not ported to video_captioning_tpu_torch yet")
         self.logger = logging.getLogger(__name__)
+        enable_compilation_cache(compilation_cache_dir)
+        replica_devices = None
+        if mesh is not None:
+            replica_devices = data_devices(mesh)
+            device = replica_devices[0]
+        self.mesh = mesh
         self.device = torch.device(device)
         self.feature_mode = feature_mode
         self._cnn_weights_path = cnn_weights_path
@@ -102,7 +127,6 @@ class VideoCaptionPredictor:
         self._backbone = None
         self.sample_seed = sample_seed
         self.sample_top_k = sample_top_k
-        self._sample_generator: Optional[torch.Generator] = None
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device!r}: no CUDA device here; pass device='cpu'")
@@ -128,7 +152,17 @@ class VideoCaptionPredictor:
                 "benchmarks/int8_decode_gate.py for measured agreement"
             )
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model]
+        if replica_devices is not None:
+            self.replicas += [copy.deepcopy(self.model).to(d) for d in replica_devices[1:]]
+            self.logger.info(f"data-parallel serving over {len(replica_devices)} devices")
+        self._sample_generators: Dict[int, torch.Generator] = {}
         self.logger.info(f"Loaded model with {len(self.vocabulary)} vocabulary size on {self.device}")
+
+    @property
+    def _sample_generator(self) -> Optional[torch.Generator]:
+        """The first replica's sampling generator (made at the first draw)."""
+        return self._sample_generators.get(0)
 
     @staticmethod
     def _bucket_size(n: int) -> int:
@@ -138,7 +172,6 @@ class VideoCaptionPredictor:
             b *= 2
         return b
 
-    @torch.inference_mode()
     def _run_generation(
         self,
         features_batch: np.ndarray,
@@ -154,28 +187,66 @@ class VideoCaptionPredictor:
                 f"(ported: {', '.join(METHODS)})"
             )
         B = features_batch.shape[0]
-        feats = torch.from_numpy(features_batch).to(self.device)
-        bucket = self._bucket_size(B)
-        if bucket != B:  # zero rows, padded on the device: no second host copy
-            feats = torch.cat([feats, feats.new_zeros((bucket - B,) + feats.shape[1:])])
+        nd = len(self.replicas)
+        # One replica: the next power of two. On a mesh, a multiple of the
+        # data devices so the batch splits evenly (the JAX bucket).
+        bucket = nd * self._bucket_size(-(-B // nd))
+        args = (method, max_length, beam_size, length_penalty, temperature)
+        if nd == 1:
+            out = self._generate(0, torch.from_numpy(features_batch), bucket, *args)
+            return {k: v[:B].cpu().numpy() for k, v in out.items()}
+        pad = np.zeros((bucket - B,) + features_batch.shape[1:], features_batch.dtype)
+        blocks = np.split(np.concatenate([features_batch, pad]), nd)
+        vote = _ActiveVote(nd)
+        outs: List[Optional[Dict[str, torch.Tensor]]] = [None] * nd
+        errors: List[BaseException] = []
+
+        def run(i: int) -> None:
+            try:
+                outs[i] = self._generate(i, torch.from_numpy(blocks[i]), bucket // nd, *args,
+                                         batch_active=vote.member(i))
+            except BaseException as e:  # stops the other replicas at their next vote
+                errors.append(e)
+                vote.abort()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(nd)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:B] for k in outs[0]}
+
+    @torch.inference_mode()
+    def _generate(self, replica: int, feats: torch.Tensor, bucket: int, method: str,
+                  max_length: int, beam_size: int, length_penalty: float, temperature: float,
+                  batch_active=None) -> Dict[str, torch.Tensor]:
+        """One replica's decode of ``feats`` zero-padded to ``bucket`` rows."""
+        model = self.replicas[replica]
+        device = next(model.parameters()).device
+        feats = feats.to(device)
+        if bucket != feats.shape[0]:  # zero rows, padded on the device: no second host copy
+            feats = torch.cat([feats, feats.new_zeros((bucket - feats.shape[0],)
+                                                      + feats.shape[1:])])
         config, vocab = self.config, self.vocabulary
-        enc_outs, final, mask = encode(self.model, config, feats)
+        enc_outs, final, mask = encode(model, config, feats)
         if method == "greedy":
-            out = greedy_generate(self.model, config, enc_outs, final, vocab.start_idx,
-                                  vocab.end_idx, max_length, mask, temperature=temperature)
-        elif method == "sample":
-            if self._sample_generator is None:
-                self._sample_generator = torch.Generator(device=self.device).manual_seed(
-                    self.sample_seed)
-            out = sample_generate(self.model, config, enc_outs, final, vocab.start_idx,
-                                  vocab.end_idx, max_length, mask, temperature=temperature,
-                                  top_k=int(self.sample_top_k),
-                                  generator=self._sample_generator)
-        else:
-            out = beam_search_generate(self.model, config, enc_outs, final, vocab.start_idx,
-                                       vocab.end_idx, max_length, mask, beam_size=beam_size,
-                                       length_penalty=length_penalty)
-        return {k: v[:B].cpu().numpy() for k, v in out.items()}
+            return greedy_generate(model, config, enc_outs, final, vocab.start_idx,
+                                   vocab.end_idx, max_length, mask, temperature=temperature,
+                                   batch_active=batch_active)
+        if method == "sample":
+            if replica not in self._sample_generators:
+                self._sample_generators[replica] = torch.Generator(device=device).manual_seed(
+                    self.sample_seed + replica)
+            return sample_generate(model, config, enc_outs, final, vocab.start_idx,
+                                   vocab.end_idx, max_length, mask, temperature=temperature,
+                                   top_k=int(self.sample_top_k),
+                                   generator=self._sample_generators[replica],
+                                   batch_active=batch_active)
+        return beam_search_generate(model, config, enc_outs, final, vocab.start_idx,
+                                    vocab.end_idx, max_length, mask, beam_size=beam_size,
+                                    length_penalty=length_penalty, batch_active=batch_active)
 
     def _prepare_features(self, video_features: np.ndarray) -> np.ndarray:
         return resize_feature_sequence(
@@ -336,6 +407,41 @@ class VideoCaptionPredictor:
             "video_length": int(features.shape[1]),
             "caption_length": len(caption_tokens),
         }
+
+
+def data_devices(mesh) -> List[torch.device]:
+    """The devices along a serving mesh's ``data`` axis (the first of each
+    row of any other axis): one replica each."""
+    if "data" not in mesh.axis_names:
+        raise ValueError(f"serving mesh needs a 'data' axis, got {mesh.axis_names}")
+    axis = mesh.axis_names.index("data")
+    row = np.moveaxis(mesh.devices, axis, 0).reshape(mesh.shape["data"], -1)[:, 0]
+    if not all(isinstance(d, torch.device) for d in row):
+        raise ValueError("a serving mesh holds one process's devices (parallel.make_mesh "
+                         "without a torch.distributed process group)")
+    return list(row)
+
+
+class _ActiveVote:
+    """The replicas' "any row still live" flags of one step, combined:
+    each replica's thread posts its flag and waits for the others."""
+
+    def __init__(self, n: int):
+        self.flags = [False] * n
+        self.barrier = threading.Barrier(n)
+
+    def member(self, i: int):
+        def combine(local: torch.Tensor) -> torch.Tensor:
+            self.flags[i] = bool(local)
+            self.barrier.wait()
+            live = any(self.flags)
+            self.barrier.wait()  # every replica has read before the next step's posts
+            return torch.tensor(live, device=local.device)
+
+        return combine
+
+    def abort(self) -> None:
+        self.barrier.abort()
 
 
 class BatchPredictor:

@@ -2,7 +2,9 @@
 
 Counterpart of video_captioning_tpu/inference/server.py, with the same
 endpoints and HTTP codes, duck-typed on ``predictor.predict_batch`` and
-``predictor.config``. Concurrent requests coalesce into device batches; one
+``predictor.config`` (or, for an ``ExportedPredictor`` of a ``.vcx``
+artifact, its ``feature_dim``, baked ``generation_defaults`` and
+``validate_options``, whose refusals are HTTP 400). Concurrent requests coalesce into device batches; one
 batcher thread runs the predictor, so the kernels launch on that thread's
 current CUDA stream.
 
@@ -81,11 +83,12 @@ class DynamicBatcher:
 
     def __init__(self, predictor, max_batch: int = 64,
                  max_wait_ms: float = 5.0,
-                 latency_window: int = 4096):
+                 latency_window: int = 4096,
+                 defaults: Optional[Dict] = None):
         self.predictor = predictor
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
-        self.defaults = dict(_DEFAULTS)
+        self.defaults = dict(_DEFAULTS if defaults is None else defaults)
         self.queue: "queue.Queue[_Pending]" = queue.Queue()
         self.stats = {"requests": 0, "batches": 0, "batched_items": 0,
                       "batch_errors": 0}
@@ -239,9 +242,13 @@ class CaptionServer:
     def __init__(self, predictor, host: str = "127.0.0.1", port: int = 0,
                  max_batch: int = 64, max_wait_ms: float = 5.0,
                  request_timeout_s: float = 120.0):
-        self.batcher = DynamicBatcher(predictor, max_batch, max_wait_ms)
+        # An ExportedPredictor supplies its baked options as the request
+        # defaults, its feature width and a validate_options hook.
+        self.batcher = DynamicBatcher(predictor, max_batch, max_wait_ms,
+                                      defaults=getattr(predictor, "generation_defaults", None))
         self.request_timeout_s = request_timeout_s
-        self.feature_dim = int(predictor.config.model.cnn_feature_dim)
+        fd = getattr(predictor, "feature_dim", None)
+        self.feature_dim = int(fd if fd is not None else predictor.config.model.cnn_feature_dim)
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -335,6 +342,9 @@ class CaptionServer:
         opts = {k: payload[k] for k in _GEN_KEYS if k in payload}
         if "method" in opts and opts["method"] not in _METHODS:
             raise ValueError(f"unknown method: {opts['method']}")
+        validate = getattr(self.batcher.predictor, "validate_options", None)
+        if validate is not None:  # an artifact's baked options: 400, not a batch fault
+            validate(opts)
         return opts
 
     def _await(self, item: _Pending) -> dict:

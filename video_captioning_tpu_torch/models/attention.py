@@ -27,7 +27,10 @@ false, a Bahdanau ``attend`` runs the fused step of ``ops/attention.py``
 ``bahdanau_attend_pallas``; Luong and multi-head never reach it.
 ``kernels.attention_score_bf16`` takes Bahdanau's tanh in bfloat16 with
 the score reduction accumulated in float32, in ``attend`` and
-``attend_beam``.
+``attend_beam``. ``parallel.context_axis`` routes an eval ``attend`` and
+every ``attend_beam`` to ``parallel/context_parallel.py:attend_cp`` (the
+frame axis split over the ambient mesh's axis), before the kernel flag,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from torch import nn
 
 from ..config import Config
 from ..ops.attention import bahdanau_attend
-from .layers import bf16_products_f32, dropout_mask, linear
+from ..parallel.context_parallel import attend_cp
+from .layers import bf16_products_f32, dropout_mask, linear, promote
 
 Tensor = torch.Tensor
 
@@ -143,9 +147,11 @@ def _luong_scores(attn: LuongAttention, cache: Dict[str, Tensor], enc_outs: Tens
                   dec_hidden: Tensor) -> Tensor:
     """dec_hidden (B, Q, D) -> scores (B, Q, S)."""
     if attn.score == "dot":
-        return dec_hidden @ enc_outs.transpose(1, 2)
+        q, e = promote(dec_hidden, enc_outs)
+        return q @ e.transpose(1, 2)
     if attn.score == "general":
-        return linear(attn.linear_in, dec_hidden) @ enc_outs.transpose(1, 2)
+        q, e = promote(linear(attn.linear_in, dec_hidden), enc_outs)
+        return q @ e.transpose(1, 2)
     dec_proj = linear(attn.linear_query, dec_hidden)  # (B, Q, A)
     combined = torch.tanh(dec_proj[:, :, None, :] + cache["enc_proj"][:, None, :, :])
     return linear(attn.linear_v, combined)[..., 0]
@@ -183,7 +189,10 @@ def _softmax_context(scores: Tensor, encoder_outputs: Tensor,
     weights = torch.softmax(scores, dim=-1)
     if weight_scale is not None:  # dropout on the weights
         weights = weights * weight_scale.reshape(weights.shape).to(weights.dtype)
-    return weights @ encoder_outputs, weights
+    # A float32 state (a fused cell's) against bfloat16 encoder outputs
+    # promotes, as jnp's ``@`` does.
+    w, e = promote(weights, encoder_outputs)
+    return w @ e, weights
 
 
 def _attend_queries(config: Config, attn: nn.Module, cache: Dict[str, Tensor],
@@ -219,6 +228,14 @@ def attend(
     ``weight_scale`` is a multiplier drawn by the caller
     (``layers.dropout_mask``); otherwise one is drawn from ``generator``
     when ``train``."""
+    cp_axis = config.parallel.context_axis
+    if cp_axis is not None and not train:
+        # Context parallelism (parallel/context_parallel.py), eval only as in
+        # the JAX package: attention dropout under it would need per-shard
+        # draws.
+        ctx, w = attend_cp(config, attn, cache, encoder_outputs, decoder_hidden[:, None],
+                           encoder_mask, cp_axis)
+        return ctx[:, 0], w[:, 0]
     if (isinstance(attn, BahdanauAttention) and config.kernels.use_pallas_attention
             and not train):
         lin = attn.attention_linear
@@ -244,4 +261,7 @@ def attend_beam(
     encoder_mask: Optional[Tensor],  # (B, S)
 ) -> Tuple[Tensor, Tensor]:
     """Returns context (B, K, E) and weights (B, K, S); eval only."""
+    if config.parallel.context_axis is not None:
+        return attend_cp(config, attn, cache, encoder_outputs, decoder_hidden, encoder_mask,
+                         config.parallel.context_axis)
     return _attend_queries(config, attn, cache, encoder_outputs, decoder_hidden, encoder_mask)

@@ -226,6 +226,18 @@ class FeatureExtractor:
 
         return save_int8_weights(path, self.model_type, self._qp)
 
+    def traceable_fn(self):
+        """``(N, H, W, 3) uint8 -> (N, F) float32`` with the weights held
+        inside: the CNN stage of the full-pipeline export
+        (``inference/export.py`` ``include_cnn``), traceable by
+        ``torch.export``. The int8 variant must be calibrated already (a
+        ``vcw-int8-v1`` weights file, or ``calibrate_int8``)."""
+        if self.variant == "int8" and not self._int8_calibrated:
+            raise ValueError("int8 extractor is not calibrated; load a vcw-int8-v1 weights "
+                             "file or call calibrate_int8(frames) before tracing")
+        apply, normalize = self._apply, self._normalize
+        return lambda frames_u8: apply(normalize(frames_u8)).float()
+
     @torch.inference_mode()
     def extract_tensor(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """One batch already on the device: (N, H, W, 3) uint8 -> (N,

@@ -41,7 +41,6 @@ def check_supported(config: Config) -> None:
         unsupported = [(k.transformer_cross_kv_bf16, "kernels.transformer_cross_kv_bf16")]
     else:
         unsupported = [(m.architecture != "lstm", f"architecture={m.architecture!r}")]
-    unsupported.append((config.parallel.context_axis is not None, "parallel.context_axis"))
     names = [name for bad, name in unsupported if bad]
     if names:
         raise NotImplementedError(

@@ -35,6 +35,7 @@ from torch import nn
 
 from ..config import Config
 
+from ..ops.build import tracing
 from ..ops.lstm_seq import kernel_max_hidden, lstm_seq, lstm_seq_eligible
 from ..ops.lstm_seq_train import lstm_seq_train
 from .layers import LSTMWeights, dropout, linear, lstm_scan, promote, reverse_sequence
@@ -74,6 +75,8 @@ class Encoder(nn.Module):
         cast once and reused until the weights change or move. Detached:
         eval only (training passes the float32 stack to lstm_seq_train)."""
         fwd, bwd = self.lstm.layer(l)["w_hh"], self.lstm.layer(l, reverse=True)["w_hh"]
+        if tracing():  # torch.export: the cast is part of the program
+            return torch.stack([fwd.detach().T, bwd.detach().T]).to(torch.bfloat16).contiguous()
         key = tuple((w.device, w.data_ptr(), w._version) for w in (fwd, bwd))
         hit = self._staged.get(l)
         if hit is None or hit[0] != key:

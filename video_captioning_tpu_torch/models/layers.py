@@ -130,6 +130,8 @@ def linear(mod: nn.Module, x: Tensor) -> Tensor:
     :func:`int8_linear` for an :class:`Int8Linear`."""
     if isinstance(mod, Int8Linear):
         return int8_linear(mod, x)
+    if getattr(mod, "vocab_split", False):  # parallel.sharding.ColumnParallelLinear
+        return mod(x)
     w, b = mod.weight, mod.bias
     if x.dtype == w.dtype == torch.float32:
         return F.linear(x, w, b)

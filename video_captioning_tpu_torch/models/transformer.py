@@ -44,6 +44,7 @@ from torch import nn
 from ..config import Config
 
 from ..ops.transformer_attn import beam_cross_attention, beam_self_attention, gather_beam_prefix
+from ..parallel.context_parallel import cross_attention_step_cp
 from .layers import Int8Linear, dropout
 
 Tensor = torch.Tensor
@@ -367,9 +368,12 @@ def _decoder_blocks(dec: TransformerDecoder, config: Config, x: Tensor, state: D
     as ``decode_step_beam_core`` does in the JAX package."""
     heads = config.model.transformer_num_heads
     k = config.kernels
-    fused_self = anc is not None and k.transformer_fused_beam_attn
-    fused_cross = anc is not None and (k.transformer_fused_beam_attn
-                                       or k.transformer_fused_cross_attn)
+    # Context parallelism keeps the plain attention (its collectives lie
+    # outside the kernels), as in the JAX package.
+    cp_axis = config.parallel.context_axis
+    fused_self = anc is not None and k.transformer_fused_beam_attn and cp_axis is None
+    fused_cross = anc is not None and cp_axis is None and (k.transformer_fused_beam_attn
+                                                           or k.transformer_fused_cross_attn)
     cross_w = None
     for i, blk in enumerate(dec.blocks):
         wqkv = None if qkv is None else qkv[i]
@@ -384,7 +388,9 @@ def _decoder_blocks(dec: TransformerDecoder, config: Config, x: Tensor, state: D
         x = x + h
         cross_args = (blk.cross_attn, blk.ln2(x), cross_kv["k"][i], cross_kv["v"][i],
                       encoder_mask, heads)
-        if fused_cross:
+        if cp_axis is not None:
+            h, cross_w = cross_attention_step_cp(*cross_args, cp_axis)
+        elif fused_cross:
             h, cross_w = _cross_attn_step_fused(*cross_args, anc.shape[1])
         else:
             h, cross_w = _cross_attn_step(*cross_args)

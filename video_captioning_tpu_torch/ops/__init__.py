@@ -2,7 +2,9 @@
 
 Each wrapper counts the launches of its kernel in a plain integer
 attribute (``lstm_seq.launches``), so a run can show that the main path
-went through the kernels.
+went through the kernels. ``ops/library.py`` registers the serving
+kernels as ``torch.library`` custom ops, so ``torch.export`` keeps them in
+a program (whose launches count in the same attributes).
 """
 
 from typing import Dict
@@ -43,6 +45,8 @@ from .vocab_topk import (  # noqa: F401
     vocab_topk_lse,
     vocab_topk_lse_reference,
 )
+
+from . import library  # noqa: F401,E402  (registers the vct:: custom ops)
 
 KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd, topk2d,
                    bahdanau_attend, lstm_cell_fused, vocab_topk_lse, beam_self_attention,

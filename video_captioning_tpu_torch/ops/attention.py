@@ -7,7 +7,10 @@ Counterpart of video_captioning_tpu/ops/attention_pallas.py
 ``attention_linear.weight`` and ``b_v`` its (1,) bias, kept on the device
 so nothing syncs for it. Inputs h (B, D), enc_proj (B, S, A), enc_outs
 (B, S, E), mask (B, S) or None (all frames valid, as the JAX wrapper
-does); returns (context (B, E), weights (B, S)) in float32. On a CUDA
+does); returns (context (B, E), weights (B, S)) in float32. Every operand
+is cast to float32 first, as the JAX wrapper casts before its
+``pallas_call`` (``attention_pallas.py:145-152``), so bfloat16 parameters
+reach the kernel as float32. On a CUDA
 tensor ``bahdanau_attend`` launches the kernel in
 ``csrc/bahdanau_attend.cu``; on a CPU tensor it runs
 ``bahdanau_attend_reference``, the eager ``attend`` math.
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -70,8 +73,15 @@ def _kernel_lib() -> ctypes.CDLL:
 def bahdanau_attend(h: Tensor, w_d: Tensor, b_d: Tensor, enc_proj: Tensor,
                     enc_outs: Tensor, v: Tensor, b_v: Tensor,
                     mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Context (B, E) and weights (B, S). CUDA: the kernel, on the current
-    stream, no sync. CPU: the plain version."""
+    """Context (B, E) and weights (B, S) of the operands' float32 casts.
+    CUDA: the kernel, on the current stream, no sync. CPU: the plain
+    version."""
+    h, w_d, b_d, enc_proj, enc_outs, v, b_v = (
+        t.to(torch.float32).contiguous() for t in (h, w_d, b_d, enc_proj, enc_outs, v, b_v))
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+    if tracing():
+        return torch.ops.vct.bahdanau_attend(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask)
     _check(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask)
     if h.device.type == "cpu":
         return bahdanau_attend_reference(h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask)

@@ -31,7 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -101,6 +101,8 @@ def fused_bottleneck(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor, 
                      b3: Tensor) -> Tensor:
     """One identity bottleneck block. CUDA: the kernel, on the current
     stream, no sync. CPU: the plain version."""
+    if tracing():
+        return torch.ops.vct.fused_bottleneck(x, w1, b1, w2, b2, w3, b3)
     _check(x, w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
         return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3)

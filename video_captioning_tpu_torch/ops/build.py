@@ -19,6 +19,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -112,6 +114,13 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return dict(zip(names, pool.map(one, names)))
+
+
+def tracing() -> bool:
+    """Whether the caller runs under ``torch.export`` (or ``torch.compile``)
+    tracing: the wrappers then call their ``vct::`` custom op
+    (``ops/library.py``), which the traced program keeps."""
+    return torch.compiler.is_compiling()
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

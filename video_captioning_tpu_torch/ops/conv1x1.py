@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -65,6 +65,8 @@ def matmul_bias_act(x: Tensor, w: Tensor, b: Tensor, residual: Optional[Tensor] 
     """``relu?(x @ w^T + b [+ residual])``, x (M, K), w (N, K), b (N,),
     residual (M, N). CUDA: the kernel, any M, K and N, on the current
     stream, no sync. CPU: the plain version."""
+    if tracing():
+        return torch.ops.vct.matmul_bias_act(x, w, b, residual, relu)
     _check(x, w, b, residual)
     if x.device.type == "cpu":
         return matmul_bias_act_reference(x, w, b, residual, relu=relu)

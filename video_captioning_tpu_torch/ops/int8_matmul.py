@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -160,6 +160,8 @@ def int8_matmul_requant(xq: Tensor, wq: Tensor, scale: Tensor, bias: Tensor,
     """relu?(xq @ wq^T * scale + bias), requantized to int8 at ``s_out`` (a
     float) or float32 when ``s_out`` is None. CUDA: the kernel, on the
     current stream, no sync. CPU: the plain version."""
+    if tracing():
+        return torch.ops.vct.int8_matmul_requant(xq, wq, scale, bias, s_out, relu)
     _check(xq, wq, scale, bias, None)
     if _device(xq, "int8_matmul_requant") == "cpu":
         return int8_matmul_requant_reference(xq, wq, scale, bias, s_out, relu)
@@ -177,6 +179,8 @@ def int8_matmul_residual_requant(xq: Tensor, wq: Tensor, scale: Tensor, bias: Te
     """relu(xq @ wq^T * scale + bias + idq * s_id), requantized to int8 (or
     float32 for the block that feeds the float pool). CUDA: the kernel; CPU:
     the plain version."""
+    if tracing():
+        return torch.ops.vct.int8_matmul_residual_requant(xq, wq, scale, bias, idq, s_id, s_out)
     _check(xq, wq, scale, bias, idq)
     if _device(xq, "int8_matmul_residual_requant") == "cpu":
         return int8_matmul_residual_requant_reference(xq, wq, scale, bias, idq, s_id, s_out)

@@ -3,7 +3,11 @@
 Counterpart of video_captioning_tpu/ops/lstm_pallas.py (lstm_cell_pallas),
 a drop-in for ``models.layers.lstm_cell``: the same layer dict (``w_ih``
 (4H, In), ``w_hh`` (4H, H), ``b_ih``, ``b_hh``, in their stored layout) and
-(x (N, In), h (N, H), c (N, H)) -> (h', c'), float32. On a CUDA tensor
+(x (N, In), h (N, H), c (N, H)) -> (h', c'), float32. Every operand is
+cast to float32 first, as the JAX wrapper casts before its
+``pallas_call`` (``lstm_pallas.py:113-118``): bfloat16 parameters reach
+the kernel as float32, with the two biases summed in their own dtype
+first, and h' and c' are float32 whatever the inputs were. On a CUDA tensor
 ``lstm_cell_fused`` launches the kernel in ``csrc/lstm_cell.cu``; on a CPU
 tensor it runs ``lstm_cell_reference``, the plain version (float32
 products). The kernel takes its products on the tensor cores by a 3xTF32
@@ -20,13 +24,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..models.layers import lstm_cell
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
 
-lstm_cell_reference = lstm_cell  # the plain version: float32 products and sums
+def lstm_cell_reference(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
+                        c: Tensor) -> Tuple[Tensor, Tensor]:
+    """The plain version: ``models.layers.lstm_cell`` (float32 products and
+    sums on float32 operands)."""
+    from ..models.layers import lstm_cell
+
+    return lstm_cell(layer, x, h, c)
 
 
 def _check(layer: Dict[str, Tensor], x: Tensor, h: Tensor, c: Tensor) -> None:
@@ -70,11 +79,30 @@ def kernel_tile(N: int, H: int) -> tuple:
     return TILES[i]
 
 
+def float32_operands(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
+                     c: Tensor) -> Tuple[Dict[str, Tensor], Tensor, Tensor, Tensor]:
+    """The JAX wrapper's casts: every operand to float32; a bias in
+    another dtype is summed there (``b_ih + b_hh``) before its cast, and
+    the sum goes in as ``b_ih`` beside a zero ``b_hh``. Float32 operands
+    pass unchanged."""
+    f32 = torch.float32
+    if layer["b_ih"].dtype != f32 or layer["b_hh"].dtype != f32:
+        bias = (layer["b_ih"] + layer["b_hh"]).to(f32)
+        layer = dict(layer, b_ih=bias.contiguous(), b_hh=torch.zeros_like(bias))
+    layer = {k: v.to(f32).contiguous() for k, v in layer.items()}
+    return layer, x.to(f32).contiguous(), h.to(f32).contiguous(), c.to(f32).contiguous()
+
+
 def lstm_cell_fused(layer: Dict[str, Tensor], x: Tensor, h: Tensor,
                     c: Tensor, tile: int = -1) -> Tuple[Tensor, Tensor]:
-    """One cell step. CUDA: the kernel, on the current stream, no sync;
-    ``tile`` -1 lets the launcher pick, else an index into ``TILES``.
-    CPU: the plain version."""
+    """One cell step on the float32 casts of its operands
+    (``float32_operands``). CUDA: the kernel, on the current stream, no
+    sync; ``tile`` -1 lets the launcher pick, else an index into
+    ``TILES``. CPU: the plain version."""
+    layer, x, h, c = float32_operands(layer, x, h, c)
+    if tracing():
+        return torch.ops.vct.lstm_cell(x, h, c, layer["w_ih"], layer["w_hh"], layer["b_ih"],
+                                       layer["b_hh"], tile)
     _check(layer, x, h, c)
     if x.device.type == "cpu":
         return lstm_cell_reference(layer, x, h, c)

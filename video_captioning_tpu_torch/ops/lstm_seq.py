@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -120,6 +120,9 @@ def lstm_seq(
     """Full recurrence over T steps. ``w_hh`` must already be bfloat16
     (callers cast it once per model load). CUDA: the kernel, on the current
     stream, no sync. CPU: the plain version."""
+    if tracing():
+        outs, h, c = torch.ops.vct.lstm_seq(xproj, w_hh, mask)
+        return outs, (h, c)
     check_inputs(xproj, w_hh, mask)
     if xproj.device.type == "cpu":
         return lstm_seq_reference(xproj, w_hh, mask)

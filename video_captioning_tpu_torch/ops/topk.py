@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -91,6 +91,8 @@ def topk2d_lse(x: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
     """(values, indices int32, logsumexp) over the last axis of a (N, V)
     float32 tensor. CUDA: the kernel, on the current stream, no sync. CPU:
     the plain version."""
+    if tracing():
+        return torch.ops.vct.topk2d_lse(x, k)
     _check(x, k, "topk2d_lse")
     if x.device.type == "cpu":
         return topk2d_lse_reference(x, k)
@@ -103,6 +105,8 @@ def topk2d(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """(values, indices int32) over the last axis of a (N, V) float32
     tensor, ``lax.top_k``'s values and tie order. CUDA: the kernel without
     its logsumexp, on the current stream, no sync. CPU: the plain version."""
+    if tracing():
+        return torch.ops.vct.topk2d(x, k)
     _check(x, k, "topk2d")
     if x.device.type == "cpu":
         return topk2d_reference(x, k)

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
@@ -155,6 +155,8 @@ def beam_self_attention(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor, t:
                         num_heads: int, num_beams: int) -> Tensor:
     """Context (B*K, D). CUDA: the kernel, on the current stream, no sync.
     CPU: the plain version."""
+    if tracing():
+        return torch.ops.vct.beam_self_attention(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
     _check_self(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
     if not _on_card("beam_self_attention", q):
         return beam_self_attention_reference(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
@@ -180,6 +182,8 @@ def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tenso
     """Context (B*K, D) and head-mean weights (B*K, S). CUDA: the kernel
     and its head-mean launch, on the current stream, no sync. CPU: the
     plain version."""
+    if tracing():
+        return torch.ops.vct.beam_cross_attention(q, ck, cv, mask, num_heads, num_beams)
     _check_cross(q, ck, cv, mask, num_heads, num_beams)
     if not _on_card("beam_cross_attention", q):
         return beam_cross_attention_reference(q, ck, cv, mask, num_heads, num_beams)

@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from .build import check_launch, load_library
+from .build import check_launch, load_library, tracing
 from .topk import MAX_K, topk_stable
 
 Tensor = torch.Tensor
@@ -132,8 +132,14 @@ def _kernel_lib() -> ctypes.CDLL:
 def vocab_topk_lse(x: Tensor, w_padded: Tensor, b_padded: Tensor,
                    k: int) -> Tuple[Tensor, Tensor, Tensor]:
     """(top-k values, top-k indices int32, logsumexp) of ``bf16(x) @ W + b``
-    rows. CUDA: the kernels, on the current stream, no sync. CPU: the plain
-    version."""
+    rows, x rounded to bfloat16 whatever its dtype, as the JAX wrapper
+    casts it (``vocab_topk_pallas.py:211``; a bfloat16 x goes in through
+    its exact float32 widening). CUDA: the kernels, on the current stream,
+    no sync. CPU: the plain version."""
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32).contiguous()
+    if tracing():
+        return torch.ops.vct.vocab_topk_lse(x, w_padded, b_padded, k)
     _check(x, w_padded, b_padded, k)
     if x.device.type == "cpu":
         return vocab_topk_lse_reference(x, w_padded, b_padded, k)

@@ -59,11 +59,15 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], config: Config) -> tor
 
 
 @torch.no_grad()
-def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float,
+                           norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place on the gradients; returns the
-    norm before clipping. No host sync: the choice is made on the device."""
+    norm before clipping (``norm``, where the caller has the norm of a
+    gradient split over processes). No host sync: the choice is made on
+    the device."""
     grads: List[torch.Tensor] = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

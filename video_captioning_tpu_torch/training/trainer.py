@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop, on one device or data-parallel over a mesh.
 
 Counterpart of video_captioning_tpu/training/trainer.py
 (``VideoCaptioningTrainer``) with the same schedule of work and the same
@@ -27,9 +27,8 @@ EMA, ``training_results.json`` and resume.
   differentiable ``.to()`` (gradients, clipping and the optimizer stay
   float32), the features are cast on the host before the copy, the loss
   reduces in float32, and validation runs its loss and greedy decode on a
-  bfloat16 copy of the weights. The fused decode-step flags are refused
-  with it when the trainer is built: validation would reach their
-  float32-only kernels.
+  bfloat16 copy of the weights (under a fused decode-step flag through its
+  kernels, whose wrappers cast their operands as the JAX ones do).
 * ``experiment.profile_dir``: a ``torch.profiler`` trace of epoch 0's
   first five steps (the JAX trainer's ``jax.profiler`` window), written
   there as ``trace_epoch0.pt.trace.json``.
@@ -41,8 +40,23 @@ EMA, ``training_results.json`` and resume.
   also reads a checkpoint the JAX trainer wrote, converting its optax
   state (``utils.checkpoint``, ``optim.torch_state_from_optax``).
 
-Not ported: the orbax checkpoint backend and device meshes; each raises
-``NotImplementedError`` when the trainer is built (ROADMAP A7).
+* On a mesh (``parallel/mesh.py``; one process a device under
+  ``torch.distributed``) the step is data-parallel over ``data``, as the
+  JAX step is over its ``P('data')`` batch: each rank takes the loss of
+  its own rows as its share of the global batch's token mean (its token
+  sum over the global token count), the gradients are summed over the
+  ``data`` group, then clipped by the norm of the whole gradient, and the
+  loss summed over ``data`` is the global one on every rank. With
+  ``model_axis > 1`` the vocabulary matrices are split over ``model``
+  (``parallel/sharding.py``). Rank 0 alone writes checkpoints, packages,
+  TensorBoard, W&B and ``training_results.json``; every rank validates.
+* ``experiment.checkpoint_backend="orbax"``: asynchronous
+  ``torch.distributed.checkpoint`` saves of the last five epochs
+  (``utils/orbax_ckpt.py``), ``load_orbax_checkpoint`` to resume, and a
+  host snapshot of the best epoch's evaluation weights
+  (``best_eval_state``), which no later save overwrites.
+* ``experiment.compilation_cache_dir`` is accepted and logged: the port
+  has no compilation cache (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -60,36 +74,20 @@ import torch
 
 from ..config import Config
 from ..data.pipeline import place_batch
+from ..parallel import sharding
+from ..parallel.mesh import Mesh, distributed, make_mesh
 from ..data.vocabulary import Vocabulary
 from ..generation import greedy_generate
-from ..inference.predictor import check_fused_flags_bf16
 from ..models.captioner import VideoCaptioningModel, apply_model, count_params, encode
 from ..models.weights import jax_params_from_state_dict, state_dict_from_jax_params
 from ..utils.checkpoint import OPTIMIZER_FORMAT, CheckpointManager, OptaxState
+from ..utils.compile_cache import maybe_enable_from_config
 from ..utils.metrics import CaptionMetrics
 from ..utils.tb_writer import create_summary_writer
 from . import optim
-from .losses import label_smoothed_cross_entropy
+from .losses import label_smoothed_cross_entropy, label_smoothed_cross_entropy_terms
 
 Tensor = torch.Tensor
-
-
-def check_trainable(config: Config) -> None:
-    """Raise NotImplementedError for the training options not ported yet
-    (the orbax backend and device meshes, ROADMAP A7), and for bfloat16
-    with a fused decode-step flag, which validation's greedy decode would
-    take into float32-only kernels (the predictor's refusal)."""
-    e, p = config.experiment, config.parallel
-    unsupported = [
-        (e.checkpoint_backend == "orbax", "experiment.checkpoint_backend='orbax'"),
-        (p.data_axis > 1 or p.model_axis > 1, "a device mesh (parallel.data_axis/model_axis)"),
-    ]
-    names = [name for bad, name in unsupported if bad]
-    if names:
-        raise NotImplementedError(
-            f"not ported to video_captioning_tpu_torch yet: {', '.join(names)}")
-    if config.training.compute_dtype == "bfloat16":
-        check_fused_flags_bf16(config)
 
 
 def _to_numpy(tree):
@@ -99,6 +97,14 @@ def _to_numpy(tree):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_numpy(v) for v in tree)
+    return tree
+
+
+def _to_torch_tensors(tree, device):
+    if isinstance(tree, Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_torch_tensors(v, device) for k, v in tree.items()}
     return tree
 
 
@@ -113,7 +119,11 @@ def _to_torch(tree):
 
 
 class VideoCaptioningTrainer:
-    """Trains ``model`` in place on ``device``."""
+    """Trains ``model`` in place on ``device``: this process's device of
+    ``mesh`` (default: ``make_mesh`` over the ``torch.distributed`` ranks
+    when a process group is up, else a mesh of ``device`` alone). The
+    train loader yields this rank's rows (``DataLoader(shard_index=data
+    index, num_shards=data size)``)."""
 
     def __init__(
         self,
@@ -123,8 +133,8 @@ class VideoCaptioningTrainer:
         train_loader,
         val_loader,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
-        check_trainable(config)
         self.config = config
         self.vocabulary = vocabulary
         self.train_loader = train_loader
@@ -136,7 +146,14 @@ class VideoCaptioningTrainer:
             # the lstm_seq kernels take bf16 operands, as on the TPU.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.model = model.to(self.device)
+        maybe_enable_from_config(config)
+        if mesh is None:
+            mesh = make_mesh(config, None if distributed() else [self.device])
+        self.mesh = mesh
+        self.is_chief = mesh.rank == 0
+        # Every rank holds the same weights (the same seed): the split takes
+        # this rank's block of the vocabulary matrices.
+        self.model = sharding.shard_model(model.to(self.device), mesh)
         self.compute_dtype = (torch.bfloat16 if config.training.compute_dtype == "bfloat16"
                               else torch.float32)
 
@@ -159,12 +176,21 @@ class VideoCaptioningTrainer:
 
         self.metrics = CaptionMetrics(vocabulary)
         self.checkpoint_manager = CheckpointManager(config.experiment.checkpoint_dir)
+        self.orbax_manager = None
+        if config.experiment.checkpoint_backend == "orbax":
+            from ..utils.orbax_ckpt import OrbaxCheckpointManager
+
+            self.orbax_manager = OrbaxCheckpointManager(
+                Path(config.experiment.checkpoint_dir) / "orbax")
+        # Under the orbax backend (no best_model.pth) the best epoch's
+        # evaluation weights, kept on the host for the package.
+        self.best_eval_state: Optional[Dict[str, Tensor]] = None
         self.tensorboard_writer = None
-        if config.experiment.use_tensorboard:
+        if config.experiment.use_tensorboard and self.is_chief:
             self.tensorboard_writer = create_summary_writer(
                 Path(config.experiment.checkpoint_dir) / "tensorboard")
 
-        self.use_wandb = config.experiment.use_wandb
+        self.use_wandb = config.experiment.use_wandb and self.is_chief
         self._wandb = None
         if self.use_wandb:
             try:
@@ -187,7 +213,9 @@ class VideoCaptioningTrainer:
         self.patience_counter = 0
         self.train_history: List[Dict[str, Any]] = []
         self.val_history: List[Dict[str, Any]] = []
-        self.generator = torch.Generator(device=self.device).manual_seed(config.training.seed)
+        # The ranks of a data index draw the same dropout masks.
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.training.seed + mesh.axis_index("data"))
 
     # ------------------------------------------------------------ steps
 
@@ -221,26 +249,51 @@ class VideoCaptioningTrainer:
         return label_smoothed_cross_entropy(out["logits"], tgt, self.vocabulary.pad_idx,
                                             self.config.training.label_smoothing)
 
+    def _share_loss(self, feats: Tensor, inp: Tensor, tgt: Tensor,
+                    global_count: Optional[Tensor] = None) -> Tensor:
+        """This rank's share of a data-parallel micro-batch's mean loss: its
+        token sum over the token count summed across the data group
+        (``global_count``, where the caller has it)."""
+        out = apply_model(self.model, self.config, feats, inp, train=True,
+                          generator=self.generator)
+        total, count = label_smoothed_cross_entropy_terms(
+            out["logits"], tgt, self.vocabulary.pad_idx, self.config.training.label_smoothing)
+        if global_count is None:
+            global_count = count.detach().clone()
+            torch.distributed.all_reduce(global_count, group=self.mesh.group("data"))
+        return total / global_count.clamp_min(1.0)
+
     def train_step(self, batch: dict) -> Tensor:
-        """One optimizer update on a numpy batch; returns the loss as a
-        device scalar (the mean over micro-batches with accumulation)."""
+        """One optimizer update on a numpy batch (this rank's rows); returns
+        the loss as a device scalar (the mean over micro-batches with
+        accumulation; on a mesh, the global batch's, on every rank)."""
         b = self._place(batch)
         parts = (b["video_features"], b["input_tokens"], b["target_tokens"])
         accum = self.config.training.grad_accum_steps
         if parts[0].shape[0] % accum:
             raise ValueError(f"batch of {parts[0].shape[0]} does not split into "
                              f"grad_accum_steps={accum} micro-batches")
+        data_parallel = self.mesh.group("data") is not None
         self.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=self.device)
         for micro in zip(*(x.chunk(accum) for x in parts)):
             with self.compute_weights():
-                micro_loss = self._loss(self.model, *micro, train=True)
+                if data_parallel:
+                    micro_loss = self._share_loss(*micro)
+                else:
+                    micro_loss = self._loss(self.model, *micro, train=True)
                 (micro_loss / accum).backward()
             loss += micro_loss.detach()
         loss /= accum
+        if data_parallel:
+            sharding.all_reduce_gradients(self.trainable, self.mesh)
+            torch.distributed.all_reduce(loss, group=self.mesh.group("data"))
         clip = self.config.training.gradient_clip_norm
         if clip and clip > 0:
-            optim.clip_grad_global_norm_(self.trainable, clip)
+            norm = (sharding.global_grad_norm(list(zip(self.trainable_names, self.trainable)),
+                                              self.mesh)
+                    if self.mesh.shape["model"] > 1 else None)
+            optim.clip_grad_global_norm_(self.trainable, clip, norm)
         self.optimizer.step()
         self.global_step += 1
         if self.ema is not None:
@@ -429,8 +482,12 @@ class VideoCaptioningTrainer:
             "train_history": self.train_history,
             "val_history": self.val_history,
         }
-        with open(Path(self.config.experiment.checkpoint_dir) / "training_results.json", "w") as f:
-            json.dump(results, f, indent=2)
+        if self.orbax_manager is not None:
+            self.orbax_manager.wait()
+        if self.is_chief:
+            with open(Path(self.config.experiment.checkpoint_dir) / "training_results.json",
+                      "w") as f:
+                json.dump(results, f, indent=2)
         if self.tensorboard_writer:
             self.tensorboard_writer.close()
         if self.use_wandb:
@@ -460,23 +517,75 @@ class VideoCaptioningTrainer:
                              **{f"val/{k}": v for k, v in val_metrics.items() if k != "loss"},
                              "epoch": epoch})
 
-    def _optimizer_state(self) -> Dict[str, Any]:
+    def _full_optimizer_state(self) -> Dict[str, Any]:
+        """The optimizer's state dict with each split parameter's state
+        gathered over the model group (a collective on a split model)."""
+        state = self.optimizer.state_dict()
+        if self.mesh.shape["model"] == 1:
+            return state
+        split = set(sharding.split_names(self.model))
+        full = {}
+        for idx, entry in state["state"].items():
+            if self.trainable_names[idx] in split:
+                entry = {k: sharding.gather_rows(v, self.mesh)
+                         if isinstance(v, Tensor) and v.ndim else v for k, v in entry.items()}
+            full[idx] = entry
+        return dict(state, state=full)
+
+    def _local_optimizer_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """``_full_optimizer_state``'s inverse: this rank's block of each
+        split parameter's state."""
+        if self.mesh.shape["model"] == 1:
+            return state
+        split = set(sharding.split_names(self.model))
+        local = {}
+        for idx, entry in state["state"].items():
+            if self.trainable_names[int(idx)] in split:
+                entry = {k: sharding.local_rows(v, self.mesh)
+                         if isinstance(v, Tensor) and v.ndim else v for k, v in entry.items()}
+            local[int(idx)] = entry
+        return dict(state, state=local)
+
+    def _optimizer_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         return {
             "format": OPTIMIZER_FORMAT,
             "optimizer": type(self.optimizer).__name__,
             "param_names": list(self.trainable_names),
-            "state": _to_numpy(self.optimizer.state_dict()),
+            "state": _to_numpy(state),
         }
 
+    def _check_optimizer(self, optimizer: str, names: List[str], where) -> None:
+        if optimizer != type(self.optimizer).__name__ or list(names) != self.trainable_names:
+            raise ValueError(f"{where}: saved with a different optimizer "
+                             f"({optimizer}, {len(names)} trainable tensors); resume with the "
+                             "training config used at save time")
+
     def _save(self, epoch: int, metrics: Dict[str, float], is_best: bool) -> None:
+        """Every rank calls it (a split model gathers its blocks); rank 0
+        writes."""
+        params = sharding.gather_state_dict(self.model.state_dict(), self.mesh)
+        ema = None if self.ema is None else sharding.gather_state_dict(self.ema, self.mesh)
+        opt_state = self._full_optimizer_state()
+        if not self.is_chief:
+            return
         additional = {"global_step": self.global_step, "best_val_score": self.best_val_score}
+        if self.orbax_manager is not None:
+            if is_best:
+                self.best_eval_state = {k: v.detach().cpu().clone()
+                                        for k, v in (ema if ema is not None else params).items()}
+            self.orbax_manager.save(
+                epoch, params, opt_state, metrics=metrics,
+                extra={**additional, "optimizer": type(self.optimizer).__name__,
+                       "param_names": list(self.trainable_names)},
+                ema_params=ema)
+            return
         best_state = None
-        if self.ema is not None:
+        if ema is not None:
             best_state = additional["ema_state_dict"] = jax_params_from_state_dict(
-                self.ema, self.config)
+                ema, self.config)
         self.checkpoint_manager.save_checkpoint(
-            jax_params_from_state_dict(self.model.state_dict(), self.config),
-            self._optimizer_state(),
+            jax_params_from_state_dict(params, self.config),
+            self._optimizer_state(opt_state),
             epoch,
             metrics,
             scheduler_state=self.plateau.state_dict() if self.plateau else None,
@@ -487,6 +596,35 @@ class VideoCaptioningTrainer:
             # raw parameters stay under raw_model_state_dict for resume.
             best_model_state=best_state,
         )
+
+    def _load_params(self, state: Dict[str, Tensor]) -> None:
+        """Load unsplit parameters (this rank's block of the split ones)."""
+        self.model.load_state_dict(sharding.local_state_dict(
+            {k: v.to(self.device) for k, v in state.items()}, self.mesh))
+
+    def _local_ema(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        return sharding.local_state_dict({k: v.to(self.device).float()
+                                          for k, v in state.items()}, self.mesh)
+
+    def load_orbax_checkpoint(self, epoch: Optional[int] = None) -> None:
+        """Resume from the orbax backend (latest epoch by default): the
+        parameters, the optimizer state and the EMA exactly as saved; a
+        different optimizer configuration is refused."""
+        if self.orbax_manager is None:
+            raise RuntimeError("orbax backend not enabled")
+        restored = self.orbax_manager.restore(epoch)
+        meta = restored["meta"]
+        self._check_optimizer(meta["optimizer"], meta["param_names"],
+                              self.orbax_manager.checkpoint_dir)
+        self._load_params(restored["params"])
+        self.optimizer.load_state_dict(self._local_optimizer_state(
+            _to_torch_tensors(restored["opt_state"], self.device)))
+        if self.ema is not None:
+            self.ema = self._local_ema(restored.get("ema_params", restored["params"]))
+        self.current_epoch = int(meta["epoch"])
+        self.global_step = int(meta["global_step"])
+        self.best_val_score = float(meta["best_val_score"])
+        self.logger.info(f"Loaded orbax-backend checkpoint from epoch {self.current_epoch}")
 
     def _state_dict_on_device(self, params) -> Dict[str, Tensor]:
         return {k: v.to(self.device) for k, v in
@@ -499,11 +637,7 @@ class VideoCaptioningTrainer:
         opt = checkpoint["optimizer_state_dict"]
         raw = checkpoint.get("raw_model_state_dict", checkpoint["model_state_dict"])
         if isinstance(opt, dict) and opt.get("format") == OPTIMIZER_FORMAT:
-            if (opt["optimizer"] != type(self.optimizer).__name__
-                    or opt["param_names"] != self.trainable_names):
-                raise ValueError(f"{checkpoint_path}: saved with a different optimizer "
-                                 f"({opt['optimizer']}, {len(opt['param_names'])} trainable "
-                                 "tensors); resume with the training config used at save time")
+            self._check_optimizer(opt["optimizer"], opt["param_names"], checkpoint_path)
             opt_state = _to_torch(opt["state"])
         elif isinstance(opt, (tuple, OptaxState)):  # the JAX trainer's optax state
             opt_state = optim.torch_state_from_optax(opt, raw, self.config, self.trainable_names,
@@ -511,13 +645,13 @@ class VideoCaptioningTrainer:
         else:
             raise ValueError(f"{checkpoint_path}: the optimizer state is neither "
                              f"{OPTIMIZER_FORMAT!r} nor an optax state of the JAX trainer")
-        self.model.load_state_dict(self._state_dict_on_device(raw))
-        self.optimizer.load_state_dict(opt_state)
+        self._load_params(self._state_dict_on_device(raw))
+        self.optimizer.load_state_dict(self._local_optimizer_state(opt_state))
         if self.plateau is not None and "scheduler_state_dict" in checkpoint:
             self.plateau.load_state_dict(checkpoint["scheduler_state_dict"])
         if self.ema is not None:
             src = checkpoint.get("ema_state_dict", raw)  # no EMA saved: restart it
-            self.ema = {k: v.float() for k, v in self._state_dict_on_device(src).items()}
+            self.ema = self._local_ema(self._state_dict_on_device(src))
         self.current_epoch = checkpoint["epoch"]
         self.global_step = checkpoint.get("global_step", 0)
         self.best_val_score = checkpoint.get("best_val_score", -float("inf"))
