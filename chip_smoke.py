@@ -28,7 +28,8 @@ exits non-zero without printing the final result line:
    kernel launched twice on the same inputs and required bitwise equal,
    ``lstm_cell`` at N = 640 (In = 1024 and 512) and N = 128,
    ``bahdanau_attend`` at B = 128, S = 80, D = A = E = 512 with a ragged
-   mask and an all-masked row, ``vocab_topk_lse`` at (640, 512) x
+   mask and an all-masked row (and at five edge shapes, with and without a
+   mask; every launch repeated bitwise; graph-replay device times), ``vocab_topk_lse`` at (640, 512) x
    (512, 10000) and at odd shapes (N = 1, 37 with H = 200, 2560; Vp = 136)
    on integer operands (exact, ties crafted across tile and span
    boundaries) and at the main shape on random ones, each launched twice
@@ -38,7 +39,10 @@ exits non-zero without printing the final result line:
    ``beam_self_attention`` at the transformer's beam step (B = 128, K = 5,
    D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches) and
    ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, ragged mask
-   with an all-masked row), each also at small odd shapes, with the
+   with an all-masked row; its two launches a call checked in the
+   profile, graph-replay device time beside the PyTorch composite of its
+   whole function and SDPA's context alone), each also at odd shapes (the
+   cross kernel at eleven, every launch repeated bitwise), with the
    profiler's device time beside the CUDA-event time;
 4. the served slice, four times: the default full-width ``Config()`` (4096-d
    features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames),
@@ -189,6 +193,7 @@ import io
 import itertools
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -258,6 +263,7 @@ from video_captioning_tpu_torch.ops.topk import (
     topk2d_reference,
 )
 from video_captioning_tpu_torch.ops.transformer_attn import (
+    MASK_FILL,
     beam_cross_attention,
     beam_cross_attention_reference,
     beam_self_attention,
@@ -876,7 +882,8 @@ def check_lstm_cell(device: str, card: str) -> dict:
 def attention_inputs(device: str, B: int = 128, S: int = 80, D: int = 512, A: int = 512,
                      E: int = 512, seed: int = 8):
     """One decode step's attention operands; ragged frame counts, row 1
-    all masked."""
+    all masked, row 2 with one valid frame (the later CTAs' slices all
+    masked)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = 1.0 / D ** 0.5
 
@@ -888,32 +895,72 @@ def attention_inputs(device: str, B: int = 128, S: int = 80, D: int = 512, A: in
     enc_proj = torch.randn((B, S, A), generator=g) * 0.5
     lengths = torch.randint(1, S + 1, (B,), generator=g)
     lengths[0] = S
+    if B > 2:
+        lengths[2] = 1
     mask = (torch.arange(S)[None, :] < lengths[:, None]).to(torch.float32)
-    mask[1] = 0.0
+    if B > 1:
+        mask[1] = 0.0
     args = (h, u(A, D), u(A), enc_proj, enc_outs, u(A), u(1), mask)
     return tuple(a.to(device) for a in args)
 
 
+# bahdanau_attend's edge shapes (B, S, D, A, E): one frame; S not a multiple
+# of the cluster's split with A != E; a slice longer than a chunk (the
+# ring); A % 4 != 0 (loads without bulk copies); B = 37 (a partial dec_proj
+# row block).
+ATTN_EDGE_SHAPES = ((3, 1, 64, 32, 48), (37, 13, 64, 32, 48), (5, 2000, 64, 512, 512),
+                    (3, 41, 30, 30, 50), (37, 80, 512, 512, 512))
+
+
+def _attend_close(got, want) -> tuple:
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    rel = max(((a - b).abs() / b.abs().clamp_min(1.0)).max().item() for a, b in zip(got, want))
+    return err, rel
+
+
 def check_attention(device: str, card: str) -> dict:
     """The attention step against its plain version at B = 128 (the greedy
-    batch), D = A = E = 512, S = 80: context and weights within ATTN_TOL,
-    the all-masked row uniform."""
+    batch), D = A = E = 512, S = 80, and at ATTN_EDGE_SHAPES, each with a
+    ragged mask (an all-masked row, a row whose later slices are all
+    masked) and with none: context and weights within ATTN_TOL, the
+    all-masked row uniform within 1e-7, two launches bitwise equal."""
+    for B, S, D, A, E in ATTN_EDGE_SHAPES:
+        args = attention_inputs(device, B, S, D, A, E, seed=9)
+        for mask in (args[-1], None):
+            a = (*args[:-1], mask)
+            got = bahdanau_attend(*a)
+            again = bahdanau_attend(*a)
+            torch.cuda.synchronize()
+            err, rel = _attend_close(got, bahdanau_attend_reference(*a))
+            uniform = 0.0 if mask is None else (got[1][1] - 1.0 / S).abs().max().item()
+            if not (rel <= ATTN_TOL and uniform <= 1e-7 and same_bits(got, again)):
+                raise AssertionError(
+                    f"bahdanau_attend B={B} S={S} D={D} A={A} E={E} mask "
+                    f"{'ragged' if mask is not None else 'none'}: max err {err:.3g} (rel "
+                    f"{rel:.3g}) > {ATTN_TOL}, the all-masked row {uniform:.3g} from uniform, "
+                    f"or two launches differ")
+    print(f"[kernels] bahdanau_attend at {len(ATTN_EDGE_SHAPES)} edge shapes (B, S, D, A, E) "
+          f"{ATTN_EDGE_SHAPES}, ragged mask and none: within {ATTN_TOL}, all-masked rows "
+          f"uniform within 1e-7, two launches bitwise equal")
     args = attention_inputs(device)
     h, w_d, b_d, enc_proj, enc_outs, v, b_v, mask = args
     got = bahdanau_attend(*args)
+    again = bahdanau_attend(*args)
     want = bahdanau_attend_reference(*args)
     torch.cuda.synchronize()
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    rel = max(((a - b).abs() / b.abs().clamp_min(1.0)).max().item() for a, b in zip(got, want))
+    err, rel = _attend_close(got, want)
     S = mask.shape[1]
     uniform = (got[1][1] - 1.0 / S).abs().max().item()
     if rel > ATTN_TOL or uniform > 1e-7 or not torch.isfinite(got[0]).all():
         raise AssertionError(f"bahdanau_attend: max err {err:.3g} (rel {rel:.3g}) > {ATTN_TOL}, "
                              f"or the all-masked row is {uniform:.3g} from uniform")
+    if not same_bits(got, again):
+        raise AssertionError("bahdanau_attend: two launches on the same inputs differ")
     B, D = h.shape
     A, E = enc_proj.shape[2], enc_outs.shape[2]
     cfg = Config()
     attn = BahdanauAttention(cfg).to(device)
+    cold = [args, attention_inputs(device, seed=18)]  # 84 MB: each call misses L2
     with torch.no_grad():
         attn.decoder_projection.weight.copy_(w_d)
         attn.decoder_projection.bias.copy_(b_d)
@@ -922,6 +969,7 @@ def check_attention(device: str, card: str) -> dict:
         cache = {"enc_proj": enc_proj}
         res = dict(max_abs_err=err, ms=time_ms(lambda: bahdanau_attend(*args), 50),
                    graph_ms=graph_ms(lambda: bahdanau_attend(*args)),
+                   cold_graph_ms=graph_ms(_rotating(bahdanau_attend, cold), calls=10),
                    plain_ms=time_ms(lambda: bahdanau_attend_reference(*args), 50),
                    library_ms=time_ms(lambda: attend(cfg, attn, cache, enc_outs, h, mask), 50),
                    library_graph_ms=graph_ms(lambda: attend(cfg, attn, cache, enc_outs, h, mask)),
@@ -930,10 +978,11 @@ def check_attention(device: str, card: str) -> dict:
                            flops=2 * B * A * D + 3 * B * S * A + 2 * B * S * E,
                            peak_flops=F32_FLOPS))
     print(f"[kernels] bahdanau_attend B={B} S={S} D=A=E={D}: max abs err {err:.3g} (tol "
-          f"{ATTN_TOL}), all-masked row uniform within {uniform:.3g}; kernel {res['ms']:.4f} ms "
-          f"(device {res['graph_ms']:.4f} ms by graph replay), plain {res['plain_ms']:.4f} ms, "
-          f"eager attend (a 7-call composite) {res['library_ms']:.4f} ms (device "
-          f"{res['library_graph_ms']:.4f} ms), bound {res['bound_ms']:.4f} ms "
+          f"{ATTN_TOL}), all-masked row uniform within {uniform:.3g}, two launches bitwise "
+          f"equal; kernel {res['ms']:.4f} ms (device {res['graph_ms']:.4f} ms by graph replay, "
+          f"{res['cold_graph_ms']:.4f} ms with two input sets in turn), plain "
+          f"{res['plain_ms']:.4f} ms, eager attend (a 7-call composite) {res['library_ms']:.4f} "
+          f"ms (device {res['library_graph_ms']:.4f} ms), bound {res['bound_ms']:.4f} ms "
           f"({res['bound_by']}) ({card})")
     return res
 
@@ -1070,11 +1119,11 @@ def check_vocab_topk(device: str, card: str) -> dict:
     return res
 
 
-def device_ms(fn, calls: int, keys: tuple) -> float:
-    """Device time per call of the kernels whose names contain one of
-    ``keys``, from torch.profiler over ``calls`` calls after a warm-up: the
-    card's own time, where a CUDA-event time of a call shorter than its
-    host-side issue is the host's."""
+def kernel_profile(fn, calls: int) -> dict:
+    """{CUDA kernel name: (launches, device ms)} over ``calls`` calls of fn
+    after a warm-up, from torch.profiler: the card's own time, where a
+    CUDA-event time of a call shorter than its host-side issue is the
+    host's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1083,10 +1132,15 @@ def device_ms(fn, calls: int, keys: tuple) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.key for k in keys))
-    return total / 1e3 / calls
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_ms(fn, calls: int, keys: tuple) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``keys`` (kernel_profile)."""
+    return sum(ms for name, (_, ms) in kernel_profile(fn, calls).items()
+               if any(k in name for k in keys)) / calls
 
 
 def graph_ms(fn, calls: int = 10) -> float:
@@ -1189,68 +1243,124 @@ def check_beam_self_attention(device: str, card: str) -> dict:
 
 def beam_cross_inputs(device: str, B: int, K: int, S: int, D: int, seed: int,
                       dtype: torch.dtype = torch.float32):
-    """q, un-expanded keys and values, a ragged mask with row 1 fully masked."""
+    """q, un-expanded keys and values, a ragged mask with row 1 fully masked
+    and row 2 with one valid frame."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B * K, D), generator=g)
     ck = torch.randn((B, S, D), generator=g).to(dtype)
     cv = torch.randn((B, S, D), generator=g).to(dtype)
     lengths = torch.randint(1, S + 1, (B,), generator=g)
     lengths[0] = S
+    if B > 2:
+        lengths[2] = 1
     mask = (torch.arange(S)[None, :] < lengths[:, None]).to(torch.float32)
     mask[1] = 0.0
     return tuple(x.to(device) for x in (q, ck, cv, mask))
 
 
+# beam_cross_attention's edge shapes (B, K, S, D, heads, K/V dtype): S = 1;
+# S = 9 and 41 (41: a 32-frame chunk and a ragged one); 300 frames of
+# D = 1024 at K = 16 and 2000 frames at 16 heads; D = 2048 at K = 16; 12
+# heads; dh = 15 (no vector loads) and bfloat16 dh = 4.
+CROSS_EDGE_SHAPES = tuple(
+    [(3, 2, S, 64, 4, dt) for S in (1, 9, 41) for dt in (torch.float32, torch.bfloat16)]
+    + [(2, 16, 300, 1024, 8, torch.float32), (2, 16, 2000, 512, 16, torch.bfloat16),
+       (2, 16, 40, 2048, 16, torch.float32), (3, 5, 37, 96, 12, torch.float32),
+       (3, 2, 17, 60, 4, torch.float32), (3, 2, 17, 16, 4, torch.bfloat16)])
+
+
+# The kernels of one beam_cross_attention call: the per-head launch and the
+# head mean (csrc/transformer_attn.cu).
+CROSS_KERNELS = ("beam_cross_attn_kernel", "head_mean_kernel")
+
+
+def beam_cross_composite(q, ck, cv, mask, H: int, K: int):
+    """beam_cross_attention's whole function in PyTorch calls: batched
+    matmul, masked softmax, matmul and the mean over heads."""
+    B, S, D = ck.shape
+    dh = D // H
+    qh = q.view(B, K, H, dh).transpose(1, 2)
+    s = torch.matmul(qh, ck.view(B, S, H, dh).permute(0, 2, 3, 1)) * (1.0 / math.sqrt(dh))
+    w = torch.softmax(s.masked_fill(mask[:, None, None, :] <= 0, MASK_FILL), dim=-1)
+    ctx = torch.matmul(w, cv.view(B, S, H, dh).transpose(1, 2))
+    return ctx.transpose(1, 2).reshape(B * K, D), w.mean(dim=1).reshape(B * K, S)
+
+
 def check_beam_cross_attention(device: str, card: str) -> dict:
     """The one-query cross-attention kernel against its plain version at
     the fused beam step's shape (B = 128, K = 5, S = 80, D = 512, 8 heads)
-    and at small odd shapes (B = 3, K = 2, S = 9 and 41, D = 64, 4 heads;
-    float32 and bfloat16 keys and values), each with a ragged mask whose
-    row 1 is fully masked (uniform weights), and with no mask."""
-    shapes = [(3, 2, S, 64, 4, dt) for S in (9, 41) for dt in (torch.float32, torch.bfloat16)]
+    and at CROSS_EDGE_SHAPES, each with a ragged mask whose row 1 is fully
+    masked (uniform weights) and with no mask, two launches bitwise equal;
+    CROSS_KERNELS once each a call in the profile."""
     result = {}
-    for B, K, S, D, H, dtype in shapes + [(128, 5, 80, 512, 8, torch.float32)]:
+    for B, K, S, D, H, dtype in CROSS_EDGE_SHAPES + ((128, 5, 80, 512, 8, torch.float32),):
         layers = [beam_cross_inputs(device, B, K, S, D, seed=30 + i, dtype=dtype)
                   for i in range(2)]
         q, ck, cv, mask = layers[0]
-        err = 0.0
+        err, uniform = 0.0, 0.0
         for m in (mask, None):
             got = beam_cross_attention(q, ck, cv, m, H, K)
+            again = beam_cross_attention(q, ck, cv, m, H, K)
             want = beam_cross_attention_reference(q, ck, cv, m, H, K)
             torch.cuda.synchronize()
             err = max(err, max((a - b).abs().max().item() for a, b in zip(got, want)))
             if m is not None:
                 uniform = (got[1][K:2 * K] - 1.0 / S).abs().max().item()
+            if not same_bits(got, again):
+                raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D} h={H} "
+                                     f"{dtype}: two launches on the same inputs differ")
         if not (err <= BEAM_ATTN_ATOL and uniform <= 1e-7):
-            raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D}: max abs err "
-                                 f"{err:.3g}, fully masked row {uniform:.3g} from uniform")
-        if B == 3:
-            print(f"[kernels] beam_cross_attention B=3 K=2 S={S} D=64 h=4 {dtype}: within "
-                  f"{BEAM_ATTN_ATOL}, ragged mask and none, masked row uniform")
+            raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D} h={H} {dtype}: "
+                                 f"max abs err {err:.3g}, fully masked row {uniform:.3g} from "
+                                 f"uniform")
+        if B != 128:
+            print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} {dtype}: "
+                  f"within {BEAM_ATTN_ATOL} ({err:.3g}), ragged mask and none, masked row "
+                  f"uniform, two launches bitwise equal")
             continue
+        prof = kernel_profile(lambda: [beam_cross_attention(*a, H, K) for a in layers], 20)
+        if not all(any(k in name for k in CROSS_KERNELS) for name in prof):
+            raise AssertionError(f"beam_cross_attention launched {sorted(prof)}")
+        launches_per_call = sum(n for n, _ in prof.values()) / (20 * len(layers))
+        if launches_per_call != len(CROSS_KERNELS):
+            raise AssertionError(f"beam_cross_attention: {launches_per_call} launches a call")
+        dev = sum(t for _, t in prof.values()) / (20 * len(layers))
         ms = time_layers_ms(lambda *a: beam_cross_attention(*a, H, K), layers, calls=50)
-        dev = device_ms(lambda: [beam_cross_attention(*a, H, K) for a in layers], 20,
-                        ("beam_cross_attn_kernel", "head_mean_kernel")) / len(layers)
         plain_ms = time_layers_ms(lambda *a: beam_cross_attention_reference(*a, H, K),
                                   layers, calls=20)
 
-        def library(q, ck, cv, mask):
+        def sdpa(q, ck, cv, mask):
             dh = D // H
             add = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
             return torch.nn.functional.scaled_dot_product_attention(
                 q.reshape(B, K, H, dh).transpose(1, 2), ck.reshape(B, S, H, dh).transpose(1, 2),
                 cv.reshape(B, S, H, dh).transpose(1, 2), attn_mask=add)
 
-        lib_ms = time_layers_ms(library, layers, calls=50)
-        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        comp = beam_cross_composite(q, ck, cv, mask, H, K)
+        comp_err = max((a - b).abs().max().item()
+                       for a, b in zip(comp, beam_cross_attention_reference(q, ck, cv, mask, H, K)))
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   graph_ms=graph_ms(lambda: beam_cross_attention(q, ck, cv, mask, H, K)),
+                   cold_graph_ms=graph_ms(_rotating(lambda *a: beam_cross_attention(*a, H, K),
+                                                    layers), calls=10),
+                   profiler_ms=dev,
+                   library_ms=graph_ms(lambda: beam_cross_composite(q, ck, cv, mask, H, K)),
+                   library_cold_ms=graph_ms(_rotating(
+                       lambda *a: beam_cross_composite(*a, H, K), layers), calls=10),
+                   sdpa_context_only_ms=graph_ms(lambda: sdpa(q, ck, cv, mask)),
                    **bound(nbytes=4 * (2 * B * S * D + B * S + 2 * B * K * D + B * K * S),
                            flops=4 * B * K * S * D, peak_flops=F32_FLOPS))
         print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} float32: max abs "
-              f"err {err:.3g} (tol {BEAM_ATTN_ATOL}), masked row uniform within {uniform:.3g}; "
-              f"kernel {ms:.4f} ms (device time {dev:.4f} ms, profiler, both launches), plain "
-              f"{plain_ms:.4f} ms, SDPA (context only) {lib_ms:.4f} "
-              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); two layers' inputs "
-              f"alternate ({card})")
+              f"err {err:.3g} (tol {BEAM_ATTN_ATOL}), masked row uniform within {uniform:.3g}, "
+              f"two launches bitwise equal, {launches_per_call:g} launches a call ({sorted(prof)}); "
+              f"kernel "
+              f"{ms:.4f} ms (device {res['graph_ms']:.4f} ms by graph replay, "
+              f"{res['cold_graph_ms']:.4f} ms with two layers' inputs in turn, profiler "
+              f"{dev:.4f} ms), plain {plain_ms:.4f} ms, PyTorch composite (matmul, masked "
+              f"softmax, matmul, head mean; max err {comp_err:.3g}) device "
+              f"{res['library_ms']:.4f} ms ({res['library_cold_ms']:.4f} ms in turn), SDPA "
+              f"(context only) device {res['sdpa_context_only_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
         result["main"] = res
     return result["main"]
 

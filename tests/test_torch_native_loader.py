@@ -4,7 +4,14 @@ the port's Python path (``resample_features``) byte for byte and the JAX
 package's ``native.load_features_batch`` on the same files, for clips
 shorter than, equal to and longer than the target length; an unsupported
 layout returns None and the Python path is taken; and ``DataLoader``
-batches are equal with and without the native path."""
+batches are equal with and without the native path.
+
+The JAX package builds its library in place (``native/libvcload.so``, by
+``g++ -o`` with no lock), so a worker that loads it while another worker's
+``g++`` is still writing it gets "file too short" and that process keeps
+the Python path for good. The comparison therefore loads the JAX package's
+loader from a private build of its own ``vcload.cc``, made by its own
+``_build`` into this worker's temporary directory."""
 
 import unittest.mock as mock
 from pathlib import Path
@@ -12,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from video_captioning_tpu.native import load_features_batch as jax_load_features_batch
+import video_captioning_tpu.native as jax_native
 from video_captioning_tpu_torch import native
 from video_captioning_tpu_torch.config import Config as PortConfig
 from video_captioning_tpu_torch.data import pipeline
@@ -40,8 +47,22 @@ def test_library_builds_into_the_build_directory():
     assert not list(Path(native.__file__).resolve().parent.glob("*.so"))
 
 
+@pytest.fixture(scope="module")
+def jax_load_features_batch(tmp_path_factory):
+    """The JAX package's ``load_features_batch`` on a library that its own
+    ``_build`` compiled from its ``vcload.cc`` into a directory no other
+    process writes."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB", tmp_path_factory.mktemp("jax_native") / "libvcload.so")
+        mp.setattr(jax_native, "_lib_handle", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        assert jax_native.native_available()
+        yield jax_native.load_features_batch
+
+
 @pytest.mark.parametrize("lengths", [(5, 17, 79), (80, 80), (81, 200, 1000), (3, 80, 313)])
-def test_batches_equal_the_python_path_and_the_jax_loader(tmp_path, lengths):
+def test_batches_equal_the_python_path_and_the_jax_loader(tmp_path, lengths,
+                                                          jax_load_features_batch):
     paths = _files(tmp_path, lengths)
     got = native.load_features_batch(paths, TARGET, FEAT)
     assert got is not None and got.dtype == np.float32 and got.shape == (len(paths), TARGET, FEAT)
