@@ -22,9 +22,12 @@ exits non-zero without printing the final result line:
    ``torch.topk`` + ``torch.logsumexp``'s, ``lstm_seq`` at
    (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths
    (also its graph-replay device time, and at T = 1 and T = 80 for the
-   fixed cost and the cost a step), then ``lstm_seq`` (both xproj types)
-   and both ``lstm_seq_train`` launches at 12 small odd shapes (T in
-   (1, 5), B in (1, 3, 37), H in (40, 600), a length-1 row), every LSTM
+   fixed cost and the cost a step), the same at (80, 2, 128, 4096) for
+   the wide form (600 < H <= 1024) beside cuDNN's LSTM of width 1024,
+   then ``lstm_seq`` (both xproj types)
+   and both ``lstm_seq_train`` launches at 30 small odd shapes (T in
+   (1, 5), B in (1, 3, 37), H in (40, 600, 608, 1000, 1024), a length-1
+   row), every LSTM
    kernel launched twice on the same inputs and required bitwise equal,
    ``lstm_cell`` at N = 640 (In = 1024 and 512) and N = 128,
    ``bahdanau_attend`` at B = 128, S = 80, D = A = E = 512 with a ragged
@@ -69,10 +72,12 @@ exits non-zero without printing the final result line:
    agreement must be at least 0.95;
 5. ``lstm_seq_train``'s forward (outputs, final state, the three
    residuals) and backward (dxproj, dW_hh, random cotangents) against
-   their plain versions at (80, 2, 32, 2048) and (80, 2, 128, 2048), each
+   their plain versions at (80, 2, 32, 2048), (80, 2, 128, 2048) and, for
+   the wide forms, (80, 2, 32, 4096), each
    launched twice and required bitwise equal, with CUDA-event and
    graph-replay times, T = 1 against T = 80, and the backward's sweep and
-   dW_hh launches timed apart by the profiler;
+   dW_hh launches timed apart by the profiler, the dW_hh product also as
+   one bf16 ``bmm`` with float32 output;
 6. the training slice at full width (``Config()``, batch 32, label
    smoothing 0.1, Adam, clip 5): 96 synthetic clips and a CSV with a
    10000-word vocabulary, ``cli.train.main`` for 2 epochs on the card with
@@ -119,11 +124,14 @@ exits non-zero without printing the final result line:
    captions), ``cli.evaluate`` in file mode and in dataset mode over 16
    seeded clips, and ``cli.import_reference`` of a synthetic upstream state
    dict whose package is then served;
-10. a wide encoder (``encoder_hidden_dim=1024``, beyond the recurrence
-   kernels' limit): 8 clips served with beam 5 and one training step, no
-   ``lstm_seq*`` launch counted, the encoder's log line naming the gate
-   (``lstm_seq_eligible``), tokens equal to the CPU run and the loss within
-   STEP_LOSS_RTOL;
+10. a wide encoder (``encoder_hidden_dim=1024``, through the recurrence
+   kernels' wide forms): 8 clips served with beam 5 (one wide ``lstm_seq``
+   launch a layer) and one training step (one wide ``lstm_seq_train``
+   forward and backward a layer), the encoder's log line naming the kernel
+   and its limit (``lstm_seq_eligible``), tokens equal to the CPU run, the
+   loss and gradients within STEP_LOSS_RTOL / STEP_GRAD_RTOL, and the
+   encode of the 8 clips timed through the kernel and through the float32
+   scan;
 11. the LSTM decoder's other options at ``Config()`` widths
    (``run_decoder_options``): Luong dot, general and concat, multi-head
    with 8 heads and no attention, each served beam-5 at B = 128 (2
@@ -249,7 +257,11 @@ from video_captioning_tpu_torch.ops.lstm_cell import (
     lstm_cell_fused,
     lstm_cell_reference,
 )
-from video_captioning_tpu_torch.ops.lstm_seq import lstm_seq, lstm_seq_reference
+from video_captioning_tpu_torch.ops.lstm_seq import (
+    kernel_max_hidden,
+    lstm_seq,
+    lstm_seq_reference,
+)
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
     lstm_seq_train_bwd,
     lstm_seq_train_bwd_reference,
@@ -561,10 +573,15 @@ def graph_step_ms(fn_of_T, T_long: int = 80) -> dict:
     return {"T1_graph_ms": t1, f"T{T_long}_graph_ms": tl, "step_us": (tl - t1) / (T_long - 1) * 1e3}
 
 
-def check_lstm(device: str, card: str) -> dict:
+def check_lstm(device: str, card: str, H: int = 512) -> dict:
+    """``lstm_seq`` at (80, 2, 128, 4H), float32 and bfloat16 xproj, against
+    its plain version, launched twice and required bitwise equal; times by
+    CUDA events and graph replay beside the plain version, the bound and
+    cuDNN's bidirectional LSTM layer of width H. H = 512 is the main path's
+    narrow form, H = 1024 the wide form."""
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
-        xproj, w, mask = lstm_inputs(device, dtype)
+        xproj, w, mask = lstm_inputs(device, dtype, H=H)
         got = lstm_seq(xproj, w, mask)
         want = lstm_seq_reference(xproj, w, mask)
         again = lstm_seq(xproj, w, mask)
@@ -573,14 +590,15 @@ def check_lstm(device: str, card: str) -> dict:
         err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
         pad = mask.T[:, None, :, None].expand(got[0].shape) == 0
         if err > LSTM_ATOL[dtype] or bool((got[0][pad] != 0).any()):
-            raise AssertionError(f"lstm_seq {dtype}: max abs err {err:.3g} > "
+            raise AssertionError(f"lstm_seq H={H} {dtype}: max abs err {err:.3g} > "
                                  f"{LSTM_ATOL[dtype]} or a padded step emitted nonzero")
         if not same_bits((got[0], *got[1]), (again[0], *again[1])):
-            raise AssertionError(f"lstm_seq {dtype}: two launches on the same inputs differ")
+            raise AssertionError(f"lstm_seq H={H} {dtype}: two launches on the same inputs "
+                                 f"differ")
         ms = time_ms(lambda: lstm_seq(xproj, w, mask), calls=10)
         dev_ms = graph_ms(lambda: lstm_seq(xproj, w, mask))
         plain_ms = time_ms(lambda: lstm_seq_reference(xproj, w, mask), calls=3)
-        print(f"[kernels] lstm_seq (80, 2, 128, 2048) {dtype}: max abs err {err:.3g} "
+        print(f"[kernels] lstm_seq {tuple(xproj.shape)} {dtype}: max abs err {err:.3g} "
               f"(tol {LSTM_ATOL[dtype]}), two launches bitwise equal; kernel {ms:.4f} ms "
               f"(graph {dev_ms:.4f} ms), plain {plain_ms:.4f} ms ({card})")
         T, ND, B, H4 = xproj.shape
@@ -592,8 +610,10 @@ def check_lstm(device: str, card: str) -> dict:
         with torch.no_grad():
             lib_ms = time_ms(lambda: lstm(x), calls=10)
         if dtype == torch.bfloat16:
-            print(f"[kernels] lstm_seq {dtype}: bound {lim['bound_ms']:.4f} ms "
+            print(f"[kernels] lstm_seq H={H} {dtype}: bound {lim['bound_ms']:.4f} ms "
                   f"({lim['bound_by']}), cuDNN LSTM forward in {dtype} {lib_ms:.4f} ms ({card})")
+            result["main"]["bf16"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                                          plain_ms=plain_ms, library_ms=lib_ms, **lim)
         if "main" not in result:
             def seq_call(n):
                 x_n, m_n = xproj[:n], mask[:, :n].contiguous()
@@ -602,7 +622,7 @@ def check_lstm(device: str, card: str) -> dict:
             steps = graph_step_ms(seq_call)
             result["main"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   graph_ms=dev_ms, **steps, **lim)
-            print(f"[kernels] lstm_seq: bound {result['main']['bound_ms']:.4f} ms "
+            print(f"[kernels] lstm_seq H={H}: bound {result['main']['bound_ms']:.4f} ms "
                   f"({result['main']['bound_by']}), cuDNN LSTM forward {lib_ms:.4f} ms; "
                   f"graph T=1 {steps['T1_graph_ms']:.4f} ms, T=80 {steps['T80_graph_ms']:.4f} "
                   f"ms: {steps['step_us']:.3f} us a step ({card})")
@@ -610,10 +630,13 @@ def check_lstm(device: str, card: str) -> dict:
 
 
 # Small odd shapes the kernels' tiling must take: B not a multiple of the
-# row chunks, H = 40 (not a multiple of 16 or 32) and H = 600 (the largest),
-# T = 1 (no recurrent product) and 5; a ragged mask whose last row has
-# length 1 (row 0 full).
-LSTM_EDGE_SHAPES = tuple((T, B, H) for T in (1, 5) for B in (1, 3, 37) for H in (40, 600))
+# row chunks, H = 40 (not a multiple of 16 or 32) and H = 600 (the narrow
+# forms' largest), H = 608 (the wide forms' smallest), 1000 (not a multiple
+# of 16: half a unit group masked) and 1024 (the largest), T = 1 (no
+# recurrent product) and 5; a ragged mask whose last row has length 1 (row
+# 0 full).
+LSTM_EDGE_HIDDEN = (40, 600, 608, 1000, 1024)
+LSTM_EDGE_SHAPES = tuple((T, B, H) for T in (1, 5) for B in (1, 3, 37) for H in LSTM_EDGE_HIDDEN)
 
 
 def lstm_edge_inputs(device: str, dtype: torch.dtype, T: int, B: int, H: int):
@@ -669,7 +692,7 @@ def check_lstm_edges(device: str, card: str) -> None:
                                  f"two launches differ")
         worst["train_bwd"] = max(worst["train_bwd"], rel)
     print(f"[kernels] lstm_seq and lstm_seq_train at {len(LSTM_EDGE_SHAPES)} odd shapes "
-          f"(T in (1, 5), B in (1, 3, 37), H in (40, 600), a length-1 row): worst errors "
+          f"(T in (1, 5), B in (1, 3, 37), H in {LSTM_EDGE_HIDDEN}, a length-1 row): worst errors "
           f"{worst} (lstm_seq abs, fwd abs, bwd relative to the largest value), every kernel "
           f"launched twice bitwise equal ({card})")
 
@@ -684,13 +707,27 @@ def cudnn_lstm(B: int, device: str, T=80, H=512, dtype=torch.float32):
     return lstm, x
 
 
-def check_lstm_train(device: str, card: str, B: int) -> dict:
+def dw_library_call(h_keep: torch.Tensor, dxproj: torch.Tensor):
+    """The dW_hh launches' function as one PyTorch call, for timing beside
+    them: the batched product of bf16 h_keep[t - 1]^T and bf16 dxproj[t]
+    over t >= 1 and the rows, float32 out (``aten::bmm.dtype``), on
+    operands cast and laid out beforehand."""
+    T, ND, B, H = h_keep.shape
+    h = h_keep[:-1].permute(1, 3, 0, 2).reshape(ND, H, (T - 1) * B).to(torch.bfloat16)
+    dx = dxproj[1:].permute(1, 0, 2, 3).reshape(ND, (T - 1) * B, 4 * H).to(torch.bfloat16)
+    h, dx = h.contiguous(), dx.contiguous()
+    return lambda: torch.ops.aten.bmm.dtype(h, dx, torch.float32)
+
+
+def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
     """Forward (outputs, final state, the three residuals) and backward
     (dxproj, dW_hh, with random cotangents) against the plain versions on
     the card, float32 xproj, ragged mask; each launched twice and required
     bitwise equal. Times: CUDA events, graph replay, the sweep and dW_hh
-    launches apart (profiler), T = 1 against T = 80."""
-    T, ND, H = 80, 2, 512
+    launches apart (profiler), T = 1 against T = 80; cuDNN's bidirectional
+    LSTM layer of width H, and the dW_hh product as one bf16 ``bmm``.
+    H = 512 is the main path's narrow form, H = 1024 the wide form."""
+    T, ND = 80, 2
     xproj, w, mask = lstm_inputs(device, torch.float32, T=T, ND=ND, B=B, H=H)
     got = lstm_seq_train_fwd(xproj, w, mask)
     again = lstm_seq_train_fwd(xproj, w, mask)
@@ -699,10 +736,11 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     names = ("outs", "h_last", "c_last", "gact", "h_keep", "c_keep")
     fwd_err = {n: (a.float() - b.float()).abs().max().item() for n, a, b in zip(names, got, want)}
     if max(fwd_err.values()) > LSTM_TRAIN_FWD_ATOL:
-        raise AssertionError(f"lstm_seq_train_fwd B={B}: max abs err {fwd_err} > "
+        raise AssertionError(f"lstm_seq_train_fwd B={B} H={H}: max abs err {fwd_err} > "
                              f"{LSTM_TRAIN_FWD_ATOL}")
     if not same_bits(got, again):
-        raise AssertionError(f"lstm_seq_train_fwd B={B}: two launches on the same inputs differ")
+        raise AssertionError(f"lstm_seq_train_fwd B={B} H={H}: two launches on the same "
+                             f"inputs differ")
     g = torch.Generator(device="cpu").manual_seed(2)
     douts = torch.randn((T, ND, B, H), generator=g).to(device)
     dh_last, dc_last = (torch.randn((ND, B, H), generator=g).to(device) for _ in range(2))
@@ -725,10 +763,11 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     for n, a, b in zip(("dxproj", "dW_hh"), bgot, bwant):
         bwd_err[n] = ((a - b).abs().max() / b.abs().max()).item()
     if max(bwd_err.values()) > LSTM_TRAIN_BWD_RTOL:
-        raise AssertionError(f"lstm_seq_train_bwd B={B}: max err relative to the largest "
+        raise AssertionError(f"lstm_seq_train_bwd B={B} H={H}: max err relative to the largest "
                              f"value {bwd_err} > {LSTM_TRAIN_BWD_RTOL}")
     if not same_bits(bgot, bagain):
-        raise AssertionError(f"lstm_seq_train_bwd B={B}: two launches on the same inputs differ")
+        raise AssertionError(f"lstm_seq_train_bwd B={B} H={H}: two launches on the same "
+                             f"inputs differ")
     out = {"fwd": dict(max_abs_err=max(fwd_err.values())),
            "bwd": dict(max_abs_err=max((a - b).abs().max().item()
                                        for a, b in zip(bgot, bwant)))}
@@ -758,7 +797,10 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
     dw_bound = bound(nbytes=f4 * ((T - 1) * ND * B * H * 5 + ND * H * 4 * H),
                      flops=2 * (T - 1) * ND * B * H * 4 * H, peak_flops=BF16_FLOPS)
     out["bwd"]["dw_bound_ms"] = dw_bound["bound_ms"]
-    lstm, x = cudnn_lstm(B, device)
+    dw_lib = dw_library_call(res[1], bgot[0])
+    dw_lib_rel = ((dw_lib() - bgot[1]).abs().max() / bgot[1].abs().max()).item()
+    out["bwd"]["dw_library_ms"] = graph_ms(dw_lib)
+    lstm, x = cudnn_lstm(B, device, H=H)
     y, _ = lstm(x)
     dy = torch.randn_like(y)
     params = [x, *lstm.parameters()]
@@ -775,7 +817,9 @@ def check_lstm_train(device: str, card: str, B: int) -> dict:
           f"{f['library_ms']:.4f} ms; bwd kernels {b_['ms']:.4f} ms (graph {b_['graph_ms']:.4f} "
           f"ms; T=1 {b_['T1_graph_ms']:.4f} ms, {b_['step_us']:.3f} us a step; profiler: sweep "
           f"{b_['sweep_device_ms']:.4f} ms, dW_hh {b_['dw_device_ms']:.4f} ms against its bound "
-          f"{b_['dw_bound_ms']:.4f} ms), plain {b_['plain_ms']:.4f} ms, bound "
+          f"{b_['dw_bound_ms']:.4f} ms; one bf16 bmm of the same product, float32 out, "
+          f"{b_['dw_library_ms']:.4f} ms by graph replay, {dw_lib_rel:.3g} from the kernels' "
+          f"dW_hh relative to its largest value), plain {b_['plain_ms']:.4f} ms, bound "
           f"{b_['bound_ms']:.4f} ms, cuDNN LSTM bwd {b_['library_ms']:.4f} ms ({card})")
     return out
 
@@ -1362,6 +1406,31 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
               f"(context only) device {res['sdpa_context_only_ms']:.4f} ms, bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}) ({card})")
         result["main"] = res
+    # The main shape with bfloat16 K/V (the transformer_cross_kv_bf16 cache):
+    # the kernel widens K/V exactly, so the library composite runs on their
+    # float32 casts (the casts included in its time).
+    B, K, S, D, H = 128, 5, 80, 512, 8
+    q, ck, cv, mask = beam_cross_inputs(device, B, K, S, D, seed=30, dtype=torch.bfloat16)
+    got = beam_cross_attention(q, ck, cv, mask, H, K)
+    want = beam_cross_attention_reference(q, ck, cv, mask, H, K)
+    sync(device)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if err > BEAM_ATTN_ATOL:
+        raise AssertionError(f"beam_cross_attention bf16 K/V: max abs err {err:.3g}")
+    bf16 = dict(max_abs_err=err,
+                graph_ms=graph_ms(lambda: beam_cross_attention(q, ck, cv, mask, H, K)),
+                plain_ms=time_ms(lambda: beam_cross_attention_reference(q, ck, cv, mask, H, K),
+                                 calls=20),
+                library_ms=graph_ms(lambda: beam_cross_composite(q, ck.float(), cv.float(),
+                                                                 mask, H, K)),
+                **bound(nbytes=2 * 2 * B * S * D + 4 * (B * S + 2 * B * K * D + B * K * S),
+                        flops=4 * B * K * S * D, peak_flops=F32_FLOPS))
+    print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} bf16 K/V: max abs err "
+          f"{err:.3g} (tol {BEAM_ATTN_ATOL}); kernel device {bf16['graph_ms']:.4f} ms by graph "
+          f"replay, plain {bf16['plain_ms']:.4f} ms, PyTorch composite on the float32 casts "
+          f"(casts included) device {bf16['library_ms']:.4f} ms, bound {bf16['bound_ms']:.4f} "
+          f"ms ({bf16['bound_by']}) ({card})")
+    result["main"]["bf16"] = bf16
     return result["main"]
 
 
@@ -2551,50 +2620,77 @@ def run_entry_points(card: str, device: str = "cuda", n_clips: int = 16, n_video
                          for k in launch_counts()}}
 
 
+def encode_ms(predictor: VideoCaptionPredictor, clips: np.ndarray, config: Config) -> float:
+    """CUDA-event time of the predictor's model encoding ``clips`` (all
+    frames valid) under ``config``'s kernel flags."""
+    feats = torch.from_numpy(np.ascontiguousarray(clips)).to(predictor.device)
+    with torch.no_grad():
+        return time_ms(lambda: encode(predictor.model, config, feats), calls=5)
+
+
 def run_wide_encoder(card: str, clips: np.ndarray, device: str = "cuda") -> dict:
-    """``encoder_hidden_dim = 1024``, past the recurrence kernels' limit:
-    8 clips with beam 5 and one training step on ``device``, the encoder's
-    log naming the gate, no ``lstm_seq*`` launch, tokens equal to the CPU
-    run (the gate evaluated as on the card) and the loss within
-    STEP_LOSS_RTOL."""
+    """``encoder_hidden_dim = 1024``, inside the recurrence kernels' domain
+    through their wide forms: 8 clips with beam 5 and one training step on
+    ``device``, the encoder's log naming the kernel and its limit, one
+    ``lstm_seq`` launch (the wide form) a layer, tokens equal to the CPU run
+    (the gate evaluated as on the card: the plain versions), the step's loss
+    and gradients within STEP_LOSS_RTOL / STEP_GRAD_RTOL with one wide
+    ``lstm_seq_train`` forward and backward a layer; and the encode of the
+    8 clips timed through the kernel and through the float32 scan (the
+    ``use_pallas_lstm_seq`` flag off), in this call."""
     config = Config()
     config.model.encoder_hidden_dim = 1024
     config.validate()
+    L = config.model.encoder_num_layers
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         pkg = smoke_package(tmp, config)
         with encoder_log() as lines:
             predictor = VideoCaptionPredictor(pkg, device=device)
             results, served = counted(device, "H=1024 beam-5 x 8",
-                                      {"lstm_seq": 0, "topk2d_lse": 20},
+                                      {"lstm_seq": L, "lstm_seq_wide": L, "topk2d_lse": 20},
                                  lambda: predictor.predict_batch(list(clips[:8]), method="beam",
                                                                  beam_size=5))
         with recurrence_gate_as_on_card():
             cpu = VideoCaptionPredictor(pkg, config=interpret_config(config),
                                         device="cpu").predict_batch(list(clips[:8]),
                                                                     method="beam", beam_size=5)
+        timing = {}
+        if device == "cuda":
+            scan = Config.from_dict(predictor.config.to_dict())
+            scan.kernels.use_pallas_lstm_seq = False
+            timing["kernel_encode_ms"] = encode_ms(predictor, clips[:8], predictor.config)
+            timing["scan_encode_ms"] = encode_ms(predictor, clips[:8], scan)
     share = agreement(results, cpu)
     gate_lines = [line for line in lines if "lstm_seq_eligible" in line]
+    limit = kernel_max_hidden() if device == "cuda" else None
     print(f"[wide] encoder H=1024 served 8 clips on {device}: launches "
-          f"{ {k: served[k] for k in ('lstm_seq', 'topk2d_lse')} }; tokens, card vs CPU: "
-          f"agreement {share:.4f}; the encoder's log: {gate_lines}")
+          f"{ {k: served[k] for k in ('lstm_seq', 'lstm_seq_wide', 'topk2d_lse')} }; tokens, "
+          f"card vs CPU: agreement {share:.4f}; the encoder's log: {gate_lines}; encode of the "
+          f"8 clips (2 layers): through lstm_seq {timing.get('kernel_encode_ms', 0.0):.4f} ms, "
+          f"through the float32 scan {timing.get('scan_encode_ms', 0.0):.4f} ms ({card})")
     if share < 1.0 or (device == "cuda" and not any(
-            "H=1024" in line and "lstm_scan" in line for line in gate_lines)):
+            "H=1024" in line and f"lstm_seq limit {limit}" in line and "lstm_scan" not in line
+            for line in gate_lines)):
         raise AssertionError(f"wide encoder: agreement {share}, log {lines}")
     with encoder_log() as lines:
         parity = check_step_parity(card, config, device)
     n = parity["launches"]
-    print(f"[wide] one training step at H=1024: launches "
-          f"{ {k: n[k] for k in ('lstm_seq', 'lstm_seq_train_fwd', 'lstm_seq_train_bwd')} }; "
+    train_keys = ("lstm_seq", "lstm_seq_train_fwd", "lstm_seq_train_bwd",
+                  "lstm_seq_train_fwd_wide", "lstm_seq_train_bwd_wide")
+    print(f"[wide] one training step at H=1024: launches { {k: n[k] for k in train_keys} }; "
           f"the encoder's log: "
           f"{[line for line in lines if 'lstm_seq_eligible' in line]}; "
           f"{time.perf_counter() - t0:.1f} s wall in the phase ({card})")
-    if device == "cuda" and (n["lstm_seq_train_fwd"] or n["lstm_seq_train_bwd"] or n["lstm_seq"]
-                             or not any("lstm_seq_train limit" in line and "lstm_scan" in line
-                                        for line in lines)):
+    want = {"lstm_seq": 0, "lstm_seq_train_fwd": L, "lstm_seq_train_bwd": L,
+            "lstm_seq_train_fwd_wide": L, "lstm_seq_train_bwd_wide": L}
+    if device == "cuda" and ({k: n[k] for k in want} != want or not any(
+            f"lstm_seq_train limit {limit}" in line and "lstm_scan" not in line
+            for line in lines if "lstm_seq_eligible" in line)):
         raise AssertionError(f"wide encoder training step: launches {n}, log {lines}")
     return {"launches": {k: served[k] + n[k] for k in n}, "agreement": share,
-            "loss_rel": parity["loss_rel"]}
+            "loss_rel": parity["loss_rel"], **timing}
+
 
 def options_config(attention: str, score: str = "general", use_attention: bool = True,
                    fused: bool = False) -> Config:
@@ -3590,6 +3686,7 @@ def main() -> int:
     topk = check_topk("cuda", smi)
     topk_k = check_topk2d("cuda", smi)
     lstm = check_lstm("cuda", smi)
+    lstm_wide = check_lstm("cuda", smi, H=1024)
     check_lstm_edges("cuda", smi)
     cell = check_lstm_cell("cuda", smi)
     attn = check_attention("cuda", smi)
@@ -3608,7 +3705,9 @@ def main() -> int:
     train128 = check_lstm_train("cuda", smi, B=128)
     # The B = 128 backward (bench.py's batch) and cuDNN's, beside B = 32's.
     train["bwd"]["b128"] = {k: train128["bwd"][k] for k in (
-        "ms", "graph_ms", "sweep_device_ms", "dw_device_ms", "bound_ms", "library_ms")}
+        "ms", "graph_ms", "sweep_device_ms", "dw_device_ms", "dw_library_ms", "bound_ms",
+        "library_ms")}
+    train_wide = check_lstm_train("cuda", smi, B=32, H=1024)
     tr = run_training(smi, config)
     check_step_parity(smi, config)
     check_overfit_and_profile(smi, config)
@@ -3643,6 +3742,14 @@ def main() -> int:
          "video_captioning_tpu/ops/lstm_seq_pallas.py:180", train["fwd"]),
         ("lstm_seq_train_bwd", "lstm_seq_train_bwd", train_src,
          "video_captioning_tpu/ops/lstm_seq_pallas.py:244", train["bwd"]),
+        # The wide forms (600 < H <= 1024) of the three: other kernels of
+        # the same sources, launched by the H = 1024 encoder's phase.
+        ("lstm_seq_wide", "lstm_seq_wide", "video_captioning_tpu_torch/csrc/lstm_seq.cu",
+         "video_captioning_tpu/ops/lstm_seq_pallas.py:49", lstm_wide),
+        ("lstm_seq_train_fwd_wide", "lstm_seq_train_fwd_wide", train_src,
+         "video_captioning_tpu/ops/lstm_seq_pallas.py:180", train_wide["fwd"]),
+        ("lstm_seq_train_bwd_wide", "lstm_seq_train_bwd_wide", train_src,
+         "video_captioning_tpu/ops/lstm_seq_pallas.py:244", train_wide["bwd"]),
         # No caller on any path, in either package: launched by the kernel
         # phase only, so its main-path count is 0.
         ("topk2d", "topk2d", "video_captioning_tpu_torch/csrc/topk_lse.cu",

@@ -2,9 +2,10 @@
 whether the encoder's recurrence takes the ``lstm_seq`` /
 ``lstm_seq_train`` kernels, and ``fused_vocab_eligible`` whether the beam
 step takes ``vocab_topk_lse``. The card's limits are patched in as
-``chip_smoke.gate_as_on_card`` does; an H = 1024 encoder, outside the
-recurrence kernels' domain on the card, serves and trains as the JAX
-package's float32 scan does."""
+``chip_smoke.gate_as_on_card`` does; an H = 1024 encoder, inside the
+recurrence kernels' domain on the card (their wide forms), serves and
+trains as the JAX package's Pallas kernels (interpret mode) do, and an
+encoder past the limit takes the float32 scan."""
 
 import importlib
 import logging
@@ -35,7 +36,7 @@ from video_captioning_tpu_torch.ops.vocab_topk import vocab_partition
 from video_captioning_tpu_torch.training.losses import label_smoothed_cross_entropy
 
 t_lstm_seq = importlib.import_module("video_captioning_tpu_torch.ops.lstm_seq")
-CARD_LIMIT = 600  # kMaxHidden of csrc/lstm_seq_fwd.cuh, both recurrence kernels
+CARD_LIMIT = 1024  # kMaxWideHidden of csrc/lstm_seq_fwd.cuh, both recurrence kernels
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 
 
@@ -55,16 +56,18 @@ def card_limits(monkeypatch):
 def test_lstm_seq_gate_on_the_card(card_limits, train):
     gate = t_lstm_seq.lstm_seq_eligible
     assert gate(512, torch.float32, CUDA, train) and gate(512, torch.bfloat16, CUDA, train)
-    assert gate(600, torch.float32, CUDA, train)
-    assert not gate(1024, torch.float32, CUDA, train)
-    assert not gate(604, torch.float32, CUDA, train)   # above the limit
-    assert not gate(102, torch.float32, CUDA, train)  # not a multiple of 8
+    assert gate(600, torch.float32, CUDA, train)  # the narrow forms' largest
+    assert gate(608, torch.float32, CUDA, train) and gate(1000, torch.bfloat16, CUDA, train)
+    assert gate(1024, torch.float32, CUDA, train) and gate(1024, torch.bfloat16, CUDA, train)
+    assert not gate(CARD_LIMIT + 8, torch.float32, CUDA, train)  # above the limit
+    assert not gate(1020, torch.float32, CUDA, train)  # not a multiple of 8
+    assert not gate(102, torch.float32, CUDA, train)
     assert not gate(512, torch.float16, CUDA, train)
     # The plain versions take every H.
     assert gate(1024, torch.float32, CPU, train) and gate(102, torch.float32, CPU, train)
 
 
-@pytest.mark.parametrize("H,takes", [(512, True), (1024, False)])
+@pytest.mark.parametrize("H,takes", [(512, True), (1024, True), (CARD_LIMIT + 8, False)])
 def test_encoder_dispatch_is_decided_once_and_logged(card_limits, caplog, H, takes):
     cfg = PortConfig()
     cfg.model.cnn_feature_dim, cfg.model.encoder_hidden_dim = 24, H
@@ -94,29 +97,48 @@ def test_fused_vocab_gate_checks_the_decoder_width(H):
     assert not t_beam.fused_vocab_eligible(cfg, CPU, 128, 5, 10000)
 
 
-def _wide_config(tiny_config):
+def _wide_config(tiny_config, H):
     cfg = tiny_config
-    cfg.model.encoder_hidden_dim = 1024  # a width config.py accepts
+    cfg.model.encoder_hidden_dim = H  # widths config.py accepts
     cfg.data.vocab_threshold = 1
+    # At H = 1024 the card's gate takes the recurrence kernels, so the JAX
+    # side runs its Pallas kernels (interpret mode) for the same contract;
+    # past the limit both sides run float32 scans.
+    cfg.kernels.interpret = H <= CARD_LIMIT
     cfg.validate()
     return cfg
 
 
 @pytest.fixture
-def no_recurrence_kernel(monkeypatch):
-    def refuse(*a, **k):
-        raise AssertionError("the recurrence kernel ran outside its domain")
+def recurrence_calls(monkeypatch):
+    """Counts the encoder's calls of the recurrence kernels' wrappers (on
+    the CPU: their plain versions)."""
+    calls = {"lstm_seq": 0, "lstm_seq_train": 0}
+    for name in calls:
+        fn = getattr(t_encoder, name)
 
-    monkeypatch.setattr(t_encoder, "lstm_seq", refuse)
-    monkeypatch.setattr(t_encoder, "lstm_seq_train", refuse)
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(t_encoder, name, counted)
+    return calls
 
 
-def test_wide_encoder_serves_as_jax(tiny_config, tmp_path, card_limits, no_recurrence_kernel):
-    """encoder_hidden_dim = 1024 with the kernel flags on and
-    ``kernels.interpret`` (the card's branch on the CPU): the gate sends the
-    encoder to lstm_scan, and beam and greedy tokens equal the JAX
-    predictor's (its lax.scan off the TPU)."""
-    cfg = _wide_config(tiny_config)
+# H = 1024: the kernels' wide forms on the card; CARD_LIMIT + 8: past the
+# limit, the float32 scan.
+WIDE_ROUTES = [1024, CARD_LIMIT + 8]
+
+
+@pytest.mark.parametrize("H", WIDE_ROUTES)
+def test_wide_encoder_serves_as_jax(tiny_config, tmp_path, card_limits, recurrence_calls, H):
+    """A wide encoder with the kernel flags on and ``kernels.interpret``
+    (the card's branch on the CPU): at H = 1024 the gate sends the port's
+    encoder to ``lstm_seq`` (its plain version here, the wide kernel on the
+    card) and the JAX predictor's to ``lstm_seq_pallas`` in interpret mode;
+    past the limit the port takes ``lstm_scan`` and JAX its ``lax.scan``.
+    Beam and greedy tokens are equal."""
+    cfg = _wide_config(tiny_config, H)
     vocab = Vocabulary(cfg)
     vocab.build_vocabulary(["a man rides a horse", "a dog runs fast", "the cat sleeps"])
     params = jax.tree_util.tree_map(np.asarray, init_model(jax.random.PRNGKey(1), cfg, len(vocab)))
@@ -132,13 +154,24 @@ def test_wide_encoder_serves_as_jax(tiny_config, tmp_path, card_limits, no_recur
         want = jp.predict_batch(feats, method=method, beam_size=3)
         got = tp.predict_batch(feats, method=method, beam_size=3)
         assert [r["tokens"] for r in got] == [list(r["tokens"]) for r in want]
+    assert (recurrence_calls["lstm_seq"] > 0) is (H <= CARD_LIMIT)
+    assert recurrence_calls["lstm_seq_train"] == 0
 
 
-def test_wide_encoder_trains_as_jax(tiny_config, card_limits, no_recurrence_kernel):
-    """One teacher-forced step at encoder_hidden_dim = 1024, dropout off:
-    the loss within 1e-5 relative and every gradient within 1e-4 of its
-    largest value of jax.value_and_grad of the JAX loss (lax.scan)."""
-    cfg = _wide_config(tiny_config)
+@pytest.mark.parametrize("H", WIDE_ROUTES)
+def test_wide_encoder_trains_as_jax(tiny_config, card_limits, recurrence_calls, H):
+    """One teacher-forced step of a wide encoder, dropout off, against
+    jax.value_and_grad of the JAX loss: at H = 1024 the port's encoder
+    takes ``lstm_seq_train`` (its plain versions here, the wide kernels on
+    the card) and JAX its Pallas ``lstm_seq_train`` in interpret mode; past
+    the limit both take float32 scans. The loss within 1e-5 relative; every
+    gradient within 1e-4 of its largest value on the float32 scans, and
+    within 2^-8 on the kernels' bf16 contract: where the two sum in another
+    order, a bf16 rounding of an h or dgates value can flip by one ulp,
+    which moves its term of the gradient by at most 2^-8 of the term (at
+    H = 16, tests/test_torch_train.py sees under 1e-3 of the largest value;
+    at H = 1024, with 4M entries of W_hh a direction, 1.1e-3)."""
+    cfg = _wide_config(tiny_config, H)
     params = jax.tree_util.tree_map(np.asarray, init_model(jax.random.PRNGKey(2), cfg, 23))
     pcfg = PortConfig.from_dict(cfg.to_dict())
     pcfg.kernels.interpret = True
@@ -162,8 +195,11 @@ def test_wide_encoder_trains_as_jax(tiny_config, card_limits, no_recurrence_kern
     flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
     flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
     top = max(float(np.abs(np.asarray(w)).max()) for _, w in flat_w)
+    rel = 2 ** -8 if H <= CARD_LIMIT else 1e-4
     for (path, w), (_, g) in zip(flat_w, flat_g):
         w = np.asarray(w)
         scale = max(float(np.abs(w).max()), 1e-3 * top)
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * scale,
+        np.testing.assert_allclose(g, w, rtol=0, atol=rel * scale,
                                    err_msg=jax.tree_util.keystr(path))
+    assert recurrence_calls["lstm_seq_train"] == (2 if H <= CARD_LIMIT else 0)
+    assert recurrence_calls["lstm_seq"] == 0

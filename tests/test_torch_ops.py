@@ -195,7 +195,9 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
                                "lstm_cell_fused": 0, "vocab_topk_lse": 0,
                                "beam_self_attention": 0, "beam_cross_attention": 0,
                                "fused_bottleneck": 0, "matmul_bias_act": 0,
-                               "int8_matmul_requant": 0, "int8_matmul_residual_requant": 0}
+                               "int8_matmul_requant": 0, "int8_matmul_residual_requant": 0,
+                               "lstm_seq_wide": 0, "lstm_seq_train_fwd_wide": 0,
+                               "lstm_seq_train_bwd_wide": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

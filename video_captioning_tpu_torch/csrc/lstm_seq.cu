@@ -11,7 +11,7 @@
 // float32; a padded step (mask <= 0) carries the state and emits 0; the
 // final (h, c) is the state at each row's last valid step. Outputs are in
 // xproj's type (float32 or bfloat16). Any B >= 1, H a multiple of 8 up to
-// 600.
+// 1024: the narrow form up to 600, the wide form above (lstm_seq_fwd.cuh).
 //
 // What bounds it on an H100, and the design: see lstm_seq_fwd.cuh (this
 // is its kernel without the residual writes). The recurrent product runs
@@ -29,8 +29,10 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H the kernel takes.
-extern "C" int vct_lstm_seq_max_hidden() { return vct::kMaxHidden; }
+// Largest H the kernel takes, and the largest its narrow form takes (the
+// wide form runs above it).
+extern "C" int vct_lstm_seq_max_hidden() { return vct::kMaxWideHidden; }
+extern "C" int vct_lstm_seq_narrow_max_hidden() { return vct::kMaxHidden; }
 
 // Returns a cudaError_t: 0 when the launches were accepted. hbuf is
 // (2, ND, B, H) bf16 and sync (ND, B) unsigned scratch, both uninitialised.
@@ -39,7 +41,7 @@ extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
                             void* h_last, void* c_last, void* hbuf, void* sync,
                             int T, int ND, int B, int H, void* stream) {
   if (T <= 0 || ND <= 0 || B <= 0 || H <= 0 || H % vct::kUnits != 0 ||
-      H > vct::kMaxHidden) {
+      H > vct::kMaxWideHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   vct::FwdParams p = {};

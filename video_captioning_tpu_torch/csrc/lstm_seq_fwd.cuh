@@ -34,13 +34,25 @@
 // launch is cooperative only so that the CTAs that meet are co-resident;
 // rows beyond what fits run as further launches (rows are independent).
 //
+// The wide form (600 < H <= 1024, FwdWide): at 8 units a CTA a direction
+// would need H / 8 = 128 CTAs, both 256, and at H = 1024 only one fits an
+// SM (two 32-row h chunks are 132 KB), so the grid cannot be co-resident.
+// So a CTA owns 16 units (64 gate columns): 2 x 64 CTAs at H = 1024, one
+// an SM, within the H100's 132. Its W_hh slice (H x 64 bf16, 128 KB) stays
+// in registers as in the narrow form, 8 k-tiles x 8 n-tiles a warp (128
+// registers a thread; one CTA an SM leaves the other half of the register
+// file unused), which keeps shared memory for the staged h (16-row chunks,
+// 33 KB each at H = 1024, two in flight) and the partial sums. Units past
+// H (H = 1000 is not a multiple of 16) are masked. The counters, the
+// two-slot exchange and launch_recurrence are the narrow form's.
+//
 // Why this design and not one thread-block cluster per direction with h
 // exchanged through distributed shared memory: W_hh of one direction is
 // 2 MB in bf16 at H = 512 (2.9 MB at H = 600), so a cluster would need 16
 // CTAs (non-portable, one GPC each, and at H = 600 more shared memory than
 // an SM has beside the staged h), and it would put a direction's whole
 // step on 16 SMs. The counters keep the whole card at work, take every H
-// up to 600, and the L2 exchange costs a few us a step: on an NVIDIA H100
+// up to 1024, and the L2 exchange costs a few us a step: on an NVIDIA H100
 // 80GB HBM3 (700 W), about 12 us a step at (80, 2, 128, 2048) and 5.6 us
 // at B = 32, against a fixed cost of about 12 us a launch.
 
@@ -56,7 +68,8 @@ namespace vct {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHidden = 600;
+constexpr int kMaxHidden = 600;        // the narrow form's largest H
+constexpr int kMaxWideHidden = 1024;   // the wide form's: the kernels' limit
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on Hopper
 
 // ---------------------------------------------------------------- primitives
@@ -235,6 +248,29 @@ constexpr int kPartStride = kCols + 1;
 // k-tiles of 16 per warp: ceil(ceil(600 / 16) / 8) = 5.
 constexpr int kFwdKt = ((kMaxHidden + 15) / 16 + kWarps - 1) / kWarps;
 
+// The forward's tiling: Units hidden units a CTA (4 x Units gate columns,
+// Units / 2 n-tiles of 8), Rows batch rows of h a staged chunk (Units x Rows
+// = kThreads: one epilogue item a thread), Kt k-tiles of W_hh a warp held
+// in registers, MinBlocks CTAs an SM.
+template <int Units, int Rows, int Kt, int MinBlocks>
+struct FwdTile {
+  static constexpr int kUnits = Units;
+  static constexpr int kRows = Rows;
+  static constexpr int kKt = Kt;
+  static constexpr int kMinBlocks = MinBlocks;
+  static constexpr int kNt = 4 * Units / 8;
+  static constexpr int kMt = Rows / 16;
+  static constexpr int kPartStride = 4 * Units + 1;
+  static_assert(Units * Rows == kThreads, "one epilogue item a thread");
+};
+// H <= 600: 8 units a CTA, two CTAs an SM (W_hh slice 40 registers a thread).
+using FwdNarrow = FwdTile<kUnits, kFwdRows, kFwdKt, 2>;
+// 600 < H <= 1024: 16 units a CTA (64 gate columns, so 2 x 64 CTAs at
+// H = 1024 are co-resident one an SM on 132 SMs); the CTA's W_hh slice is
+// 8 k-tiles x 8 n-tiles of B fragments a warp, 128 registers a thread; h
+// staged 16 rows a chunk (33 KB at H = 1024).
+using FwdWide = FwdTile<16, 16, (kMaxWideHidden / 16 + kWarps - 1) / kWarps, 1>;
+
 struct FwdParams {
   const void* xproj;           // (T, ND, B, 4H), float32 or bf16
   const __nv_bfloat16* w_hh;   // (ND, H, 4H)
@@ -257,29 +293,33 @@ __host__ __device__ inline int fwd_kpad(int H) { return (H + 15) / 16 * 16; }
 
 // Two h chunks (row stride kpad + 8 bf16: ldmatrix rows in distinct banks),
 // the eight warps' partial sums, and the float32 h and c of nb rows.
+template <typename Tile>
 inline size_t fwd_smem_bytes(int H, int nb) {
-  return static_cast<size_t>(2 * kFwdRows) * (fwd_kpad(H) + 8) * 2 +
-         static_cast<size_t>(kWarps) * kFwdRows * kPartStride * 4 +
-         static_cast<size_t>(nb) * kUnits * 8;
+  return static_cast<size_t>(2 * Tile::kRows) * (fwd_kpad(H) + 8) * 2 +
+         static_cast<size_t>(kWarps) * Tile::kRows * Tile::kPartStride * 4 +
+         static_cast<size_t>(nb) * Tile::kUnits * 8;
 }
 
-template <typename T, bool kResiduals>
-__global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) {
+template <typename T, bool kResiduals, typename Tile>
+__global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kernel(FwdParams p) {
+  constexpr int U = Tile::kUnits;
+  constexpr int R = Tile::kRows;
+  constexpr int PS = Tile::kPartStride;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H;
   const int H4 = 4 * H;
   const int kpad = fwd_kpad(H);
   const int hstride = kpad + 8;
   const int KT = kpad / 16;
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kFwdRows][hstride]
-  float* part = reinterpret_cast<float*>(hs + 2 * kFwdRows * hstride);
-  float* st_h = part + kWarps * kFwdRows * kPartStride;  // [nb][kUnits]
-  float* st_c = st_h + p.nb * kUnits;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][R][hstride]
+  float* part = reinterpret_cast<float*>(hs + 2 * R * hstride);
+  float* st_h = part + kWarps * R * PS;  // [nb][U]
+  float* st_c = st_h + p.nb * U;
 
-  const int unit_groups = H / kUnits;
+  const int unit_groups = (H + U - 1) / U;
   const RowRange rr = row_range(p, unit_groups);
   const int d = rr.d;
-  const int j0 = rr.unit_group * kUnits;
+  const int j0 = rr.unit_group * U;
   unsigned* counter = p.sync + d * p.row_groups + rr.group;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -287,33 +327,35 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
   const int g = lane >> 2;
   const int tq = lane & 3;
 
-  // B fragments of this warp's k-tiles: B[k][n] = W_hh[d][k][gate n/8,
-  // unit j0 + n%8]; zero past H.
-  uint32_t wf[kFwdKt][4][2];
+  // B fragments of this warp's k-tiles: B[k][n] = W_hh[d][k][gate, unit
+  // j0 + u] for gate column n = gate * U + u (n-tile nt holds gate
+  // nt / (U / 8)); zero past H in k and in the units.
+  uint32_t wf[Tile::kKt][Tile::kNt][2];
   const __nv_bfloat16* w = p.w_hh + static_cast<size_t>(d) * H * H4;
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-  for (int i = 0; i < kFwdKt; ++i) {
+  for (int i = 0; i < Tile::kKt; ++i) {
     const int kt = warp + i * kWarps;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = nt * H + j0 + g;
+    for (int nt = 0; nt < Tile::kNt; ++nt) {
+      const int unit = j0 + (nt % (U / 8)) * 8 + g;
+      const int col = (nt / (U / 8)) * H + unit;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int k = kt * 16 + half * 8 + 2 * tq;
-        const __nv_bfloat16 lo = kt < KT && k < H ? w[static_cast<size_t>(k) * H4 + col] : zero;
-        const __nv_bfloat16 hi =
-            kt < KT && k + 1 < H ? w[static_cast<size_t>(k + 1) * H4 + col] : zero;
+        const bool in = kt < KT && unit < H;
+        const __nv_bfloat16 lo = in && k < H ? w[static_cast<size_t>(k) * H4 + col] : zero;
+        const __nv_bfloat16 hi = in && k + 1 < H ? w[static_cast<size_t>(k + 1) * H4 + col] : zero;
         wf[i][nt][half] = pack2(lo, hi);
       }
     }
   }
   // Zero k columns past H (never copied into) and the carried state.
   const int kx = kpad - H;
-  for (int e = tid; e < 2 * kFwdRows * kx; e += kThreads) {
+  for (int e = tid; e < 2 * R * kx; e += kThreads) {
     hs[(e / kx) * hstride + H + e % kx] = zero;
   }
-  for (int e = tid; e < rr.n * kUnits; e += kThreads) {
+  for (int e = tid; e < rr.n * U; e += kThreads) {
     st_h[e] = 0.0f;
     st_c[e] = 0.0f;
   }
@@ -321,11 +363,12 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
 
   const T* xproj = static_cast<const T*>(p.xproj);
   T* outs = static_cast<T*>(p.outs);
-  const int n_chunks = (rr.n + kFwdRows - 1) / kFwdRows;
-  const int er = tid >> 3;            // epilogue: chunk row
-  const int eu = tid & (kUnits - 1);  // epilogue: unit
+  const int n_chunks = (rr.n + R - 1) / R;
+  const int er = tid / U;  // epilogue: chunk row
+  const int eu = tid % U;  // epilogue: unit
   const int j = j0 + eu;
-  const int vecs = H / 8;             // 16-byte vectors of an h row
+  const bool unit_in = j < H;
+  const int vecs = H / 8;  // 16-byte vectors of an h row
 
   for (int t = 0; t < p.T; ++t) {
     const __nv_bfloat16* hcur =
@@ -337,17 +380,17 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
     // loaded a chunk ahead of their use so that their latency hides behind
     // the products.
     auto load_x = [&](int c, T (&x)[4], float& m) {
-      const int bl = c * kFwdRows + er;
-      if (c >= n_chunks || bl >= rr.n) return;
+      const int bl = c * R + er;
+      if (c >= n_chunks || bl >= rr.n || !unit_in) return;
       const T* xr = xproj + (step_row + bl) * H4 + j;
 #pragma unroll
       for (int q = 0; q < 4; ++q) x[q] = xr[q * H];
       m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
     };
     auto stage = [&](int c) {
-      __nv_bfloat16* dst = hs + (c & 1) * kFwdRows * hstride;
-      const int r0 = c * kFwdRows;
-      const int rows = min(kFwdRows, rr.n - r0);
+      __nv_bfloat16* dst = hs + (c & 1) * R * hstride;
+      const int r0 = c * R;
+      const int rows = min(R, rr.n - r0);
       for (int e = tid; e < rows * vecs; e += kThreads) {
         const int r = e / vecs;
         const int v = e % vecs;
@@ -374,52 +417,53 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
     }
 
     for (int c = 0; c < n_chunks; ++c) {
-      const int rows = min(kFwdRows, rr.n - c * kFwdRows);
+      const int rows = min(R, rr.n - c * R);
       T xn[4];
       float mn = 0.0f;
       load_x(c + 1, xn, mn);
       if (t > 0) {
         cp_async_wait_one();  // chunk c has landed
         __syncthreads();      // for every thread; the last epilogue is done
-        float acc[2][4][4];
+        float acc[Tile::kMt][Tile::kNt][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < Tile::kMt; ++mi)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < Tile::kNt; ++nt)
 #pragma unroll
             for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.0f;
-        const __nv_bfloat16* hb = hs + (c & 1) * kFwdRows * hstride;
+        const __nv_bfloat16* hb = hs + (c & 1) * R * hstride;
 #pragma unroll
-        for (int i = 0; i < kFwdKt; ++i) {
+        for (int i = 0; i < Tile::kKt; ++i) {
           const int kt = warp + i * kWarps;
           if (kt >= KT) break;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
+          for (int mi = 0; mi < Tile::kMt; ++mi) {
             if (mi * 16 >= rows) break;
             uint32_t a[4];
             ldmatrix_x4(a, hb + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hstride +
                                kt * 16 + (lane >> 4) * 8);
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mi][nt], a, wf[i][nt][0], wf[i][nt][1]);
+            for (int nt = 0; nt < Tile::kNt; ++nt)
+              mma_bf16(acc[mi][nt], a, wf[i][nt][0], wf[i][nt][1]);
           }
         }
         // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
-        float* pw = part + warp * kFwdRows * kPartStride;
+        float* pw = part + warp * R * PS;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < Tile::kMt; ++mi)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < Tile::kNt; ++nt)
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              pw[(mi * 16 + g + (q >> 1) * 8) * kPartStride + nt * 8 + 2 * tq + (q & 1)] =
+              pw[(mi * 16 + g + (q >> 1) * 8) * PS + nt * 8 + 2 * tq + (q & 1)] =
                   acc[mi][nt][q];
         __syncthreads();  // partials written; chunk c's buffer is free
         if (c + 2 < n_chunks) stage(c + 2);
         cp_async_commit();  // possibly empty: keeps the group count in step
       }
 
-      if (er < rows) {
-        const int bl = c * kFwdRows + er;
+      if (er < rows && unit_in) {
+        const int bl = c * R + er;
         const int b = rr.b0 + bl;
         const size_t row = step_row + bl;
         float gate[4];
@@ -429,8 +473,7 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
           if (t > 0) {
             float sum = 0.0f;
 #pragma unroll
-            for (int w8 = 0; w8 < kWarps; ++w8)
-              sum += part[(w8 * kFwdRows + er) * kPartStride + q * kUnits + eu];
+            for (int w8 = 0; w8 < kWarps; ++w8) sum += part[(w8 * R + er) * PS + q * U + eu];
             s += sum;
           }
           gate[q] = s;
@@ -439,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
         const float gf = sigmoid(gate[1]);
         const float gg = tanhf(gate[2]);
         const float go = sigmoid(gate[3]);
-        const int si = bl * kUnits + eu;
+        const int si = bl * U + eu;
         const float c_old = st_c[si];
         const float h_old = st_h[si];
         const float c_new = gf * c_old + gi * gg;
@@ -480,11 +523,18 @@ __global__ void __launch_bounds__(kThreads, 2) lstm_seq_fwd_kernel(FwdParams p) 
   }
 }
 
+// The narrow form up to kMaxHidden, the wide one above it.
 template <typename T, bool kResiduals>
 int launch_fwd(const FwdParams& p, cudaStream_t stream) {
   const int H = p.H;
-  return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals>, p, H / kUnits, 16,
-                           [H](int nb) { return fwd_smem_bytes(H, nb); }, stream);
+  if (H <= kMaxHidden) {
+    return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdNarrow>, p,
+                             H / FwdNarrow::kUnits, 16,
+                             [H](int nb) { return fwd_smem_bytes<FwdNarrow>(H, nb); }, stream);
+  }
+  return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdWide>, p,
+                           (H + FwdWide::kUnits - 1) / FwdWide::kUnits, 16,
+                           [H](int nb) { return fwd_smem_bytes<FwdWide>(H, nb); }, stream);
 }
 
 }  // namespace vct

@@ -22,7 +22,8 @@
 //   DH    <- bf16(dgates) . bf16(W_hh)^T + (1 - m) DH
 //   dW_hh += bf16(h_prev)^T . bf16(dgates)        (float32 sums)
 //   dxproj[t] = dgates in float32, cast to xproj's type.
-// Any B >= 1, H a multiple of 8 up to 600.
+// Any B >= 1, H a multiple of 8 up to 1024: the narrow form up to 600, the
+// wide form above.
 //
 // What bounds it on an H100: the sweep is sequential in T, and each step's
 // dh product needs all 4H dgates of every row of its direction, so a step
@@ -46,6 +47,14 @@
 //   products with float32 accumulators and sums the warps' partials into
 //   DH. The exchange stays bf16 from writer to mma; 16 units a CTA halve
 //   what 8 would read.
+// - Backward sweep, wide form (600 < H <= 1024): the same CTAs, but two
+//   chunks of all 4H columns (256 KB at H = 1024) do not fit in shared
+//   memory, nor do 4H / 128 k-tiles a warp in registers. Phase B stages
+//   16 rows x 1024 columns at a time (two in flight) and each warp holds
+//   its 8 k-tiles of each column chunk (128 registers of W_hh a thread at
+//   H = 1024); a row chunk's products sum over its column chunks in the
+//   accumulators before the warps' partials go to DH. One CTA an SM: 2 x
+//   64 CTAs at H = 1024 fit on 132 SMs.
 // - dW_hh: ordinary launches after the sweep, a bf16 tensor-core GEMM
 //   over K = (T - 1) B rows of (h_keep[t - 1], dxproj[t]): 128 x 256 output
 //   tiles, 32 rows a stage in two shared-memory stages, the next stage's
@@ -70,9 +79,25 @@ constexpr int kBwdRows = 16;   // batch rows of dgates staged per chunk
 constexpr int kBwdPartStride = kBwdUnits + 1;
 // k-tiles of 16 over 4H per warp: ceil((4 * 600 / 16) / 8) = 19.
 constexpr int kBwdKt = (4 * kMaxHidden / 16 + kWarps - 1) / kWarps;
+// The wide form (H > 600) stages 16 rows x 1024 columns of dgates at a time
+// (a column chunk of 64 k-tiles, 33 KB; two in flight), at most four
+// chunks at H = 1024; warp w owns k-tiles w, w + 8, ... of each chunk: 32
+// k-tiles, 128 registers of W_hh a thread.
+constexpr int kBwdColTiles = 64;
+constexpr int kBwdColChunks = (4 * kMaxWideHidden / 16 + kBwdColTiles - 1) / kBwdColTiles;
+constexpr int kBwdWideKt = kBwdColChunks * kBwdColTiles / kWarps;
 
+// Row stride (bf16) of a staged dgates chunk: all 4H columns in the narrow
+// form, a column chunk in the wide one; + 8 puts ldmatrix rows in distinct
+// banks.
+template <bool kWide>
+__host__ __device__ inline int bwd_gstride(int H) {
+  return kWide ? kBwdColTiles * 16 + 8 : 4 * H + 8;
+}
+
+template <bool kWide>
 inline size_t bwd_smem_bytes(int H, int nb) {
-  return static_cast<size_t>(2 * kBwdRows) * (4 * H + 8) * 2 +
+  return static_cast<size_t>(2 * kBwdRows) * bwd_gstride<kWide>(H) * 2 +
          static_cast<size_t>(kWarps) * kBwdRows * kBwdPartStride * 4 +
          static_cast<size_t>(nb) * kBwdUnits * 8;
 }
@@ -96,12 +121,13 @@ struct BwdParams {
 
 constexpr int kBatch = 4;  // phase A items a thread loads before it computes
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) {
+  constexpr int Kt = kWide ? kBwdWideKt : kBwdKt;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H;
   const int H4 = 4 * H;
-  const int gstride = H4 + 8;  // bf16; ldmatrix rows in distinct banks
+  const int gstride = bwd_gstride<kWide>(H);
   const int KT = H4 / 16;
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kBwdRows][gstride]
   float* part = reinterpret_cast<float*>(gs + 2 * kBwdRows * gstride);
@@ -120,11 +146,12 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
   const int tq = lane & 3;
 
   // B fragments: B[k][n] = W_hh[d][j0 + n][k], two consecutive k in one
-  // register; zero for units past H.
-  uint32_t wf[kBwdKt][2][2];
+  // register; zero for units past H. Fragment i is k-tile w + 8 i (narrow),
+  // or k-tile w + 8 (i % 8) of column chunk i / 8 (wide).
+  uint32_t wf[Kt][2][2];
 #pragma unroll
-  for (int i = 0; i < kBwdKt; ++i) {
-    const int kt = warp + i * kWarps;
+  for (int i = 0; i < Kt; ++i) {
+    const int kt = kWide ? (i / 8) * kBwdColTiles + warp + (i % 8) * kWarps : warp + i * kWarps;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int jj = j0 + nt * 8 + g;
@@ -224,23 +251,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
     __syncthreads();  // every CTA sharing these rows has published step t
 
     // Phase B: DH of the CTA's units, 16 rows at a time.
-    auto stage = [&](int c) {
-      __nv_bfloat16* dst = gs + (c & 1) * kBwdRows * gstride;
-      const int r0 = c * kBwdRows;
-      const int rows = min(kBwdRows, rr.n - r0);
-      for (int e = tid; e < rows * vecs; e += kThreads) {
-        const int r = e / vecs;
-        const int v = e % vecs;
-        cp_async16(dst + r * gstride + v * 8,
-                   gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + v * 8);
-      }
-    };
-    stage(0);
-    cp_async_commit();
-    if (n_chunks > 1) stage(1);
-    cp_async_commit();
-    // The next phase A's inputs into L2 while phase B runs.
-    {
+    auto prefetch_prev = [&]() {
       const size_t prev = step_row - step_rows;
       for (int e = tid; e < rr.n * 8; e += kThreads) {
         const size_t row = prev + e / 8;
@@ -250,46 +261,127 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
         else if (k == 5 && t > 1) prefetch_l2(p.c_keep + (row - step_rows) * H + j0);
         else if (k == 6 && douts != nullptr) prefetch_l2(douts + row * H + j0);
       }
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const int rows = min(kBwdRows, rr.n - c * kBwdRows);
-      cp_async_wait_one();
-      __syncthreads();
-      float acc[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-      const __nv_bfloat16* gb = gs + (c & 1) * kBwdRows * gstride;
-#pragma unroll
-      for (int i = 0; i < kBwdKt; ++i) {
-        const int kt = warp + i * kWarps;
-        if (kt >= KT) break;
-        uint32_t a[4];
-        ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kt * 16 +
-                           (lane >> 4) * 8);
-        mma_bf16(acc[0], a, wf[i][0][0], wf[i][0][1]);
-        mma_bf16(acc[1], a, wf[i][1][0], wf[i][1][1]);
-      }
+    };
+    // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
+    auto store_partials = [&](const float (&acc)[2][4]) {
       float* pw = part + warp * kBwdRows * kBwdPartStride;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           pw[(g + (q >> 1) * 8) * kBwdPartStride + nt * 8 + 2 * tq + (q & 1)] = acc[nt][q];
-      __syncthreads();
-      if (c + 2 < n_chunks) stage(c + 2);
-      cp_async_commit();
-      if (er < rows && j0 + eu < H) {
-        const int bl = c * kBwdRows + er;
-        const float m =
-            p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
-        float sum = 0.0f;
+    };
+    // DH of chunk c's rows: the warps' partials of the product, plus the
+    // carried DH at padded steps.
+    auto add_dh = [&](int c, int rows) {
+      if (er >= rows || j0 + eu >= H) return;
+      const int bl = c * kBwdRows + er;
+      const float m =
+          p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
+      float sum = 0.0f;
 #pragma unroll
-        for (int w8 = 0; w8 < kWarps; ++w8)
-          sum += part[(w8 * kBwdRows + er) * kBwdPartStride + eu];
-        const int si = bl * kBwdUnits + eu;
-        st_dh[si] = sum + (1.0f - m) * st_dh[si];
+      for (int w8 = 0; w8 < kWarps; ++w8) sum += part[(w8 * kBwdRows + er) * kBwdPartStride + eu];
+      const int si = bl * kBwdUnits + eu;
+      st_dh[si] = sum + (1.0f - m) * st_dh[si];
+    };
+    if constexpr (!kWide) {
+      auto stage = [&](int c) {
+        __nv_bfloat16* dst = gs + (c & 1) * kBwdRows * gstride;
+        const int r0 = c * kBwdRows;
+        const int rows = min(kBwdRows, rr.n - r0);
+        for (int e = tid; e < rows * vecs; e += kThreads) {
+          const int r = e / vecs;
+          const int v = e % vecs;
+          cp_async16(dst + r * gstride + v * 8,
+                     gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + v * 8);
+        }
+      };
+      stage(0);
+      cp_async_commit();
+      if (n_chunks > 1) stage(1);
+      cp_async_commit();
+      prefetch_prev();  // the next phase A's inputs into L2 while phase B runs
+      for (int c = 0; c < n_chunks; ++c) {
+        const int rows = min(kBwdRows, rr.n - c * kBwdRows);
+        cp_async_wait_one();
+        __syncthreads();
+        float acc[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+        const __nv_bfloat16* gb = gs + (c & 1) * kBwdRows * gstride;
+#pragma unroll
+        for (int i = 0; i < kBwdKt; ++i) {
+          const int kt = warp + i * kWarps;
+          if (kt >= KT) break;
+          uint32_t a[4];
+          ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kt * 16 +
+                             (lane >> 4) * 8);
+          mma_bf16(acc[0], a, wf[i][0][0], wf[i][0][1]);
+          mma_bf16(acc[1], a, wf[i][1][0], wf[i][1][1]);
+        }
+        store_partials(acc);
+        __syncthreads();
+        if (c + 2 < n_chunks) stage(c + 2);
+        cp_async_commit();
+        add_dh(c, rows);
+      }
+    } else {
+      // Stages s = (row chunk s / n_cc, column chunk s % n_cc), two in
+      // flight; the products of a row chunk sum over its column chunks.
+      const int n_cc = (KT + kBwdColTiles - 1) / kBwdColTiles;
+      const int n_stages = n_chunks * n_cc;
+      auto stage = [&](int s2) {
+        if (s2 >= n_stages) return;
+        __nv_bfloat16* dst = gs + (s2 & 1) * kBwdRows * gstride;
+        const int r0 = (s2 / n_cc) * kBwdRows;
+        const int rows = min(kBwdRows, rr.n - r0);
+        const int c0 = (s2 % n_cc) * kBwdColTiles * 16;
+        const int cvecs = min(kBwdColTiles * 16, H4 - c0) / 8;
+        for (int e = tid; e < rows * cvecs; e += kThreads) {
+          const int r = e / cvecs;
+          const int v = e % cvecs;
+          cp_async16(dst + r * gstride + v * 8,
+                     gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + c0 + v * 8);
+        }
+      };
+      stage(0);
+      cp_async_commit();
+      stage(1);
+      cp_async_commit();
+      prefetch_prev();  // the next phase A's inputs into L2 while phase B runs
+      for (int c = 0; c < n_chunks; ++c) {
+        const int rows = min(kBwdRows, rr.n - c * kBwdRows);
+        float acc[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < kBwdColChunks; ++cc) {
+          if (cc >= n_cc) break;
+          const int s2 = c * n_cc + cc;
+          cp_async_wait_one();  // stage s2 has landed
+          __syncthreads();
+          const __nv_bfloat16* gb = gs + (s2 & 1) * kBwdRows * gstride;
+#pragma unroll
+          for (int i = 0; i < kBwdColTiles / kWarps; ++i) {
+            const int kl = warp + i * kWarps;
+            if (cc * kBwdColTiles + kl >= KT) break;
+            uint32_t a[4];
+            ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kl * 16 +
+                               (lane >> 4) * 8);
+            mma_bf16(acc[0], a, wf[cc * 8 + i][0][0], wf[cc * 8 + i][0][1]);
+            mma_bf16(acc[1], a, wf[cc * 8 + i][1][0], wf[cc * 8 + i][1][1]);
+          }
+          __syncthreads();  // every warp is done with stage s2's buffer
+          stage(s2 + 2);
+          cp_async_commit();  // possibly empty: keeps the group count in step
+        }
+        store_partials(acc);
+        __syncthreads();
+        add_dh(c, rows);
       }
     }
     __syncthreads();  // DH complete before the next phase A reads it
@@ -482,8 +574,12 @@ template <typename T>
 int launch_bwd(const BwdParams& p, float* dw, float* dw_part, int splits,
                cudaStream_t stream) {
   const int H = p.H;
-  int rc = launch_recurrence(&lstm_seq_bwd_kernel<T>, p, (H + kBwdUnits - 1) / kBwdUnits,
-                             kBwdRows, [H](int nb) { return bwd_smem_bytes(H, nb); }, stream);
+  const int unit_groups = (H + kBwdUnits - 1) / kBwdUnits;
+  int rc = H <= kMaxHidden
+               ? launch_recurrence(&lstm_seq_bwd_kernel<T, false>, p, unit_groups, kBwdRows,
+                                   [H](int nb) { return bwd_smem_bytes<false>(H, nb); }, stream)
+               : launch_recurrence(&lstm_seq_bwd_kernel<T, true>, p, unit_groups, kBwdRows,
+                                   [H](int nb) { return bwd_smem_bytes<true>(H, nb); }, stream);
   if (rc != 0) return rc;
   const int steps = ((p.T - 1) * p.B + kDwK - 1) / kDwK;
   const int split_steps = (steps + splits - 1) / splits;
@@ -509,12 +605,14 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H both kernels take.
-extern "C" int vct_lstm_seq_train_max_hidden() { return vct::kMaxHidden; }
+// Largest H both kernels take, and the largest their narrow forms take
+// (the wide forms run above it).
+extern "C" int vct_lstm_seq_train_max_hidden() { return vct::kMaxWideHidden; }
+extern "C" int vct_lstm_seq_train_narrow_max_hidden() { return vct::kMaxHidden; }
 
 static bool bad_shape(int T, int ND, int B, int H) {
   return T <= 0 || ND <= 0 || B <= 0 || H <= 0 || H % vct::kUnits != 0 ||
-         H > vct::kMaxHidden;
+         H > vct::kMaxWideHidden;
 }
 
 // Forward with residuals. hbuf is (2, ND, B, H) bf16 and sync (ND, B)

@@ -54,10 +54,19 @@ KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd,
                    int8_matmul_residual_requant)
 
 
+# Wrappers with a second form of their kernel (the recurrences' wide forms,
+# H past 600), counted apart as ``<name>_wide`` besides in ``<name>``.
+WIDE_FORMS = (lstm_seq, lstm_seq_train_fwd, lstm_seq_train_bwd)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in WIDE_FORMS:
+        fn.wide_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts.update({f"{fn.__name__}_wide": fn.wide_launches for fn in WIDE_FORMS})
+    return counts

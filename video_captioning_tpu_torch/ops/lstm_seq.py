@@ -7,7 +7,10 @@ or None. On a CUDA tensor ``lstm_seq`` launches the persistent kernel in
 ``csrc/lstm_seq.cu`` (bf16 tensor-core products); on a CPU tensor it runs
 ``lstm_seq_reference``, the plain PyTorch version of the same numeric
 contract: bf16 h and W_hh in the recurrent product with float32 sums,
-float32 gates and state, padded steps carry the state and emit 0.
+float32 gates and state, padded steps carry the state and emit 0. The
+kernel takes H a multiple of 8 up to 1024: its narrow form up to 600, its
+wide form above; ``lstm_seq.wide_launches`` counts the wide form's
+launches among ``lstm_seq.launches``.
 """
 
 from __future__ import annotations
@@ -84,14 +87,16 @@ def _kernel_lib() -> ctypes.CDLL:
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    lib.vct_lstm_seq_max_hidden.argtypes = []
-    lib.vct_lstm_seq_max_hidden.restype = ctypes.c_int
+    for limit in (lib.vct_lstm_seq_max_hidden, lib.vct_lstm_seq_narrow_max_hidden):
+        limit.argtypes = []
+        limit.restype = ctypes.c_int
     return lib
 
 
 def kernel_max_hidden(train: bool = False) -> int:
-    """The largest H the recurrence kernels take (``kMaxHidden``,
-    csrc/lstm_seq_fwd.cuh), read from the built library: ``lstm_seq``'s, or
+    """The largest H the recurrence kernels take (``kMaxWideHidden``,
+    csrc/lstm_seq_fwd.cuh: their narrow forms up to ``kMaxHidden``, their
+    wide forms above), read from the built library: ``lstm_seq``'s, or
     ``lstm_seq_train``'s with ``train``. Builds the library on first use."""
     if train:
         from .lstm_seq_train import _kernel_lib as train_lib
@@ -156,7 +161,10 @@ def lstm_seq(
         )
     check_launch(lib, rc, "lstm_seq")
     lstm_seq.launches += 1
+    if H > lib.vct_lstm_seq_narrow_max_hidden():
+        lstm_seq.wide_launches += 1
     return outs, (h_last, c_last)
 
 
 lstm_seq.launches = 0
+lstm_seq.wide_launches = 0  # of them, the wide form's (H past the narrow limit)

@@ -11,7 +11,9 @@ its plain PyTorch version below, which follows the kernel bodies step by
 step. The numeric contract is the file header of ``csrc/lstm_seq_train.cu``:
 bf16 operands with float32 sums in both recurrent products and in dW_hh,
 float32 gates, state and residuals, dxproj the float32 dgates cast to
-xproj's type.
+xproj's type. Both kernels take H a multiple of 8 up to 1024 (narrow forms
+up to 600, wide forms above); ``wide_launches`` on each wrapper counts the
+wide form's launches among its ``launches``.
 """
 
 from __future__ import annotations
@@ -115,8 +117,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.vct_lstm_seq_train_bwd.restype = i
     lib.vct_lstm_seq_train_dw_splits.argtypes = [i] * 4
     lib.vct_lstm_seq_train_dw_splits.restype = i
-    lib.vct_lstm_seq_train_max_hidden.argtypes = []
-    lib.vct_lstm_seq_train_max_hidden.restype = i
+    for limit in (lib.vct_lstm_seq_train_max_hidden, lib.vct_lstm_seq_train_narrow_max_hidden):
+        limit.argtypes = []
+        limit.restype = i
     return lib
 
 
@@ -174,10 +177,13 @@ def lstm_seq_train_fwd(
         )
     check_launch(lib, rc, "lstm_seq_train_fwd")
     lstm_seq_train_fwd.launches += 1
+    if H > lib.vct_lstm_seq_train_narrow_max_hidden():
+        lstm_seq_train_fwd.wide_launches += 1
     return outs, h_last, c_last, gact, h_keep, c_keep
 
 
 lstm_seq_train_fwd.launches = 0
+lstm_seq_train_fwd.wide_launches = 0  # of them, the wide form's
 
 
 def lstm_seq_train_bwd(
@@ -229,10 +235,13 @@ def lstm_seq_train_bwd(
         )
     check_launch(lib, rc, "lstm_seq_train_bwd")
     lstm_seq_train_bwd.launches += 1
+    if H > lib.vct_lstm_seq_train_narrow_max_hidden():
+        lstm_seq_train_bwd.wide_launches += 1
     return dxproj, dw
 
 
 lstm_seq_train_bwd.launches = 0
+lstm_seq_train_bwd.wide_launches = 0  # of them, the wide sweep's
 
 
 class _LSTMSeqTrain(torch.autograd.Function):

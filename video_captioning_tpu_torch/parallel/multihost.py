@@ -42,8 +42,17 @@ FEAT_DIM, FRAMES = 32, 10
 # --------------------------------------------------------------------------
 
 
+def _mark(out_dir: str, rank: int, what: str) -> None:
+    """Append ``what`` and the time to the rank's log (``_rank_progress``)."""
+    import time
+
+    with open(os.path.join(out_dir, f"rank{rank}.log"), "a") as log:
+        log.write(f"{what} {time.time():.3f}\n")
+
+
 def _rank_main(rank: int, fn: Callable, world_size: int, init_file: str, backend: str,
                args: Sequence[Any], out_dir: str) -> None:
+    _mark(out_dir, rank, "started")
     import torch
     import torch.distributed as dist
 
@@ -53,8 +62,19 @@ def _rank_main(rank: int, fn: Callable, world_size: int, init_file: str, backend
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world_size, rank=rank)
     try:
+        # init_process_group returns on a rank once its own links are up,
+        # while a peer may still be inside gloo's connectFullMesh: a rank
+        # whose fn makes no collective would finish, tear its links down
+        # and fail that peer's start ("Connection closed by peer"). The
+        # barrier holds every rank until all have joined.
+        if backend == "nccl":
+            dist.barrier(device_ids=[rank])
+        else:
+            dist.barrier()
+        _mark(out_dir, rank, "joined")
         result = fn(rank, world_size, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+        _mark(out_dir, rank, "done")
     finally:
         dist.destroy_process_group()
 
@@ -67,30 +87,59 @@ def spawn_ranks(fn: Callable, world_size: int, args: Sequence[Any] = (), *,
     r) and return each rank's result. ``fn`` must be importable (a module
     function). A rank that fails or outlives ``timeout`` seconds raises
     here, and every process is stopped."""
+    import time
+
     import torch
     import torch.multiprocessing as mp
 
     workdir = Path(workdir or tempfile.mkdtemp(prefix="vct_ranks_"))
     workdir.mkdir(parents=True, exist_ok=True)
     init_file = workdir / "rendezvous"
-    if init_file.exists():
-        init_file.unlink()
+    for stale in [init_file, *(workdir / f"rank{r}{ext}" for r in range(world_size)
+                               for ext in (".log", ".pt"))]:
+        if stale.exists():
+            stale.unlink()
+    t0 = time.time()
     ctx = mp.start_processes(_rank_main, args=(fn, world_size, str(init_file), backend,
                                                tuple(args), str(workdir)),
                              nprocs=world_size, join=False, start_method="spawn")
-    import time
-
     deadline = time.monotonic() + timeout
+    what = f"{world_size} ranks of {fn.__name__}"
     try:
         while not ctx.join(timeout=max(0.1, min(5.0, deadline - time.monotonic()))):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"{world_size} ranks of {fn.__name__} ran past {timeout} s")
+                raise TimeoutError(f"{what} ran past {timeout} s; "
+                                   f"{_rank_progress(workdir, world_size, t0)}")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        how = (f"exited on {e.signal_name}" if getattr(e, "signal_name", None)
+               else f"exited with code {e.exit_code}" if hasattr(e, "exit_code")
+               else "raised")
+        raise RuntimeError(f"rank {e.error_index} of {what} {how} after "
+                           f"{time.time() - t0:.1f} s; "
+                           f"{_rank_progress(workdir, world_size, t0)}: {e}") from e
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
             p.join()
+    missing = [r for r in range(world_size) if not (workdir / f"rank{r}.pt").exists()]
+    if missing:
+        raise RuntimeError(f"ranks {missing} of {what} exited with code 0 and no result; "
+                           f"{_rank_progress(workdir, world_size, t0)}")
     return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(world_size)]
+
+
+def _rank_progress(workdir: Path, world_size: int, t0: float) -> str:
+    """Each rank's progress (started, joined the group, done), in seconds
+    after the spawn, from the logs ``_rank_main`` writes."""
+    parts = []
+    for r in range(world_size):
+        log = workdir / f"rank{r}.log"
+        marks = [line.split() for line in log.read_text().splitlines()] if log.exists() else []
+        parts.append(f"rank {r}: " + (", ".join(f"{m[0]} +{float(m[1]) - t0:.1f} s"
+                                                for m in marks if len(m) == 2)
+                                      or "not started"))
+    return "; ".join(parts)
 
 
 # --------------------------------------------------------------------------
