@@ -23,8 +23,9 @@ exits non-zero without printing the final result line:
    (80, 2, 128, 2048) with float32 and bfloat16 xproj and ragged lengths
    (also its graph-replay device time, and at T = 1 and T = 80 for the
    fixed cost and the cost a step), the same at (80, 2, 128, 4096) for
-   the wide form (600 < H <= 1024) beside cuDNN's LSTM of width 1024,
-   then ``lstm_seq`` (both xproj types)
+   the wide form (600 < H <= 1024) beside cuDNN's LSTM of width 1024
+   (each form's ptxas registers and spilled bytes printed beside its step
+   time), then ``lstm_seq`` (both xproj types)
    and both ``lstm_seq_train`` launches at 30 small odd shapes (T in
    (1, 5), B in (1, 3, 37), H in (40, 600, 608, 1000, 1024), a length-1
    row), every LSTM
@@ -42,10 +43,11 @@ exits non-zero without printing the final result line:
    ``beam_self_attention`` at the transformer's beam step (B = 128, K = 5,
    D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches) and
    ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, ragged mask
-   with an all-masked row; its two launches a call checked in the
-   profile, graph-replay device time beside the PyTorch composite of its
-   whole function and SDPA's context alone), each also at odd shapes (the
-   cross kernel at eleven, every launch repeated bitwise), with the
+   with an all-masked row; within 1e-7 of its plain version in float32;
+   its two launches a call checked in the profile, graph-replay device
+   time beside the PyTorch composite of its whole function and SDPA's
+   context alone), each also at odd shapes (the cross kernel at twelve,
+   every launch repeated bitwise), with the
    profiler's device time beside the CUDA-event time;
 4. the served slice, four times: the default full-width ``Config()`` (4096-d
    features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames),
@@ -203,6 +205,7 @@ import json
 import logging
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -258,6 +261,7 @@ from video_captioning_tpu_torch.ops.lstm_cell import (
     lstm_cell_reference,
 )
 from video_captioning_tpu_torch.ops.lstm_seq import (
+    NARROW_MAX_HIDDEN,
     kernel_max_hidden,
     lstm_seq,
     lstm_seq_reference,
@@ -353,6 +357,10 @@ VOCAB_RTOL = 1e-5
 # most 80 terms of O(1) values; bfloat16 caches are widened exactly on
 # both sides, so the same tolerance holds.
 BEAM_ATTN_ATOL = 1e-5
+# beam_cross_attention at the main shape in float32: the int8 `full`
+# decode quantizes its context, so a kernel more than about 6e-8 from the
+# plain version flips int8 roundings (run_int8_decode's gate).
+CROSS_MAIN_ATOL = 1e-7
 # fused_bottleneck and matmul_bias_act: float32 sums of up to 9 * 512
 # products in different orders (fused_bottleneck's products by the 3xTF32
 # split, each within about 2^-21 of the float32 product; its share is held
@@ -415,6 +423,28 @@ def build_kernels() -> None:
         print(f"[build] {name}: ready in {secs:.1f}s (nvcc {' '.join(build.NVCC_FLAGS)})")
         for line in build.build_logs.get(name, "").splitlines():
             print(f"[build]   {line}")
+
+
+def kernel_resources(source: str, match: str) -> dict:
+    """Registers and spill bytes that ptxas reported (``-Xptxas -v``, in
+    the build log of csrc/<source>.cu) for each kernel whose mangled name
+    contains ``match``."""
+    out, name = {}, None
+    for line in build.build_logs.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or match not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def bound(nbytes: float, flops: float, peak_flops: float, tf32x3: bool = False) -> dict:
@@ -620,13 +650,24 @@ def check_lstm(device: str, card: str, H: int = 512) -> dict:
                 return lambda: lstm_seq(x_n, w, m_n)
 
             steps = graph_step_ms(seq_call)
+            ptxas = fwd_resources("lstm_seq", H)
             result["main"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  graph_ms=dev_ms, **steps, **lim)
+                                  graph_ms=dev_ms, **steps, **lim, **ptxas)
             print(f"[kernels] lstm_seq H={H}: bound {result['main']['bound_ms']:.4f} ms "
                   f"({result['main']['bound_by']}), cuDNN LSTM forward {lib_ms:.4f} ms; "
                   f"graph T=1 {steps['T1_graph_ms']:.4f} ms, T=80 {steps['T80_graph_ms']:.4f} "
-                  f"ms: {steps['step_us']:.3f} us a step ({card})")
+                  f"ms: {steps['step_us']:.3f} us a step; ptxas: {ptxas['registers']} registers, "
+                  f"{ptxas['spill_bytes']} bytes spilled ({card})")
     return result["main"]
+
+
+def fwd_resources(source: str, H: int) -> dict:
+    """The most registers and spill-store bytes ptxas reported for the
+    forward kernel's instantiations of csrc/<source>.cu at this H: the
+    narrow form's (8 units a CTA) or the wide form's (16)."""
+    res = kernel_resources(source, "FwdTileILi16E" if H > NARROW_MAX_HIDDEN else "FwdTileILi8E")
+    return {"registers": max((r.get("registers", 0) for r in res.values()), default=None),
+            "spill_bytes": max((r.get("spill_stores", 0) for r in res.values()), default=None)}
 
 
 # Small odd shapes the kernels' tiling must take: B not a multiple of the
@@ -774,6 +815,7 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
     out["fwd"]["ms"] = time_ms(fwd, calls=5)
     out["fwd"]["graph_ms"] = graph_ms(fwd)
     out["fwd"].update(graph_step_ms(fwd_call))
+    out["fwd"].update(fwd_resources("lstm_seq_train", H))
     out["fwd"]["plain_ms"] = time_ms(lambda: lstm_seq_train_fwd_reference(xproj, w, mask),
                                      calls=1, runs=3)
     out["bwd"]["ms"] = time_ms(bwd, calls=5)
@@ -812,7 +854,8 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
           f"{fwd_err} (tol {LSTM_TRAIN_FWD_ATOL}); backward max err relative to the largest "
           f"value {bwd_err} (tol {LSTM_TRAIN_BWD_RTOL}); both launched twice bitwise equal; "
           f"fwd kernel {f['ms']:.4f} ms (graph {f['graph_ms']:.4f} ms; T=1 "
-          f"{f['T1_graph_ms']:.4f} ms, {f['step_us']:.3f} us a step), plain "
+          f"{f['T1_graph_ms']:.4f} ms, {f['step_us']:.3f} us a step; ptxas "
+          f"{f['registers']} registers, {f['spill_bytes']} bytes spilled), plain "
           f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms, cuDNN LSTM fwd "
           f"{f['library_ms']:.4f} ms; bwd kernels {b_['ms']:.4f} ms (graph {b_['graph_ms']:.4f} "
           f"ms; T=1 {b_['T1_graph_ms']:.4f} ms, {b_['step_us']:.3f} us a step; profiler: sweep "
@@ -1353,10 +1396,11 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
             if not same_bits(got, again):
                 raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D} h={H} "
                                      f"{dtype}: two launches on the same inputs differ")
-        if not (err <= BEAM_ATTN_ATOL and uniform <= 1e-7):
+        atol = CROSS_MAIN_ATOL if B == 128 else BEAM_ATTN_ATOL
+        if not (err <= atol and uniform <= 1e-7):
             raise AssertionError(f"beam_cross_attention B={B} K={K} S={S} D={D} h={H} {dtype}: "
-                                 f"max abs err {err:.3g}, fully masked row {uniform:.3g} from "
-                                 f"uniform")
+                                 f"max abs err {err:.3g} (tol {atol}), fully masked row "
+                                 f"{uniform:.3g} from uniform")
         if B != 128:
             print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} {dtype}: "
                   f"within {BEAM_ATTN_ATOL} ({err:.3g}), ragged mask and none, masked row "
@@ -1395,7 +1439,7 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
                    **bound(nbytes=4 * (2 * B * S * D + B * S + 2 * B * K * D + B * K * S),
                            flops=4 * B * K * S * D, peak_flops=F32_FLOPS))
         print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} float32: max abs "
-              f"err {err:.3g} (tol {BEAM_ATTN_ATOL}), masked row uniform within {uniform:.3g}, "
+              f"err {err:.3g} (tol {CROSS_MAIN_ATOL}), masked row uniform within {uniform:.3g}, "
               f"two launches bitwise equal, {launches_per_call:g} launches a call ({sorted(prof)}); "
               f"kernel "
               f"{ms:.4f} ms (device {res['graph_ms']:.4f} ms by graph replay, "

@@ -1,21 +1,44 @@
-"""Device times of two trees' encoder-attention kernels, on one card, in turns.
+"""Two trees' encoder-attention kernels on one card: beam_cross_attention's
+bits, both kernels' device times, and the cross kernel's cost seen from the
+host and in the fused transformer's decode, in turns.
 
     python3 compare_attention.py --other DIR [--rounds 2]
 
 DIR holds another checkout of this repository (for example an earlier
 commit unpacked with ``git archive`` into the gitignored ``_scratch/``).
-The script times ``bahdanau_attend`` (B = 128, S = 80, D = A = E = 512)
-and ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, 8 heads,
-float32 and bfloat16 keys and values) of each tree by CUDA-graph replay:
-10 calls captured in one graph, the replay timed with CUDA events, median
-of 5, with one input set (warm in the 50 MB L2) and with two input sets in
-turn (84 MB: every call reads device memory). Each tree runs in a process
-of its own, which imports that tree's ``video_captioning_tpu_torch`` and
-builds its kernels; the order is other, this, this, other (``--rounds``
-pairs), so drift on the card shows in both. Every output is held against
-the tree's own plain version first. Prints one JSON line per process and a
-summary line with each tree's medians, beside the card's name and power
-limit. Needs a CUDA card; imports nothing of JAX.
+Each tree runs in a process of its own, which imports that tree's
+``video_captioning_tpu_torch`` and builds its kernels; the order is other,
+this, this, other (``--rounds`` pairs), so drift on the card shows in
+both. Each process:
+
+* runs ``beam_cross_attention`` on the same seeded inputs (this tree's
+  ``chip_smoke.beam_cross_inputs``, made once and handed to every process)
+  at the main shape (B = 128, K = 5, S = 80, D = 512, 8 heads; float32 and
+  bfloat16 keys and values) and at every ``chip_smoke.CROSS_EDGE_SHAPES``
+  entry, with the ragged mask and with none, and writes the outputs to a
+  temporary file; the summary's ``same_bits`` says whether every run of
+  both trees gave the same bits as the first;
+* times ``bahdanau_attend`` (B = 128, S = 80, D = A = E = 512) and
+  ``beam_cross_attention`` at the main shape by CUDA-graph replay: 10
+  calls captured in one graph, the replay timed with CUDA events, median
+  of 5, with one input set (warm in the 50 MB L2) and with two input sets
+  in turn (84 MB: every call reads device memory). Every output is held
+  against the tree's own plain version first;
+* times ``beam_cross_attention`` at the main shape in float32 as the
+  decode loop meets it: ``_event_ms``, 10 wrapper calls back to back
+  between CUDA events, median of 5 (the host's issue time where it exceeds
+  the device's), and ``_host_ms``, the host's own time a call over 200
+  calls without a sync, median of 5 (the wrapper, its allocations and
+  the launches' issue);
+* runs the fused transformer's decode window (the tree's own
+  ``chip_smoke.fused_transformer_config`` and ``smoke_package``: random
+  weights from seed 0, encode + beam-5 over 20 steps at B = 128, 40
+  ``beam_cross_attention`` calls), CUDA-event time, median of 11 after two
+  warm-ups, and its device busy time in one more run under torch.profiler.
+
+Prints one JSON line per process and a summary line with ``same_bits`` and
+each tree's medians, beside the card's name and power limit. Exits 1 if
+the bits differ. Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,10 +48,17 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
+
+import torch
 
 HERE = Path(__file__).resolve().parent
 REPEATS = 5
+
+CROSS_MAIN = (128, 5, 80, 512, 8)
+WINDOW_RUNS = 11
 
 
 def _graph_ms(torch, fn, calls: int = 10) -> float:
@@ -64,11 +94,116 @@ def _in_turn(fns: list):
     return call
 
 
-def time_tree(tree: Path) -> dict:
-    """Time one tree's two kernels in this process."""
+def _event_ms(torch, fn, calls: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _host_ms(torch, fn, calls: int = 200) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def cross_inputs_file(path: Path) -> None:
+    """Write the bit comparison's inputs, on the CPU: this tree's
+    ``chip_smoke.beam_cross_inputs`` (seed 30) at the main shape (float32
+    and bfloat16 K/V) and at ``chip_smoke.CROSS_EDGE_SHAPES``."""
+    from chip_smoke import CROSS_EDGE_SHAPES, beam_cross_inputs
+
+    cases = {}
+    shapes = [(*CROSS_MAIN, dt) for dt in (torch.float32, torch.bfloat16)] + list(CROSS_EDGE_SHAPES)
+    for B, K, S, D, H, dtype in shapes:
+        cases[f"B{B}_K{K}_S{S}_D{D}_h{H}_{str(dtype)[6:]}"] = (
+            H, K, beam_cross_inputs("cpu", B, K, S, D, seed=30, dtype=dtype))
+    torch.save(cases, path)
+
+
+def cross_outputs(transformer_attn, inputs: Path) -> dict:
+    """beam_cross_attention's outputs on every case of ``inputs``, with the
+    mask and with none."""
+    outputs = {}
+    for name, (H, K, tensors) in torch.load(inputs).items():
+        q, ck, cv, mask = (t.cuda() for t in tensors)
+        for m, tag in ((mask, "mask"), (None, "none")):
+            got = transformer_attn.beam_cross_attention(q, ck, cv, m, H, K)
+            outputs[f"{name}_{tag}"] = [t.cpu() for t in got]
+    return outputs
+
+
+def decode_window(smoke) -> dict:
+    """The fused transformer's encode + beam-5 at B = 128 with the tree's
+    own ``chip_smoke`` (``smoke``) helpers: CUDA-event ms (median of
+    WINDOW_RUNS after two warm-ups) and device busy ms in one profiled
+    run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    config = smoke.fused_transformer_config()
+    clips = np.random.default_rng(1).standard_normal(
+        (128, config.model.video_sequence_length, config.model.cnn_feature_dim),
+        dtype=np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        predictor = smoke.VideoCaptionPredictor(smoke.smoke_package(tmp, config), device="cuda")
+        feats = torch.from_numpy(np.stack([predictor._prepare_features(c) for c in clips]))
+    feats = feats.cuda()
+    vocab, config, model = predictor.vocabulary, predictor.config, predictor.model
+
+    @torch.inference_mode()
+    def window():
+        enc, final, mask = smoke.encode(model, config, feats)
+        return smoke.beam_mod.beam_search_generate(model, config, enc, final, vocab.start_idx,
+                                                   vocab.end_idx, 20, mask, beam_size=5)
+
+    times = []
+    for i in range(WINDOW_RUNS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        window()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")) / 1e3
+    return {"fused_transformer_window_ms": statistics.median(times),
+            "fused_transformer_busy_ms": busy}
+
+
+def time_tree(tree: Path, out: Path, inputs: Path) -> dict:
+    """Time one tree's two kernels and its fused transformer's decode in
+    this process; save its beam_cross_attention outputs to ``out``."""
     sys.path.insert(0, str(tree))
-    import torch
+    import chip_smoke as smoke  # the tree's own (its package on sys.path first)
     from video_captioning_tpu_torch.ops import attention, transformer_attn
+
+    if not Path(smoke.__file__).resolve().parent == tree:
+        raise RuntimeError(f"{smoke.__file__} is not {tree}'s chip_smoke.py")
+    if not Path(transformer_attn.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"{transformer_attn.__file__} is not {tree}'s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = "cuda"
@@ -96,26 +231,40 @@ def time_tree(tree: Path) -> dict:
         mask[1] = 0.0
         return tuple(t.to(dev) for t in (q, ck, cv, mask))
 
-    out = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    torch.save(cross_outputs(transformer_attn, inputs), out)
+    res = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
     sets = [attend_inputs(8), attend_inputs(18)]
     got = attention.bahdanau_attend(*sets[0])
     want = attention.bahdanau_attend_reference(*sets[0])
-    out["bahdanau_attend_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(got, want))
-    out["bahdanau_attend_ms"] = _graph_ms(torch, lambda: attention.bahdanau_attend(*sets[0]))
-    out["bahdanau_attend_cold_ms"] = _graph_ms(
+    res["bahdanau_attend_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    res["bahdanau_attend_ms"] = _graph_ms(torch, lambda: attention.bahdanau_attend(*sets[0]))
+    res["bahdanau_attend_cold_ms"] = _graph_ms(
         torch, _in_turn([lambda a=a: attention.bahdanau_attend(*a) for a in sets]))
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         sets = [cross_inputs(30 + i, dtype) for i in range(2)]
         got = transformer_attn.beam_cross_attention(*sets[0], 8, 5)
         want = transformer_attn.beam_cross_attention_reference(*sets[0], 8, 5)
-        out[f"beam_cross_attention{tag}_max_abs_err"] = max(
+        res[f"beam_cross_attention{tag}_max_abs_err"] = max(
             (a - b).abs().max().item() for a, b in zip(got, want))
-        out[f"beam_cross_attention{tag}_ms"] = _graph_ms(
+        res[f"beam_cross_attention{tag}_ms"] = _graph_ms(
             torch, lambda: transformer_attn.beam_cross_attention(*sets[0], 8, 5))
-        out[f"beam_cross_attention{tag}_cold_ms"] = _graph_ms(
+        res[f"beam_cross_attention{tag}_cold_ms"] = _graph_ms(
             torch, _in_turn([lambda a=a: transformer_attn.beam_cross_attention(*a, 8, 5)
                              for a in sets]))
-    return out
+        if dtype == torch.float32:
+            res["beam_cross_attention_event_ms"] = _event_ms(
+                torch, lambda: transformer_attn.beam_cross_attention(*sets[0], 8, 5))
+            res["beam_cross_attention_host_ms"] = _host_ms(
+                torch, lambda: transformer_attn.beam_cross_attention(*sets[0], 8, 5))
+    res.update(decode_window(smoke))
+    return res
+
+
+def _same_bits(a: dict, b: dict) -> dict:
+    def raw(t):
+        return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    return {k: all(torch.equal(raw(x), raw(y)) for x, y in zip(a[k], b[k])) for k in a}
 
 
 def main(argv=None) -> int:
@@ -123,14 +272,14 @@ def main(argv=None) -> int:
     ap.add_argument("--other", type=Path, help="the other tree's root")
     ap.add_argument("--rounds", type=int, default=2, help="(other, this, this, other) pairs")
     ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)  # one tree, this process
+    ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.time is not None:
-        import torch
-
         if not torch.cuda.is_available():
             print("compare_attention: no CUDA card", file=sys.stderr)
             return 1
-        print(json.dumps(time_tree(args.time.resolve())), flush=True)
+        print(json.dumps(time_tree(args.time.resolve(), args.out, args.inputs)), flush=True)
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -138,23 +287,38 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     trees = {"other": args.other.resolve(), "this": HERE}
     runs = {"other": [], "this": []}
-    for _ in range(args.rounds):
-        for who in ("other", "this", "this", "other"):
-            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time",
-                                   str(trees[who])], capture_output=True, text=True,
-                                  cwd=trees[who], timeout=900)
-            if proc.returncode != 0:
-                print(proc.stdout + proc.stderr, file=sys.stderr)
-                return proc.returncode
-            line = proc.stdout.strip().splitlines()[-1]
-            print(f"[{who}] {line}", flush=True)
-            runs[who].append(json.loads(line))
+    same = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp) / "cross_inputs.pt"
+        cross_inputs_file(inputs)
+        first = None
+        for i in range(args.rounds):
+            for j, who in enumerate(("other", "this", "this", "other")):
+                out = Path(tmp) / f"{who}{i}_{j}.pt"
+                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time",
+                                       str(trees[who]), "--out", str(out), "--inputs",
+                                       str(inputs)],
+                                      capture_output=True, text=True, cwd=trees[who],
+                                      timeout=900)
+                if proc.returncode != 0:
+                    print(proc.stdout + proc.stderr, file=sys.stderr)
+                    return proc.returncode
+                line = proc.stdout.strip().splitlines()[-1]
+                print(f"[{who}] {line}", flush=True)
+                runs[who].append(json.loads(line))
+                if first is None:
+                    first = out
+                    continue
+                bits = _same_bits(torch.load(first), torch.load(out))  # against the first run
+                same = {k: same.get(k, True) and v for k, v in bits.items()}
     keys = [k for k in runs["this"][0] if k.endswith("_ms")]
     summary = {who: {k: statistics.median(r[k] for r in runs[who]) for k in keys}
                for who in runs}
     print(card)
-    print(json.dumps({"card": card, "median_ms": summary}))
-    return 0
+    print(json.dumps({"card": card, "same_bits": all(same.values()),
+                      "differ": sorted(k for k, v in same.items() if not v),
+                      "compared": len(same), "median_ms": summary}))
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":

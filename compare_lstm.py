@@ -9,16 +9,19 @@ Each tree, in a process of its own that imports that tree's
 ``video_captioning_tpu_torch`` and builds its kernels, runs the main
 path's recurrences on the same seeded inputs: ``lstm_seq`` at
 (80, 2, 128, 2048) with float32 and bfloat16 xproj, and ``lstm_seq_train``'s
-forward and backward at (80, 2, 32, 2048), float32, ragged lengths. Every
-output is held against the tree's own plain version, written to a
-temporary directory, and compared bit for bit with the other tree's; the
-launches are timed by CUDA-graph replay (``compare_attention._graph_ms``:
-three calls a graph, CUDA events, median of 5). The
-order is other, this, this, other (``--rounds`` pairs), so drift on the
-card shows in both. Prints one JSON line per process, then the card's name
-and power limit and a summary line (``same_bits`` and each tree's median
-times). Exits 1 if the bits differ. Needs a CUDA card; imports nothing of
-JAX.
+forward and backward at (80, 2, 32, 2048), float32, ragged lengths (the
+narrow forms, H = 512); then the wide forms (H = 1024): ``lstm_seq`` at
+(80, 2, 128, 4096) with float32 and bfloat16 xproj and the training forward
+at (80, 2, 32, 4096). Every output is held against the tree's own plain
+version; the narrow forms' outputs are written to a temporary directory and
+compared bit for bit with the other tree's (the wide forms' bits may
+differ between designs: their errors are reported instead). The launches
+are timed by CUDA-graph replay (``compare_attention._graph_ms``: three
+calls a graph, CUDA events, median of 5). The order is other, this, this,
+other (``--rounds`` pairs), so drift on the card shows in both. Prints one
+JSON line per process, then the card's name and power limit and a summary
+line (``same_bits`` and each tree's median times). Exits 1 if the bits
+differ. Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -85,6 +88,18 @@ def run_tree(tree: Path, out: Path) -> dict:
     res["train_bwd_ms"] = _graph_ms(
         torch, lambda: train.lstm_seq_train_bwd(*fwd[3:], w, m, douts, dh, dc), calls=3)
     torch.save(outputs, out)
+    # The wide forms at H = 1024.
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, w, m = inputs(dtype, 128, H=1024)
+        res[f"wide_lstm_seq_{tag}_max_abs_err"] = err(
+            (lambda o: (o[0], *o[1]))(seq.lstm_seq(x, w, m)),
+            (lambda o: (o[0], *o[1]))(seq.lstm_seq_reference(x, w, m)))
+        res[f"wide_lstm_seq_{tag}_ms"] = _graph_ms(torch, lambda: seq.lstm_seq(x, w, m), calls=3)
+    x, w, m = inputs(torch.float32, 32, H=1024)
+    res["wide_train_fwd_max_abs_err"] = err(train.lstm_seq_train_fwd(x, w, m),
+                                            train.lstm_seq_train_fwd_reference(x, w, m))
+    res["wide_train_fwd_ms"] = _graph_ms(torch, lambda: train.lstm_seq_train_fwd(x, w, m),
+                                         calls=3)
     return res
 
 

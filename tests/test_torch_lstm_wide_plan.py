@@ -1,0 +1,93 @@
+"""The wide recurrence forward's launch plan (``ops/lstm_seq.py:
+fwd_wide_plan``) on the CPU, for every H the wide form takes (600 < H <=
+1024) and B = 1 .. 128, on one and two directions.
+
+The wide forward (csrc/lstm_seq_fwd.cuh, FwdWide) runs one CTA of 512
+threads an SM, 16 hidden units each, all of a direction's row group
+co-resident; each step it brings the direction's bf16 h in 32-row chunks
+through a ring of shared memory slots by 16-byte copies whose completion
+each slot's mbarrier counts. The plan mirrors the launcher's choice of row
+groups and slices and picks the ring; these tests hold it to the H100's 132
+SMs and 227 KB a CTA, to covering every unit and row once, and to the ring
+being as deep as fits.
+The kernel itself is held to its plain version on the card by chip_smoke.py
+and compare_lstm.py."""
+
+import pytest
+
+from video_captioning_tpu_torch.ops.lstm_seq import (
+    CARD_SMS,
+    NARROW_MAX_HIDDEN,
+    SMEM_LIMIT,
+    WIDE_MAX_RING,
+    WIDE_MIN_ROWS,
+    WIDE_ROWS,
+    WIDE_THREADS,
+    WIDE_UNITS,
+    fwd_ring,
+    fwd_wide_plan,
+    fwd_wide_smem,
+)
+
+WIDE_HIDDEN = range(NARROW_MAX_HIDDEN + 1, 1025)
+
+
+def _check(H, B, ND):
+    plan = fwd_wide_plan(H, B, ND)
+    where = (H, B, ND, plan)
+    ug, groups, nb, ring = plan["unit_groups"], plan["row_groups"], plan["nb"], plan["ring"]
+    # Every unit once: 16 units a CTA, the last group partly masked.
+    assert (ug - 1) * WIDE_UNITS < H <= ug * WIDE_UNITS, where
+    # One CTA an SM (W_hh in registers), every CTA that meets co-resident.
+    assert plan["ctas"] == ND * groups * ug <= CARD_SMS, where
+    # Every row once: slices of `slice` rows, each over `groups` row groups
+    # of at most nb rows, none empty.
+    assert plan["launches"] * plan["slice"] >= B > (plan["launches"] - 1) * plan["slice"], where
+    assert groups * nb >= plan["slice"] > (groups - 1) * nb, where
+    assert groups == 1 or nb >= WIDE_MIN_ROWS, where
+    # The launcher's row groups: the most that are co-resident.
+    if plan["slice"] == B and groups < max(1, B // WIDE_MIN_ROWS):
+        assert ND * (groups + 1) * ug > CARD_SMS, where
+    # Shared memory and the ring: as deep as fits, at most a step's chunks.
+    chunks = -(-nb // WIDE_ROWS)
+    assert plan["chunks"] == chunks, where
+    assert 1 <= ring <= min(chunks, WIDE_MAX_RING), where
+    assert plan["smem"] == fwd_wide_smem(H, nb, ring) <= SMEM_LIMIT, where
+    assert ring in (chunks, WIDE_MAX_RING) or fwd_wide_smem(H, nb, ring + 1) > SMEM_LIMIT, where
+    assert fwd_ring(H, B, ND) == ring
+    return plan
+
+
+@pytest.mark.parametrize("ND", [2, 1])
+@pytest.mark.parametrize("B0", list(range(1, 129, 16)))
+def test_fwd_wide_plan_fits_and_covers_every_unit_and_row(B0, ND):
+    for B in range(B0, B0 + 16):
+        for H in WIDE_HIDDEN:
+            _check(H, B, ND)
+
+
+def test_fwd_wide_plan_main_shapes():
+    """The H = 1024 encoder: 2 x 64 CTAs of one epilogue item a thread; at
+    B = 128 two of a step's four chunks in flight, at B = 32 (training) the
+    step's one chunk."""
+    assert WIDE_UNITS * WIDE_ROWS == WIDE_THREADS
+    plan = _check(1024, 128, 2)
+    assert plan["ctas"] == 128 and plan["row_groups"] == 1
+    assert plan["chunks"] == 4 and plan["ring"] == 2
+    plan = _check(1024, 32, 2)
+    assert plan["ring"] == plan["chunks"] == 1
+
+
+@pytest.mark.parametrize("B", [700, 2000, 5000])
+def test_fwd_wide_plan_slices_large_batches(B):
+    """Rows whose carried state does not fit one launch run as sequential
+    slices, halved until they fit, as the launcher does."""
+    plan = _check(1024, B, 2)
+    slice_rows = B
+    while fwd_wide_smem(1024, slice_rows, 1) > SMEM_LIMIT:
+        slice_rows = -(-slice_rows // 2)
+    assert plan["slice"] == slice_rows
+
+
+def test_narrow_forms_take_no_ring():
+    assert fwd_ring(512, 128, 2) == fwd_ring(600, 37, 1) == 0

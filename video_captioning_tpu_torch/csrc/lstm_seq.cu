@@ -35,11 +35,13 @@ extern "C" int vct_lstm_seq_max_hidden() { return vct::kMaxWideHidden; }
 extern "C" int vct_lstm_seq_narrow_max_hidden() { return vct::kMaxHidden; }
 
 // Returns a cudaError_t: 0 when the launches were accepted. hbuf is
-// (2, ND, B, H) bf16 and sync (ND, B) unsigned scratch, both uninitialised.
+// (2, ND, B, H) bf16 and sync (ND, B) unsigned scratch, both uninitialised;
+// ring: the wide form's h chunk slots (ops/lstm_seq.py:fwd_wide_plan),
+// ignored by the narrow form.
 extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
                             const void* w_hh, const float* mask, void* outs,
                             void* h_last, void* c_last, void* hbuf, void* sync,
-                            int T, int ND, int B, int H, void* stream) {
+                            int T, int ND, int B, int H, int ring, void* stream) {
   if (T <= 0 || ND <= 0 || B <= 0 || H <= 0 || H % vct::kUnits != 0 ||
       H > vct::kMaxWideHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -57,6 +59,7 @@ extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
   p.ND = ND;
   p.B = B;
   p.H = H;
+  p.ring = ring;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return xproj_is_bf16 ? vct::launch_fwd<__nv_bfloat16, false>(p, st)
                        : vct::launch_fwd<float, false>(p, st);

@@ -39,12 +39,26 @@
 // SM (two 32-row h chunks are 132 KB), so the grid cannot be co-resident.
 // So a CTA owns 16 units (64 gate columns): 2 x 64 CTAs at H = 1024, one
 // an SM, within the H100's 132. Its W_hh slice (H x 64 bf16, 128 KB) stays
-// in registers as in the narrow form, 8 k-tiles x 8 n-tiles a warp (128
-// registers a thread; one CTA an SM leaves the other half of the register
-// file unused), which keeps shared memory for the staged h (16-row chunks,
-// 33 KB each at H = 1024, two in flight) and the partial sums. Units past
-// H (H = 1000 is not a multiple of 16) are masked. The counters, the
-// two-slot exchange and launch_recurrence are the narrow form's.
+// in registers, spread over 16 warps (512 threads): 8 along K times 2
+// along the columns, 8 k-tiles x 4 n-tiles a warp (64 registers a thread),
+// which keeps shared memory for the staged h (32-row chunks, 66 KB each at
+// H = 1024, through a ring of the plan's slots: two at B = 128) and the 8
+// K-slices' partial sums (rows padded to 72 floats: the float2 stores hit
+// distinct banks). Each step, once the direction's counter says h is
+// published, every thread issues its 16-byte cp.async share of the ring's
+// chunks, each slot completing on an mbarrier that counts every thread's
+// copies; a freed slot is refilled at once. Units past H (H = 1000 is not
+// a multiple of 16) are masked. The counters, the two-slot exchange and
+// launch_recurrence are the narrow form's.
+//
+// The first wide form (8 warps of 8 k-tiles x 8 n-tiles, 128 registers of
+// W_hh a thread, 255 in all with spills; 16-row chunks, two in flight;
+// partials at stride 65, 4-way bank conflicts on their stores) spent a
+// chunk's time in the products and the gate math in turn, with one CTA of
+// 8 warps an SM to hide their latencies; probe builds (PERF.md) found that
+// a deeper ring of h alone did not help (h arrives in time), that copies
+// issued by one thread sat on the critical path, and that two CTAs an SM
+// at 8 units each, which read h twice from L2, were slower.
 //
 // Why this design and not one thread-block cluster per direction with h
 // exchanged through distributed shared memory: W_hh of one direction is
@@ -141,6 +155,38 @@ __device__ __forceinline__ void dir_wait(const unsigned* counter, unsigned targe
   __threadfence();
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// One arrival on bar once every cp.async this thread has issued has landed
+// (bar's count includes these arrivals).
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// Wait for the phase of bar with this parity to complete; a copy that
+// never lands traps after about 2^28 tries (seconds) instead of holding
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (tries > (1L << 28)) __trap();
+  }
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
@@ -155,6 +201,7 @@ __device__ __forceinline__ float sigmoid(float x) {
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
+
 
 // The batch rows of CTA `blockIdx.x` in a grid of (direction, row group,
 // unit group): rows [b0, b0 + n) of the launch's slice. The CTAs of one
@@ -182,7 +229,7 @@ __device__ __forceinline__ RowRange row_range(const P& p, int unit_groups) {
 // slice_rows, row_groups and sync. Returns a cudaError_t.
 template <typename K, typename P, typename SmemOf>
 int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf smem_of,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, int threads = kThreads) {
   const void* kern = reinterpret_cast<const void*>(kernel_fn);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(kMaxSmem));
@@ -200,7 +247,7 @@ int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf s
     int per_sm = 0;
     *ok = false;
     if (smem > kMaxSmem) return cudaSuccess;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
     *ok = per_sm * sms >= p.ND * groups * unit_groups;
     return err;
   };
@@ -232,7 +279,7 @@ int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf s
         cudaSuccess)
       return static_cast<int>(e);
     void* kargs[] = {&p};
-    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), kargs, smem_of(rows),
+    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), kargs, smem_of(rows),
                                     stream);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -248,28 +295,40 @@ constexpr int kPartStride = kCols + 1;
 // k-tiles of 16 per warp: ceil(ceil(600 / 16) / 8) = 5.
 constexpr int kFwdKt = ((kMaxHidden + 15) / 16 + kWarps - 1) / kWarps;
 
-// The forward's tiling: Units hidden units a CTA (4 x Units gate columns,
-// Units / 2 n-tiles of 8), Rows batch rows of h a staged chunk (Units x Rows
-// = kThreads: one epilogue item a thread), Kt k-tiles of W_hh a warp held
-// in registers, MinBlocks CTAs an SM.
-template <int Units, int Rows, int Kt, int MinBlocks>
+// The forward's tiling: Units hidden units a CTA (4 x Units gate columns),
+// Rows batch rows of h a staged chunk (Units x Rows = Threads: one epilogue
+// item a thread), Threads / 32 warps: Nw along the gate columns (4 Units /
+// 8 / Nw n-tiles a warp) times Kw = Threads / 32 / Nw along K (Kt k-tiles of
+// W_hh a warp, held in registers; the Kw partial sums meet in shared
+// memory, rows PartPad floats longer than the columns: 1, or 8 with
+// conflict-free float2 stores), MinBlocks CTAs an SM. Ring: h arrives
+// through the plan's ring of chunk slots, each completing on an mbarrier;
+// otherwise two chunks in flight tracked by cp.async groups.
+template <int Units, int Rows, int Kt, int MinBlocks, bool Ring, int PartPad, int Threads,
+          int Nw>
 struct FwdTile {
   static constexpr int kUnits = Units;
   static constexpr int kRows = Rows;
   static constexpr int kKt = Kt;
   static constexpr int kMinBlocks = MinBlocks;
-  static constexpr int kNt = 4 * Units / 8;
+  static constexpr bool kRing = Ring;
+  static constexpr int kThreads = Threads;
+  static constexpr int kKw = Threads / 32 / Nw;
+  static constexpr int kNt = 4 * Units / 8 / Nw;
   static constexpr int kMt = Rows / 16;
-  static constexpr int kPartStride = 4 * Units + 1;
-  static_assert(Units * Rows == kThreads, "one epilogue item a thread");
+  static constexpr int kPartStride = 4 * Units + PartPad;
+  static_assert(Units * Rows == Threads, "one epilogue item a thread");
 };
 // H <= 600: 8 units a CTA, two CTAs an SM (W_hh slice 40 registers a thread).
-using FwdNarrow = FwdTile<kUnits, kFwdRows, kFwdKt, 2>;
+using FwdNarrow = FwdTile<kUnits, kFwdRows, kFwdKt, 2, false, 1, kThreads, 1>;
 // 600 < H <= 1024: 16 units a CTA (64 gate columns, so 2 x 64 CTAs at
-// H = 1024 are co-resident one an SM on 132 SMs); the CTA's W_hh slice is
-// 8 k-tiles x 8 n-tiles of B fragments a warp, 128 registers a thread; h
-// staged 16 rows a chunk (33 KB at H = 1024).
-using FwdWide = FwdTile<16, 16, (kMaxWideHidden / 16 + kWarps - 1) / kWarps, 1>;
+// H = 1024 are co-resident one an SM on 132 SMs), 16 warps: 8 along K
+// times 2 along the columns, so the CTA's W_hh slice (H x 64 bf16) is 8
+// k-tiles x 4 n-tiles of B fragments a warp, 64 registers a thread; h
+// staged 32 rows a chunk (66 KB at H = 1024) through a ring of up to
+// kMaxRing chunk slots (ops/lstm_seq.py:fwd_wide_plan).
+using FwdWide = FwdTile<16, 32, (kMaxWideHidden / 16) / 8, 1, true, 8, 512, 2>;
+constexpr int kMaxRing = 16;
 
 struct FwdParams {
   const void* xproj;           // (T, ND, B, 4H), float32 or bf16
@@ -287,21 +346,29 @@ struct FwdParams {
   int T, ND, B, H;
   int b0, slice_rows;          // this launch's batch rows
   int nb, row_groups;          // rows a CTA (at most), row groups a direction
+  int ring;                    // the wide form's h chunk slots (its plan's); 0 narrow
 };
 
 __host__ __device__ inline int fwd_kpad(int H) { return (H + 15) / 16 * 16; }
 
-// Two h chunks (row stride kpad + 8 bf16: ldmatrix rows in distinct banks),
-// the eight warps' partial sums, and the float32 h and c of nb rows.
+// The ring's mbarriers (Ring), the h chunk slots (two, or the ring's; row
+// stride kpad + 8 bf16: ldmatrix rows in distinct banks), the Kw partial
+// sums, and the float32 h and c of nb rows.
+__host__ __device__ inline int fwd_bar_bytes(int ring) { return (8 * ring + 15) / 16 * 16; }
 template <typename Tile>
-inline size_t fwd_smem_bytes(int H, int nb) {
-  return static_cast<size_t>(2 * Tile::kRows) * (fwd_kpad(H) + 8) * 2 +
-         static_cast<size_t>(kWarps) * Tile::kRows * Tile::kPartStride * 4 +
+inline size_t fwd_smem_bytes(int H, int nb, int ring) {
+  const int slots = Tile::kRing ? ring : 2;
+  return static_cast<size_t>(Tile::kRing ? fwd_bar_bytes(ring) : 0) +
+         static_cast<size_t>(slots * Tile::kRows) * (fwd_kpad(H) + 8) * 2 +
+         static_cast<size_t>(Tile::kKw) * Tile::kRows * Tile::kPartStride * 4 +
          static_cast<size_t>(nb) * Tile::kUnits * 8;
 }
 
 template <typename T, bool kResiduals, typename Tile>
-__global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kernel(FwdParams p) {
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
+    lstm_seq_fwd_kernel(FwdParams p) {
+  constexpr int kThreads = Tile::kThreads;  // shadows the file's: this tile's
+  constexpr int kKw = Tile::kKw;
   constexpr int U = Tile::kUnits;
   constexpr int R = Tile::kRows;
   constexpr int PS = Tile::kPartStride;
@@ -311,9 +378,12 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   const int kpad = fwd_kpad(H);
   const int hstride = kpad + 8;
   const int KT = kpad / 16;
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][R][hstride]
-  float* part = reinterpret_cast<float*>(hs + 2 * R * hstride);
-  float* st_h = part + kWarps * R * PS;  // [nb][U]
+  const int slots = Tile::kRing ? p.ring : 2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [ring] (Ring)
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(
+      smem + (Tile::kRing ? fwd_bar_bytes(p.ring) : 0));  // [slots][R][hstride]
+  float* part = reinterpret_cast<float*>(hs + slots * R * hstride);
+  float* st_h = part + kKw * R * PS;  // [nb][U]
   float* st_c = st_h + p.nb * U;
 
   const int unit_groups = (H + U - 1) / U;
@@ -324,6 +394,8 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int kw = warp % kKw;  // this warp's k-tiles: kw, kw + kKw, ...
+  const int nw = warp / kKw;  // and n-tiles: nw * kNt .. nw * kNt + kNt - 1
   const int g = lane >> 2;
   const int tq = lane & 3;
 
@@ -335,11 +407,12 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 #pragma unroll
   for (int i = 0; i < Tile::kKt; ++i) {
-    const int kt = warp + i * kWarps;
+    const int kt = kw + i * kKw;
 #pragma unroll
     for (int nt = 0; nt < Tile::kNt; ++nt) {
-      const int unit = j0 + (nt % (U / 8)) * 8 + g;
-      const int col = (nt / (U / 8)) * H + unit;
+      const int ntg = nw * Tile::kNt + nt;
+      const int unit = j0 + (ntg % (U / 8)) * 8 + g;
+      const int col = (ntg / (U / 8)) * H + unit;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int k = kt * 16 + half * 8 + 2 * tq;
@@ -352,12 +425,15 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   }
   // Zero k columns past H (never copied into) and the carried state.
   const int kx = kpad - H;
-  for (int e = tid; e < 2 * R * kx; e += kThreads) {
+  for (int e = tid; e < slots * R * kx; e += kThreads) {
     hs[(e / kx) * hstride + H + e % kx] = zero;
   }
   for (int e = tid; e < rr.n * U; e += kThreads) {
     st_h[e] = 0.0f;
     st_c[e] = 0.0f;
+  }
+  if (Tile::kRing && tid == 0) {
+    for (int i = 0; i < p.ring; ++i) mbar_init(&bars[i], kThreads);
   }
   __syncthreads();
 
@@ -369,6 +445,9 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   const int j = j0 + eu;
   const bool unit_in = j < H;
   const int vecs = H / 8;  // 16-byte vectors of an h row
+  // Ring: the chunks of steps 1 .. T - 1 in order; chunk g lands in slot
+  // g % ring, for the (g / ring)-th time.
+  unsigned gbase = 0;
 
   for (int t = 0; t < p.T; ++t) {
     const __nv_bfloat16* hcur =
@@ -377,8 +456,8 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
         p.hbuf + (static_cast<size_t>((t + 1) & 1) * p.ND + d) * p.B * H;
     const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
     // The gate inputs of one chunk row (as loaded) and its mask value,
-    // loaded a chunk ahead of their use so that their latency hides behind
-    // the products.
+    // loaded once the chunk's products are done (not live beside their
+    // accumulators), their latency behind the partial sums' barrier.
     auto load_x = [&](int c, T (&x)[4], float& m) {
       const int bl = c * R + er;
       if (c >= n_chunks || bl >= rr.n || !unit_in) return;
@@ -387,8 +466,14 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
       for (int q = 0; q < 4; ++q) x[q] = xr[q * H];
       m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
     };
+    // Chunk c's rows of h into a slot by 16-byte cp.async from every
+    // thread: slot c & 1 (two in flight, cp.async groups), or with Ring,
+    // slot (gbase + c) % ring, each thread's arrival on the slot's mbarrier
+    // following its copies.
     auto stage = [&](int c) {
-      __nv_bfloat16* dst = hs + (c & 1) * R * hstride;
+      const unsigned gc = gbase + c;
+      const int slot = Tile::kRing ? static_cast<int>(gc % p.ring) : (c & 1);
+      __nv_bfloat16* dst = hs + slot * R * hstride;
       const int r0 = c * R;
       const int rows = min(R, rr.n - r0);
       for (int e = tid; e < rows * vecs; e += kThreads) {
@@ -397,6 +482,7 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
         cp_async16(dst + r * hstride + v * 8,
                    hcur + static_cast<size_t>(rr.b0 + r0 + r) * H + v * 8);
       }
+      if (Tile::kRing) mbar_arrive_on_copies(&bars[slot]);
     };
     // Next step's gate inputs into L2 while this step runs.
     if (t + 1 < p.T) {
@@ -404,62 +490,79 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
       for (int e = tid; e < rr.n * 4; e += kThreads)
         prefetch_l2(xproj + (next + e / 4) * H4 + (e % 4) * H + j0);
     }
-    T xv[4];
-    float mv = 0.0f;
-    load_x(0, xv, mv);
     if (t > 0) {  // step 0's h is zero: no product
       if (tid == 0) dir_wait(counter, static_cast<unsigned>(t * unit_groups));
       __syncthreads();
-      stage(0);
-      cp_async_commit();
-      if (n_chunks > 1) stage(1);
-      cp_async_commit();
+      if (Tile::kRing) {  // a ring's worth of chunks in flight
+        for (int c = 0; c < min(p.ring, n_chunks); ++c) stage(c);
+      } else {
+        stage(0);
+        cp_async_commit();
+        if (n_chunks > 1) stage(1);
+        cp_async_commit();
+      }
     }
 
     for (int c = 0; c < n_chunks; ++c) {
       const int rows = min(R, rr.n - c * R);
-      T xn[4];
-      float mn = 0.0f;
-      load_x(c + 1, xn, mn);
+      T xv[4];
+      float mv = 0.0f;
+      if (t == 0) load_x(c, xv, mv);
       if (t > 0) {
-        cp_async_wait_one();  // chunk c has landed
-        __syncthreads();      // for every thread; the last epilogue is done
-        float acc[Tile::kMt][Tile::kNt][4];
+        if (Tile::kRing) {
+          const unsigned gc = gbase + c;
+          mbar_wait(&bars[gc % p.ring], (gc / p.ring) & 1);  // chunk c has landed
+        } else {
+          cp_async_wait_one();  // chunk c has landed
+        }
+        __syncthreads();  // for every thread; the last epilogue is done
+        // This warp's k-tiles of each m-tile of the chunk, then its partial
+        // sums (m-tile by m-tile: 4 kNt accumulators live at a time).
+        const __nv_bfloat16* hb =
+            hs + (Tile::kRing ? static_cast<int>((gbase + c) % p.ring) : (c & 1)) * R * hstride;
+        float* pw = part + kw * R * PS + nw * Tile::kNt * 8;
 #pragma unroll
-        for (int mi = 0; mi < Tile::kMt; ++mi)
+        for (int mi = 0; mi < Tile::kMt; ++mi) {
+          if (mi * 16 >= rows) break;
+          float acc[Tile::kNt][4];
 #pragma unroll
           for (int nt = 0; nt < Tile::kNt; ++nt)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.0f;
-        const __nv_bfloat16* hb = hs + (c & 1) * R * hstride;
+            for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < Tile::kKt; ++i) {
-          const int kt = warp + i * kWarps;
-          if (kt >= KT) break;
-#pragma unroll
-          for (int mi = 0; mi < Tile::kMt; ++mi) {
-            if (mi * 16 >= rows) break;
+          for (int i = 0; i < Tile::kKt; ++i) {
+            const int kt = kw + i * kKw;
+            if (kt >= KT) break;
             uint32_t a[4];
             ldmatrix_x4(a, hb + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hstride +
                                kt * 16 + (lane >> 4) * 8);
 #pragma unroll
             for (int nt = 0; nt < Tile::kNt; ++nt)
-              mma_bf16(acc[mi][nt], a, wf[i][nt][0], wf[i][nt][1]);
+              mma_bf16(acc[nt], a, wf[i][nt][0], wf[i][nt][1]);
+          }
+          // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
+#pragma unroll
+          for (int nt = 0; nt < Tile::kNt; ++nt) {
+            if (PS % 2 == 0) {
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2)
+                *reinterpret_cast<float2*>(pw + (mi * 16 + g + h2 * 8) * PS + nt * 8 + 2 * tq) =
+                    make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                pw[(mi * 16 + g + (q >> 1) * 8) * PS + nt * 8 + 2 * tq + (q & 1)] = acc[nt][q];
+            }
           }
         }
-        // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
-        float* pw = part + warp * R * PS;
-#pragma unroll
-        for (int mi = 0; mi < Tile::kMt; ++mi)
-#pragma unroll
-          for (int nt = 0; nt < Tile::kNt; ++nt)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              pw[(mi * 16 + g + (q >> 1) * 8) * PS + nt * 8 + 2 * tq + (q & 1)] =
-                  acc[mi][nt][q];
+        load_x(c, xv, mv);
         __syncthreads();  // partials written; chunk c's buffer is free
-        if (c + 2 < n_chunks) stage(c + 2);
-        cp_async_commit();  // possibly empty: keeps the group count in step
+        if (Tile::kRing) {
+          if (c + p.ring < n_chunks) stage(c + p.ring);
+        } else {
+          if (c + 2 < n_chunks) stage(c + 2);
+          cp_async_commit();  // possibly empty: keeps the group count in step
+        }
       }
 
       if (er < rows && unit_in) {
@@ -473,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
           if (t > 0) {
             float sum = 0.0f;
 #pragma unroll
-            for (int w8 = 0; w8 < kWarps; ++w8) sum += part[(w8 * R + er) * PS + q * U + eu];
+            for (int w8 = 0; w8 < kKw; ++w8) sum += part[(w8 * R + er) * PS + q * U + eu];
             s += sum;
           }
           gate[q] = s;
@@ -512,10 +615,8 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
           store_f(static_cast<T*>(p.c_last) + fi, c_keep);
         }
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) xv[q] = xn[q];
-      mv = mn;
     }
+    if (t > 0) gbase += n_chunks;
     if (t + 1 < p.T) {  // publish h_{t+1} to the CTAs that share these rows
       __syncthreads();
       if (tid == 0) dir_arrive(counter);
@@ -523,18 +624,22 @@ __global__ void __launch_bounds__(kThreads, Tile::kMinBlocks) lstm_seq_fwd_kerne
   }
 }
 
-// The narrow form up to kMaxHidden, the wide one above it.
+// The narrow form up to kMaxHidden, the wide one above it (with the ring
+// of its plan, 1 <= p.ring <= kMaxRing).
 template <typename T, bool kResiduals>
 int launch_fwd(const FwdParams& p, cudaStream_t stream) {
   const int H = p.H;
   if (H <= kMaxHidden) {
     return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdNarrow>, p,
                              H / FwdNarrow::kUnits, 16,
-                             [H](int nb) { return fwd_smem_bytes<FwdNarrow>(H, nb); }, stream);
+                             [H](int nb) { return fwd_smem_bytes<FwdNarrow>(H, nb, 0); }, stream);
   }
+  if (p.ring < 1 || p.ring > kMaxRing) return static_cast<int>(cudaErrorInvalidValue);
+  const int ring = p.ring;
   return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdWide>, p,
                            (H + FwdWide::kUnits - 1) / FwdWide::kUnits, 16,
-                           [H](int nb) { return fwd_smem_bytes<FwdWide>(H, nb); }, stream);
+                           [H, ring](int nb) { return fwd_smem_bytes<FwdWide>(H, nb, ring); },
+                           stream, FwdWide::kThreads);
 }
 
 }  // namespace vct

@@ -616,12 +616,13 @@ static bool bad_shape(int T, int ND, int B, int H) {
 }
 
 // Forward with residuals. hbuf is (2, ND, B, H) bf16 and sync (ND, B)
-// unsigned scratch, both uninitialised. Returns a cudaError_t: 0 when the
-// launches were accepted.
+// unsigned scratch, both uninitialised; ring: the wide form's h chunk
+// slots (ops/lstm_seq.py:fwd_wide_plan), ignored by the narrow form.
+// Returns a cudaError_t: 0 when the launches were accepted.
 extern "C" int vct_lstm_seq_train_fwd(
     const void* xproj, int xproj_is_bf16, const void* w_hh, const float* mask,
     void* outs, void* h_last, void* c_last, void* hbuf, void* sync, void* gact,
-    float* h_keep, float* c_keep, int T, int ND, int B, int H, void* stream) {
+    float* h_keep, float* c_keep, int T, int ND, int B, int H, int ring, void* stream) {
   if (bad_shape(T, ND, B, H)) return static_cast<int>(cudaErrorInvalidValue);
   vct::FwdParams p = {};
   p.xproj = xproj;
@@ -639,6 +640,7 @@ extern "C" int vct_lstm_seq_train_fwd(
   p.ND = ND;
   p.B = B;
   p.H = H;
+  p.ring = ring;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return xproj_is_bf16 ? vct::launch_fwd<__nv_bfloat16, true>(p, st)
                        : vct::launch_fwd<float, true>(p, st);

@@ -40,24 +40,59 @@
 // coalesced warp load; rows that several beams share come from L2. An
 // online softmax (running max, sum and context per warp) needs no storage
 // for the scores and takes any T; the TPU kernel's one-hot selection over
-// all K slots becomes one index load per position. Cross: the clip's keys
-// and values are shared by all K warps, so the CTA stages them through
-// shared memory in chunks of 32 frames (any S) and each element leaves
-// device memory once; a first version in which every warp read them from
-// L2 itself was 4.9x the byte bound. The per-head weights go to a
-// (B*K, heads, S) float32 scratch, and a second small launch averages the
-// heads in a fixed order (no atomics), so a run repeats bit for bit.
+// all K slots becomes one index load per position.
+//
+// Cross: the clip's keys and values are shared by all K warps, so the CTA
+// stages its head's slice of them in shared memory and each element leaves
+// device memory once; a second small launch averages the heads' weights in
+// a fixed order. The first version staged 32 frames at a time, each chunk
+// loaded by plain loads between two __syncthreads and the next one not
+// requested before the last was consumed, so a CTA ran six serial round
+// trips to device memory (0.31 of the byte bound at B = 128, K = 5, S = 80,
+// D = 512, 8 heads; warm in L2 and cold alike, so latency, not bytes, set
+// it). This version keeps every value's floating-point chain of the first
+// one, so it gives the same bits, and changes only how data moves
+// (ops/transformer_attn.py:cross_plan picks the layout):
+// - Every thread issues its share of the slice as 16-byte cp.async copies,
+//   keys then values, each chunk completing on an mbarrier: where the whole
+//   slice fits 24 KB (bfloat16 at the main shape) one chunk of keys and
+//   one of values, both in flight from entry; else 32-frame chunks through
+//   two slots, each refilled as soon as it is consumed, so that eleven
+//   CTAs fit an SM and the grid runs in one wave (float32 at the main
+//   shape; with the slice resident five fit, and it ran slower). The
+//   copies need no division a piece.
+// - Key rows are padded by 16 bytes, so the 16-byte reads of the score loop
+//   (lane l scores frame l + 32 i) hit distinct banks; value rows stay
+//   dense, and every shared-memory index is affine in the frame.
+// - Tried and measured slower on an NVIDIA H100 (PERF.md): the head mean
+//   in the same launch over a cluster of the clip's 8 heads, reading the
+//   others' weights through distributed shared memory; keeping the
+//   weights in shared memory instead of the L2-resident scratch was no
+//   faster.
+// Frames are never split across CTAs. The chains: the score is
+// fmaf(q_d, k_d, .) over d = 0 .. dh - 1 in order, then * scale, then the
+// mask fill; each lane sums exp(s - max) over its frames l, l + 32, ... in
+// order, then the warp_sum butterfly, then w / sum; the context is
+// fmaf(w_s, v_s, .) over s = 0 .. S - 1 in order; the head mean adds the
+// heads in head order from 0 and divides by H. No atomics: a run repeats
+// bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
+#include <mutex>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kMaskFill = -1e9f;
 constexpr int kMeanThreads = 256;
-constexpr int kChunk = 32;  // frames a cross-attention CTA stages at a time
+constexpr int kSlots = 2;        // the cross kernel's ring slots
+constexpr int kMaxDevices = 64;  // devices whose kernel attributes are cached
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -84,48 +119,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-
-// Rows c0 .. c0 + nch - 1 of a clip's (S, D) keys or values, this head's
-// dh columns, into tile[s][0 .. dh) with a row stride of dh + 1. kVec
-// (dh % 4 == 0, aligned rows): four elements a load and four loads in
-// flight a thread, which the latency of device memory needs.
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage_rows(float* tile, const T* src, int c0, int nch, int D,
-                                           int dh) {
-  const int ld = dh + 1;
-  if (kVec) {
-    const int q4 = dh / 4;
-    const int n4 = nch * q4;
-    for (int base = threadIdx.x; base < n4; base += 4 * blockDim.x) {
-      float4 r[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = base + u * blockDim.x;
-        if (e < n4) {
-          const int s = e / q4;
-          r[u] = load4(src + static_cast<size_t>(c0 + s) * D + 4 * (e - s * q4));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = base + u * blockDim.x;
-        if (e < n4) {
-          const int s = e / q4;
-          float* dst = tile + s * ld + 4 * (e - s * q4);
-          dst[0] = r[u].x;
-          dst[1] = r[u].y;
-          dst[2] = r[u].z;
-          dst[3] = r[u].w;
-        }
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < nch * dh; e += blockDim.x) {
-      const int s = e / dh;
-      tile[s * ld + (e - s * dh)] = to_f32(src[static_cast<size_t>(c0 + s) * D + (e - s * dh)]);
-    }
-  }
 }
 
 // Grid (B, heads), 32 * K threads: warp k is beam k of clip blockIdx.x.
@@ -183,91 +176,250 @@ __global__ void beam_self_attn_kernel(const float* __restrict__ q, const T* __re
   }
 }
 
-// Grid (B, heads), 32 * K threads: warp k is beam k. The clip's keys, then
-// its values, pass through shared memory in chunks of kChunk frames, each
-// element read from device memory once for all K beams. Scores: lane l
-// scores frame c0 + l of each chunk against its beam's query (rows padded
-// to dh + 1 floats, so the 32 lanes hit 32 banks) and keeps it in its own
-// slots of wh, the (B*K, heads, S) float32 scratch; the same lane
-// normalises and later reads them back, so no other thread touches them.
-// Context: lane l holds columns l + 32 i and takes each frame's weight
-// from the lane that owns it by a shuffle.
+// ---------------------------------------------------------------- cross
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival on bar once every cp.async this thread has issued has landed.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait for the phase of bar with this parity to complete. A copy that
+// never lands (a fault in the plan) traps after about 2^28 tries, seconds,
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (long tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (tries > (1L << 28)) __trap();
+  }
+}
+
+// 16 bytes global -> shared, through L2 only (read once).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 16 bytes of shared memory as float32: four floats or eight bfloat16.
+__device__ __forceinline__ void load16(float (&v)[4], const float* p) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+__device__ __forceinline__ void load16(float (&v)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    v[2 * i] = __low2float(h);
+    v[2 * i + 1] = __high2float(h);
+  }
+}
+
+// The cross launch's operands, shape and plan (ops/transformer_attn.py:
+// cross_plan: frames a chunk) with the shared-memory layout cross_layout
+// fills in.
+struct CrossArgs {
+  const float* q;
+  const void* ck;
+  const void* cv;
+  const float* mask;
+  float* ctx;
+  float* wh;  // (B*K, H, S) per-head scores, then weights
+  int K, D, dh, S;
+  float scale;
+  int FC;          // frames a chunk: S (one chunk of keys, one of values) or a multiple of 32
+  int nch;         // chunks a tensor; the ring's slot j at j * slot_elems
+  int ldk, ldv;    // staged key and value rows' strides in elements
+  int slot_elems;  // elements a slot (a chunk of keys at most)
+  int off_ring, off_q, smem;
+};
+
+// Grid (B, H), 32 * K threads: warp k is beam k. kVec: dh * sizeof(T) and
+// D * sizeof(T) multiples of 16 and 16-byte aligned keys and values:
+// 16-byte copies, key rows padded by 16 bytes (at dh = 64, 17 or 9 pieces
+// a row, so the score loop's 16-byte reads, lane l on row l, hit distinct
+// banks), value rows dense (the context loop reads a row's consecutive
+// columns); otherwise rows of dh + 1 elements by plain loads. kEpl =
+// ceil(dh / 32) context columns a lane.
 template <typename T, int kEpl, bool kVec>
-__global__ void beam_cross_attn_kernel(const float* __restrict__ q, const T* __restrict__ ck,
-                                       const T* __restrict__ cv, const float* __restrict__ mask,
-                                       float* __restrict__ ctx, float* __restrict__ wh, int K,
-                                       int D, int dh, int S, float scale) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* tile = smem;               // [kChunk][dh + 1]
-  float* qs = smem + kChunk * ld;   // [K][dh]
+__global__ void beam_cross_attn_kernel(const CrossArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + a.off_ring);
+  float* qs = reinterpret_cast<float*>(smem + a.off_q);  // [K][dh]
   const int b = blockIdx.x;
   const int head = blockIdx.y;
   const int H = gridDim.y;
+  const int K = a.K, D = a.D, dh = a.dh, S = a.S, FC = a.FC, nch = a.nch;
+  const int ldk = a.ldk, ldv = a.ldv;
   const int col0 = head * dh;
-  const int k = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int k = tid >> 5;
+  const int lane = tid & 31;
   const size_t n = static_cast<size_t>(b) * K + k;
+  const T* kb = static_cast<const T*>(a.ck) + static_cast<size_t>(b) * S * D + col0;
+  const T* vb = static_cast<const T*>(a.cv) + static_cast<size_t>(b) * S * D + col0;
+  const float* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * S;
+  constexpr int kEpc = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte piece
+  // kVec copies: thread tid moves piece cp of rows cr, cr + crs, ... (a row
+  // has at most 32 pieces, and a CTA at least 32 threads; threads past a
+  // whole number of rows idle).
+  const int pieces = dh / kEpc;
+  const int crs = nthr / max(pieces, 1);
+  const int cr = tid / max(pieces, 1);
+  const int cp = tid - cr * max(pieces, 1);
 
-  for (int e = threadIdx.x; e < K * dh; e += blockDim.x) {
-    const int kk = e / dh;
-    qs[e] = __ldg(q + (static_cast<size_t>(b) * K + kk) * D + col0 + (e - kk * dh));
+  // Item j < nch is key chunk j, item nch + c value chunk c; item j lands
+  // in slot j % kSlots, for the (j / kSlots)-th time.
+  auto issue = [&](int j) {
+    if (j >= 2 * nch) return;
+    const bool key = j < nch;
+    const int c = key ? j : j - nch;
+    const int rows = min(FC, S - c * FC);
+    const int ld = key ? ldk : ldv;
+    const T* src = (key ? kb : vb) + static_cast<size_t>(c) * FC * D;
+    T* dst = ring + static_cast<size_t>(j % kSlots) * a.slot_elems;
+    if (kVec) {
+      for (int r = cr; r < rows && cr < crs; r += crs) {
+        cp_async16(dst + r * ld + cp * kEpc, src + static_cast<size_t>(r) * D + cp * kEpc);
+      }
+      mbar_arrive_on_copies(&bars[j % kSlots]);
+    } else {
+      for (int e = tid; e < rows * dh; e += nthr) {
+        const int r = e / dh;
+        dst[r * ld + e - r * dh] = src[static_cast<size_t>(r) * D + e - r * dh];
+      }
+      mbar_arrive(&bars[j % kSlots]);
+    }
+  };
+  auto acquire = [&](int j) -> const T* {
+    mbar_wait(&bars[j % kSlots], static_cast<uint32_t>((j / kSlots) & 1));
+    return ring + static_cast<size_t>(j % kSlots) * a.slot_elems;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) mbar_init(&bars[i], nthr);
   }
-  float* w_row = wh + (n * H + head) * S;
-  const T* kb = ck + static_cast<size_t>(b) * S * D + col0;
-  const T* vb = cv + static_cast<size_t>(b) * S * D + col0;
-  const float* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * S;
-  const float* qk = qs + k * dh;
+  __syncthreads();  // the barriers are initialised before any arrival
+  for (int j = 0; j < kSlots; ++j) issue(j);
+  for (int e = tid; e < K * dh; e += nthr) {
+    const int kk = e / dh;
+    qs[e] = __ldg(a.q + (static_cast<size_t>(b) * K + kk) * D + col0 + (e - kk * dh));
+  }
+  __syncthreads();
 
+  // Scores: lane l scores frames l, l + 32, ... (each chunk starts at a
+  // multiple of 32) and keeps them in its own slots of this beam and head's
+  // row of wh (L2), which only it reads back.
+  float* prow = a.wh + (n * H + head) * S;
+  const float* qk = qs + k * dh;
   float mx = -INFINITY;
-  for (int c0 = 0; c0 < S; c0 += kChunk) {
-    const int nch = min(kChunk, S - c0);
-    __syncthreads();  // the previous chunk is consumed (and qs is written)
-    stage_rows<T, kVec>(tile, kb, c0, nch, D, dh);
-    __syncthreads();
-    if (lane < nch) {
-      const float* kr = tile + lane * ld;
+  for (int j = 0; j < nch; ++j) {
+    const T* tile = acquire(j);
+    const int c0 = j * FC;
+    const int c1 = min(S, c0 + FC);
+    for (int s = c0 + lane; s < c1; s += 32) {
+      const int r = s - c0;
+      const bool valid = mb == nullptr || __ldg(mb + s) > 0.0f;
       float sc = 0.0f;
+      if (kVec) {
+        const T* row = tile + r * ldk;
+#pragma unroll 4
+        for (int p = 0; p < pieces; ++p) {
+          float kv[kEpc];
+          load16(kv, row + p * kEpc);
+#pragma unroll
+          for (int i = 0; i < kEpc; i += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qk + p * kEpc + i);
+            sc = fmaf(q4.x, kv[i], sc);
+            sc = fmaf(q4.y, kv[i + 1], sc);
+            sc = fmaf(q4.z, kv[i + 2], sc);
+            sc = fmaf(q4.w, kv[i + 3], sc);
+          }
+        }
+      } else {
+        const T* row = tile + r * ldk;
 #pragma unroll 8
-      for (int d = 0; d < dh; ++d) sc = fmaf(qk[d], kr[d], sc);
-      sc *= scale;
-      if (mb != nullptr && !(__ldg(mb + c0 + lane) > 0.0f)) sc = kMaskFill;
-      w_row[c0 + lane] = sc;
+        for (int d = 0; d < dh; ++d) sc = fmaf(qk[d], to_f32(row[d]), sc);
+      }
+      sc *= a.scale;
+      if (!valid) sc = kMaskFill;
+      prow[s] = sc;
       mx = fmaxf(mx, sc);
+    }
+    if (j + kSlots < 2 * nch) {  // a ring: refill this slot once every warp is done with it
+      __syncthreads();
+      issue(j + kSlots);
     }
   }
   mx = warp_max(mx);
   float sum = 0.0f;
   for (int s = lane; s < S; s += 32) {
-    const float e = expf(w_row[s] - mx);
-    w_row[s] = e;
+    const float e = expf(prow[s] - mx);
+    prow[s] = e;
     sum += e;
   }
   sum = warp_sum(sum);
-  for (int s = lane; s < S; s += 32) w_row[s] = w_row[s] / sum;
+  for (int s = lane; s < S; s += 32) prow[s] = prow[s] / sum;
 
+  // Context: lane l holds columns l + 32 i and takes each frame's weight
+  // from the lane that owns it by a shuffle.
   float acc[kEpl];
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) acc[i] = 0.0f;
-  for (int c0 = 0; c0 < S; c0 += kChunk) {
-    const int nch = min(kChunk, S - c0);
-    __syncthreads();
-    stage_rows<T, kVec>(tile, vb, c0, nch, D, dh);
-    __syncthreads();
-    const float wl = lane < nch ? w_row[c0 + lane] : 0.0f;
-    for (int s = 0; s < nch; ++s) {
-      const float w = __shfl_sync(kFullMask, wl, s);
+  for (int j = nch; j < 2 * nch; ++j) {
+    const T* tile = acquire(j);
+    const int c0 = (j - nch) * FC;
+    const int c1 = min(S, c0 + FC);
+    for (int s0 = c0; s0 < c1; s0 += 32) {
+      const float wl = s0 + lane < c1 ? prow[s0 + lane] : 0.0f;
+      const int m = min(32, c1 - s0);
+      const T* vr = tile + (s0 - c0) * ldv + lane;
+#pragma unroll 4
+      for (int u = 0; u < m; ++u, vr += ldv) {
+        const float w = __shfl_sync(kFullMask, wl, u);
 #pragma unroll
-      for (int i = 0; i < kEpl; ++i) {
-        const int d = lane + 32 * i;
-        if (d < dh) acc[i] = fmaf(w, tile[s * ld + d], acc[i]);
+        for (int i = 0; i < kEpl; ++i) {
+          if (lane + 32 * i < dh) acc[i] = fmaf(w, to_f32(vr[32 * i]), acc[i]);
+        }
       }
+    }
+    if (j + kSlots < 2 * nch) {
+      __syncthreads();
+      issue(j + kSlots);
     }
   }
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) {
     const int d = lane + 32 * i;
-    if (d < dh) ctx[n * D + col0 + d] = acc[i];
+    if (d < dh) a.ctx[n * D + col0 + d] = acc[i];
   }
 }
 
@@ -307,45 +459,67 @@ cudaError_t launch_self(const float* q, const void* kc, const void* vc, const in
   return cudaGetLastError();
 }
 
-template <typename T, int kEpl>
-cudaError_t launch_cross_epl(bool vec, dim3 grid, int threads, size_t smem, cudaStream_t st,
-                             const float* q, const T* kp, const T* vp, const float* mask,
-                             float* ctx, float* wh, int K, int D, int dh, int S, float scale) {
-  if (vec) {
-    beam_cross_attn_kernel<T, kEpl, true>
-        <<<grid, threads, smem, st>>>(q, kp, vp, mask, ctx, wh, K, D, dh, S, scale);
-  } else {
-    beam_cross_attn_kernel<T, kEpl, false>
-        <<<grid, threads, smem, st>>>(q, kp, vp, mask, ctx, wh, K, D, dh, S, scale);
+int round16(long x) { return static_cast<int>((x + 15) / 16 * 16); }
+
+// The shared-memory layout of a plan (ops/transformer_attn.py:cross_smem
+// computes the same total). False when the plan does not hold together or
+// does not fit a CTA.
+bool cross_layout(CrossArgs& a, bool vec, int esz) {
+  if (a.FC < 1 || a.nch != (a.S + a.FC - 1) / a.FC || (a.nch > 1 && a.FC % 32 != 0)) {
+    return false;
   }
+  a.ldk = vec ? a.dh + 16 / esz : a.dh + 1;
+  a.ldv = vec ? a.dh : a.dh + 1;
+  a.slot_elems = round16(static_cast<long>(a.FC) * a.ldk * esz) / esz;
+  a.off_ring = round16(8L * kSlots);
+  // One chunk a tensor: the key slot, then a value slot of its own size.
+  const int staged = a.nch == 1 ? a.slot_elems * esz + round16(static_cast<long>(a.S) * a.ldv * esz)
+                                : kSlots * a.slot_elems * esz;
+  a.off_q = a.off_ring + staged;
+  a.smem = a.off_q + round16(4L * a.K * a.dh);
+  return a.smem <= 232448;
+}
+
+template <typename T, int kEpl, bool kVec>
+cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t st) {
+  auto kernel = beam_cross_attn_kernel<T, kEpl, kVec>;
+  // The kernel's shared-memory attributes are two driver calls: set once a
+  // device, and again only for a larger size (the largest so far stays).
+  // The carveout asks for as many CTAs an SM as shared memory allows.
+  static std::atomic<int> allowed[kMaxDevices];
+  static std::mutex setting;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < kMaxDevices;
+  if (!cached || a.smem > allowed[dev].load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> hold(setting);
+    const int bytes = cached ? std::max(a.smem, allowed[dev].load()) : a.smem;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (cached) allowed[dev].store(bytes, std::memory_order_release);
+  }
+  kernel<<<dim3(B, H), 32 * a.K, a.smem, st>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, int kEpl>
+cudaError_t launch_cross_epl(const CrossArgs& a, int B, int H, bool vec, cudaStream_t st) {
+  return vec ? launch_cross_kernel<T, kEpl, true>(a, B, H, st)
+             : launch_cross_kernel<T, kEpl, false>(a, B, H, st);
+}
+
 template <typename T>
-cudaError_t launch_cross(const float* q, const void* ck, const void* cv, const float* mask,
-                         float* ctx, float* wh, int B, int K, int H, int D, int S,
-                         cudaStream_t st) {
-  const int dh = D / H;
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  const dim3 grid(B, H);
-  const int threads = 32 * K;
-  // At most (32 x 129 + 16 x 128) floats, 24.7 KB: no opt-in needed.
-  const size_t smem = sizeof(float) * (kChunk * (dh + 1) + K * dh);
-  const T* kp = static_cast<const T*>(ck);
-  const T* vp = static_cast<const T*>(cv);
-  const size_t align = 4 * sizeof(T);
-  const bool vec = dh % 4 == 0 && D % 4 == 0 && reinterpret_cast<size_t>(kp) % align == 0 &&
-                   reinterpret_cast<size_t>(vp) % align == 0;
-#define VCT_CROSS(EPL)                                                                  \
-  launch_cross_epl<T, EPL>(vec, grid, threads, smem, st, q, kp, vp, mask, ctx, wh, K, D, dh, S, \
-                           scale)
-  switch ((dh + 31) / 32) {
-    case 1: return VCT_CROSS(1);
-    case 2: return VCT_CROSS(2);
-    case 3: return VCT_CROSS(3);
-    default: return VCT_CROSS(4);
+cudaError_t launch_cross(const CrossArgs& a, int B, int H, bool vec, cudaStream_t st) {
+  switch ((a.dh + 31) / 32) {
+    case 1: return launch_cross_epl<T, 1>(a, B, H, vec, st);
+    case 2: return launch_cross_epl<T, 2>(a, B, H, vec, st);
+    case 3: return launch_cross_epl<T, 3>(a, B, H, vec, st);
+    default: return launch_cross_epl<T, 4>(a, B, H, vec, st);
   }
-#undef VCT_CROSS
 }
 
 bool bad_shape(int B, int K, int H, int D) {
@@ -375,16 +549,38 @@ extern "C" int vct_beam_self_attention(const float* q, const void* kc, const voi
 // Returns a cudaError_t: 0 when both launches were accepted. q, ctx
 // (B*K, D) float32; ck, cv (B, S, D) float32 or (kv_bf16) bfloat16; mask
 // (B, S) float32 or null (every frame valid); wh (B*K, H, S) float32
-// scratch; w (B*K, S) float32.
+// scratch; w (B*K, S) float32. vec: dh * sizeof(T) and D * sizeof(T)
+// multiples of 16 and ck, cv 16-byte aligned; FC: frames a chunk, the
+// plan of ops/transformer_attn.py:cross_plan.
 extern "C" int vct_beam_cross_attention(const float* q, const void* ck, const void* cv,
                                         const float* mask, float* ctx, float* wh, float* w,
                                         int kv_bf16, int B, int K, int H, int D, int S,
-                                        void* stream) {
+                                        int vec, int FC, void* stream) {
   if (bad_shape(B, K, H, D) || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int esz = kv_bf16 ? 2 : 4;
+  const int dh = D / H;
+  if (vec && ((dh * esz) % 16 != 0 || (D * esz) % 16 != 0 ||
+              reinterpret_cast<size_t>(ck) % 16 != 0 || reinterpret_cast<size_t>(cv) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CrossArgs a = {};
+  a.q = q;
+  a.ck = ck;
+  a.cv = cv;
+  a.mask = mask;
+  a.ctx = ctx;
+  a.wh = wh;
+  a.K = K;
+  a.D = D;
+  a.dh = dh;
+  a.S = S;
+  a.scale = 1.0f / sqrtf(static_cast<float>(dh));
+  a.FC = FC;
+  a.nch = (S + FC - 1) / (FC > 0 ? FC : 1);
+  if (!cross_layout(a, vec != 0, esz)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      kv_bf16 ? launch_cross<__nv_bfloat16>(q, ck, cv, mask, ctx, wh, B, K, H, D, S, st)
-              : launch_cross<float>(q, ck, cv, mask, ctx, wh, B, K, H, D, S, st);
+  cudaError_t err = kv_bf16 ? launch_cross<__nv_bfloat16>(a, B, H, vec != 0, st)
+                            : launch_cross<float>(a, B, H, vec != 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int NS = B * K * S;
   const int blocks = (NS + kMeanThreads - 1) / kMeanThreads;

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``_build/`` beside the package, named by a hash of its
 source and the compiler flags, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is. Builds happen at first use, never at
-import; where ``nvcc`` is missing the build raises, and nothing falls back.
+unchanged one is loaded as it is; nvcc's output (ptxas's registers and
+spills a kernel) is kept beside it as ``.log`` and read into
+``build_logs`` either way. Builds happen at first use, never at import;
+where ``nvcc`` is missing the build raises, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
             return lib
         flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         so = _library_path(name, flags)
+        log = so.with_suffix(".log")
         if not so.exists():
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,11 +95,16 @@ def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
                     f"nvcc failed for {name}.cu ({proc.returncode}):\n"
                     f"{proc.stdout}\n{proc.stderr}"
                 )
+            tmp_log = so.with_suffix(f".{os.getpid()}.logtmp")
+            tmp_log.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp_log, log)  # before the library, so a loader of it finds its log
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
             build_logs[key] = (
                 f"built {so.name} in {time.perf_counter() - t0:.1f}s\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        elif key not in build_logs and log.exists():
+            build_logs[key] = f"loaded {so.name}, built earlier\n{log.read_text()}"
         lib = ctypes.CDLL(str(so))
         lib.vct_error_string.argtypes = [ctypes.c_int]
         lib.vct_error_string.restype = ctypes.c_char_p

@@ -10,12 +10,14 @@ contract: bf16 h and W_hh in the recurrent product with float32 sums,
 float32 gates and state, padded steps carry the state and emit 0. The
 kernel takes H a multiple of 8 up to 1024: its narrow form up to 600, its
 wide form above; ``lstm_seq.wide_launches`` counts the wide form's
-launches among ``lstm_seq.launches``.
+launches among ``lstm_seq.launches``. ``fwd_wide_plan`` is the wide
+forward's launch plan (shared with ``lstm_seq_train``'s forward).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +25,73 @@ import torch
 from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
+
+# The wide forward's plan (csrc/lstm_seq_fwd.cuh: FwdWide, kMaxRing,
+# fwd_smem_bytes; launch_recurrence's row groups and slices).
+NARROW_MAX_HIDDEN = 600  # kMaxHidden
+WIDE_UNITS = 16          # hidden units a CTA
+WIDE_ROWS = 32           # batch rows a chunk of h
+WIDE_THREADS = 512       # one epilogue item a thread: WIDE_UNITS x WIDE_ROWS
+WIDE_KW = 8              # warps along K, whose partial sums meet in shared memory
+WIDE_PART_STRIDE = 4 * WIDE_UNITS + 8  # floats a row of a warp's partial sums
+WIDE_MAX_RING = 16       # kMaxRing
+WIDE_MIN_ROWS = 16       # launch_recurrence's min_rows
+SMEM_LIMIT = 232448      # bytes a CTA may hold on Hopper (227 KB)
+CARD_SMS = 132           # an H100 SXM's SMs
+
+
+def fwd_wide_smem(H: int, nb: int, ring: int) -> int:
+    """Shared memory of a wide forward CTA (fwd_smem_bytes): the ring's
+    mbarriers, ``ring`` slots of WIDE_ROWS bf16 h rows (stride kpad + 8),
+    the WIDE_KW warps' partial sums and the float32 h and c of nb rows."""
+    kpad = -(-H // 16) * 16
+    return (-(-8 * ring // 16) * 16 + ring * WIDE_ROWS * (kpad + 8) * 2
+            + WIDE_KW * WIDE_ROWS * WIDE_PART_STRIDE * 4 + nb * WIDE_UNITS * 8)
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_wide_plan(H: int, B: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
+    """The wide forward's launch plan at 600 < H <= 1024: ``unit_groups``
+    CTAs of WIDE_UNITS units (WIDE_THREADS threads) a direction and row
+    group, one CTA an SM (W_hh in registers), so ND x row_groups x
+    unit_groups <= sms; the most row groups of at least WIDE_MIN_ROWS rows
+    that fit (``nb`` rows a CTA), or one row group over sequential
+    ``slice``-row launches where even one does not fit shared memory;
+    ``ring`` chunk slots of h (the most that fit beside the partial sums
+    and the carried state, at most the ``chunks`` a step and WIDE_MAX_RING;
+    two at B = 128, H = 1024), every slot's copies issued as soon as h is
+    published or the slot is free."""
+    ug = -(-H // WIDE_UNITS)
+
+    def ring_for(nb: int) -> int:
+        ring = min(-(-nb // WIDE_ROWS), WIDE_MAX_RING)
+        while ring > 1 and fwd_wide_smem(H, nb, ring) > SMEM_LIMIT:
+            ring -= 1
+        return ring if fwd_wide_smem(H, nb, ring) <= SMEM_LIMIT else 0
+
+    groups, nb, ring = 0, 0, 0
+    for g in range(max(1, B // WIDE_MIN_ROWS), 0, -1):
+        nb = -(-B // g)
+        if ND * g * ug <= sms and ring_for(nb):
+            groups, ring = g, ring_for(nb)
+            break
+    slice_rows = B
+    if not groups:  # one row group; the rows in sequential slices
+        groups = 1
+        while fwd_wide_smem(H, slice_rows, 1) > SMEM_LIMIT:
+            if slice_rows <= WIDE_MIN_ROWS:
+                raise ValueError(f"no wide forward plan fits H = {H}, B = {B}")
+            slice_rows = -(-slice_rows // 2)
+        nb, ring = slice_rows, ring_for(slice_rows)
+    return dict(unit_groups=ug, row_groups=groups, nb=nb, slice=slice_rows,
+                launches=-(-B // slice_rows), chunks=-(-nb // WIDE_ROWS), ring=ring,
+                smem=fwd_wide_smem(H, nb, ring), ctas=ND * groups * ug)
+
+
+def fwd_ring(H: int, B: int, ND: int) -> int:
+    """The ``ring`` argument of the forward launches: the wide plan's, 0
+    for the narrow form."""
+    return fwd_wide_plan(H, B, ND)["ring"] if H > NARROW_MAX_HIDDEN else 0
 
 
 def lstm_seq_reference(
@@ -84,7 +153,7 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.vct_lstm_seq
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     for limit in (lib.vct_lstm_seq_max_hidden, lib.vct_lstm_seq_narrow_max_hidden):
@@ -157,7 +226,7 @@ def lstm_seq(
             xproj.data_ptr(), int(xproj.dtype == torch.bfloat16),
             w_hh.data_ptr(), None if mask_f is None else mask_f.data_ptr(),
             outs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
-            hbuf.data_ptr(), sync.data_ptr(), T, ND, B, H, stream,
+            hbuf.data_ptr(), sync.data_ptr(), T, ND, B, H, fwd_ring(H, B, ND), stream,
         )
     check_launch(lib, rc, "lstm_seq")
     lstm_seq.launches += 1

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from .build import check_launch, load_library
-from .lstm_seq import check_inputs
+from .lstm_seq import check_inputs, fwd_ring
 
 Tensor = torch.Tensor
 
@@ -111,7 +111,7 @@ def lstm_seq_train_bwd_reference(
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("lstm_seq_train")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vct_lstm_seq_train_fwd.argtypes = [p, i] + [p] * 10 + [i] * 4 + [p]
+    lib.vct_lstm_seq_train_fwd.argtypes = [p, i] + [p] * 10 + [i] * 5 + [p]
     lib.vct_lstm_seq_train_fwd.restype = i
     lib.vct_lstm_seq_train_bwd.argtypes = [p, i] + [p] * 12 + [i] * 5 + [p]
     lib.vct_lstm_seq_train_bwd.restype = i
@@ -173,7 +173,7 @@ def lstm_seq_train_fwd(
             outs.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
             hbuf.data_ptr(), sync.data_ptr(), gact.data_ptr(), h_keep.data_ptr(),
             c_keep.data_ptr(),
-            T, ND, B, H, torch.cuda.current_stream(dev).cuda_stream,
+            T, ND, B, H, fwd_ring(H, B, ND), torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "lstm_seq_train_fwd")
     lstm_seq_train_fwd.launches += 1

@@ -24,6 +24,7 @@ runs its plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -37,6 +38,58 @@ MASK_FILL = -1e9
 MAX_BEAMS = 16
 MAX_HEAD_DIM = 128
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
+
+# The cross kernel's plan (csrc/transformer_attn.cu: cross_layout).
+CROSS_SMEM = 232448           # bytes a CTA may hold on Hopper (227 KB)
+CROSS_RESIDENT_SMEM = 24576   # a head's whole slice staged at once up to this
+CROSS_RING_FRAMES = 32        # frames a chunk of the ring
+CROSS_SLOTS = 2               # the ring's slots (kSlots)
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def cross_smem(K: int, H: int, D: int, S: int, kv_bytes: int, vec: bool, FC: int) -> int:
+    """Shared memory of a cross CTA (csrc/transformer_attn.cu:
+    cross_layout): the ring's mbarriers; with one chunk a tensor (FC = S) a
+    slot of key rows and one of value rows, else CROSS_SLOTS slots of FC key
+    rows (key rows dh + 16 bytes, value rows dh elements with vector copies,
+    both dh + 1 elements without); and the K queries' head slice."""
+    dh = D // H
+    ldk = dh + 16 // kv_bytes if vec else dh + 1
+    ldv = dh if vec else dh + 1
+    slot = _round16(FC * ldk * kv_bytes)
+    staged = slot + _round16(S * ldv * kv_bytes) if FC >= S else CROSS_SLOTS * slot
+    return _round16(8 * CROSS_SLOTS) + staged + _round16(4 * K * dh)
+
+
+@functools.lru_cache(maxsize=256)
+def cross_plan(K: int, H: int, D: int, S: int, kv_bytes: int, vec: bool) -> dict:
+    """The cross kernel's plan for one shape. One CTA a (clip, head) of
+    32 K threads, all S frames of the clip in it (frames are never split
+    over CTAs), then the head-mean launch. The head's keys and values
+    staged whole (FC = S, ``nch`` = 1 chunk of each, both in flight from
+    entry) where they take at most CROSS_RESIDENT_SMEM or S is at most one
+    ring chunk; else CROSS_RING_FRAMES-frame chunks through the
+    CROSS_SLOTS slots, so that CTAs stay small and many fit an SM (at the
+    main shape in float32 eleven, against five resident, which measured
+    slower on an H100; PERF.md)."""
+    whole = cross_smem(K, H, D, S, kv_bytes, vec, S)
+    if S <= CROSS_RING_FRAMES or whole <= CROSS_RESIDENT_SMEM:
+        FC, nch = S, 1
+    else:
+        FC, nch = CROSS_RING_FRAMES, -(-S // CROSS_RING_FRAMES)
+    return dict(FC=FC, nch=nch, smem=cross_smem(K, H, D, S, kv_bytes, vec, FC))
+
+
+def cross_vec(ck: Tensor, cv: Tensor, num_heads: int) -> bool:
+    """Whether the cross kernel copies and reads 16 bytes at a time: a
+    head's dh elements and a frame's D elements multiples of 16 bytes, and
+    16-byte aligned keys and values."""
+    esz, D = ck.element_size(), ck.shape[-1]
+    return ((D // num_heads * esz) % 16 == 0 and (D * esz) % 16 == 0
+            and ck.data_ptr() % 16 == 0 and cv.data_ptr() % 16 == 0)
 
 
 def gather_beam_prefix(cache: Tensor, anc: Tensor, t: int) -> Tensor:
@@ -138,7 +191,7 @@ def _kernel_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vct_beam_self_attention.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.vct_beam_self_attention.restype = i32
-    lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.vct_beam_cross_attention.restype = i32
     return lib
 
@@ -180,8 +233,8 @@ def beam_self_attention(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor, t:
 def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tensor],
                          num_heads: int, num_beams: int) -> Tuple[Tensor, Tensor]:
     """Context (B*K, D) and head-mean weights (B*K, S). CUDA: the kernel
-    and its head-mean launch, on the current stream, no sync. CPU: the
-    plain version."""
+    (its staging from ``cross_plan``) and its head-mean launch, on the
+    current stream, no sync. CPU: the plain version."""
     if tracing():
         return torch.ops.vct.beam_cross_attention(q, ck, cv, mask, num_heads, num_beams)
     _check_cross(q, ck, cv, mask, num_heads, num_beams)
@@ -194,6 +247,8 @@ def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tenso
     weights = torch.empty((N, S), dtype=torch.float32, device=q.device)
     if N == 0 or S == 0:
         return ctx, weights
+    vec = cross_vec(ck, cv, num_heads)
+    plan = cross_plan(num_beams, num_heads, D, S, ck.element_size(), vec)
     per_head = torch.empty((N, num_heads, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -201,7 +256,7 @@ def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tenso
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
             None if mask is None else mask.data_ptr(), ctx.data_ptr(), per_head.data_ptr(),
             weights.data_ptr(), int(ck.dtype == torch.bfloat16), N // num_beams, num_beams,
-            num_heads, D, S, stream,
+            num_heads, D, S, int(vec), plan["FC"], stream,
         )
     check_launch(lib, rc, "beam_cross_attention")
     beam_cross_attention.launches += 1
