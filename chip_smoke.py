@@ -25,7 +25,9 @@ exits non-zero without printing the final result line:
    fixed cost and the cost a step), the same at (80, 2, 128, 4096) for
    the wide form (600 < H <= 1024) beside cuDNN's LSTM of width 1024
    (each form's ptxas registers and spilled bytes printed beside its step
-   time), then ``lstm_seq`` (both xproj types)
+   time; for ``lstm_seq_train``'s backward also the sweep's and the dW_hh
+   launches' profiler times, the dW_hh split, the sweep's registers and
+   spills and the wide sweep's plan), then ``lstm_seq`` (both xproj types)
    and both ``lstm_seq_train`` launches at 30 small odd shapes (T in
    (1, 5), B in (1, 3, 37), H in (40, 600, 608, 1000, 1024), a length-1
    row), every LSTM
@@ -44,8 +46,8 @@ exits non-zero without printing the final result line:
    D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches) and
    ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, ragged mask
    with an all-masked row; within 1e-7 of its plain version in float32;
-   its two launches a call checked in the profile, graph-replay device
-   time beside the PyTorch composite of its whole function and SDPA's
+   its two launches a call counted in a captured CUDA graph, graph-replay
+   device time beside the PyTorch composite of its whole function and SDPA's
    context alone), each also at odd shapes (the cross kernel at twelve,
    every launch repeated bitwise), with the
    profiler's device time beside the CUDA-event time;
@@ -93,10 +95,13 @@ exits non-zero without printing the final result line:
    profile of one step at B = 32 and B = 128;
 7. the CNN backbones: ``fused_bottleneck`` at every stage's identity
    block at B = 32 (float32; bfloat16 at stages 1 and 4), ``matmul_bias_act``
-   at stage 1's conv3 with its three epilogues and ``conv1x1`` at stride 2,
-   both int8 kernels at eight small odd shapes, stage 1's 1x1 shapes and
-   the last block's (exactly equal to their plain versions, two launches
-   bitwise equal), then at the 17 shapes of a B = 32 forward, device time
+   at stage 1's conv3 with its three epilogues (graph-replay device time
+   beside the F.linear + add + ReLU composite's, the bound and the share of
+   it reached), ``conv1x1`` at stride 2 and CONV1X1_EDGE_SHAPES in float32
+   and bfloat16 (every launch twice, bitwise equal), both int8 kernels at
+   eight small odd shapes, stage 1's 1x1 shapes and the last block's
+   (exactly equal to their plain versions, two launches bitwise equal),
+   then at the 17 shapes of a B = 32 forward, device time
    against ``torch._int_mm`` by CUDA-graph replay, summed over its 32
    launches beside the bound; then the
    extraction slice: ``cli.preprocess.VideoFeatureExtractor`` over 2 clips
@@ -198,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import ctypes
 import importlib
 import io
 import itertools
@@ -266,7 +272,9 @@ from video_captioning_tpu_torch.ops.lstm_seq import (
     lstm_seq,
     lstm_seq_reference,
 )
+from video_captioning_tpu_torch.ops.lstm_seq_train import _kernel_lib as train_kernel_lib
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
+    bwd_wide_plan,
     lstm_seq_train_bwd,
     lstm_seq_train_bwd_reference,
     lstm_seq_train_fwd,
@@ -670,6 +678,17 @@ def fwd_resources(source: str, H: int) -> dict:
             "spill_bytes": max((r.get("spill_stores", 0) for r in res.values()), default=None)}
 
 
+def bwd_resources(H: int) -> dict:
+    """The most registers and spill-store bytes ptxas reported for the
+    backward sweep's instantiations at this H: the narrow form's
+    (``lstm_seq_bwd_kernel``) or the wide form's (``lstm_seq_bwd_wide_kernel``)."""
+    res = kernel_resources("lstm_seq_train", "lstm_seq_bwd_wide_kernel" if H > NARROW_MAX_HIDDEN
+                           else "lstm_seq_bwd_kernel")
+    return {"bwd_registers": max((r.get("registers", 0) for r in res.values()), default=None),
+            "bwd_spill_bytes": max((r.get("spill_stores", 0) for r in res.values()),
+                                   default=None)}
+
+
 # Small odd shapes the kernels' tiling must take: B not a multiple of the
 # row chunks, H = 40 (not a multiple of 16 or 32) and H = 600 (the narrow
 # forms' largest), H = 608 (the wide forms' smallest), 1000 (not a multiple
@@ -823,6 +842,14 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
     out["bwd"].update(graph_step_ms(bwd_call))
     out["bwd"]["sweep_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_bwd",))
     out["bwd"]["dw_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_dw",))
+    out["bwd"].update(bwd_resources(H))
+    # Printed, not measured: the split the C launcher returns, and the wide
+    # sweep's plan as ops/lstm_seq_train.py:bwd_wide_plan mirrors it.
+    dw_splits = train_kernel_lib().vct_lstm_seq_train_dw_splits(T, ND, B, H)
+    plan = "narrow"
+    if H > NARROW_MAX_HIDDEN:
+        plan = {k: v for k, v in bwd_wide_plan(H, B, ND).items()
+                if k in ("ctas", "nb", "stages", "ring", "smem")}
     out["bwd"]["plain_ms"] = time_ms(
         lambda: lstm_seq_train_bwd_reference(*res[:3], w, mask, douts, dh_last, dc_last),
         calls=1, runs=3)
@@ -862,8 +889,11 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
           f"{b_['sweep_device_ms']:.4f} ms, dW_hh {b_['dw_device_ms']:.4f} ms against its bound "
           f"{b_['dw_bound_ms']:.4f} ms; one bf16 bmm of the same product, float32 out, "
           f"{b_['dw_library_ms']:.4f} ms by graph replay, {dw_lib_rel:.3g} from the kernels' "
-          f"dW_hh relative to its largest value), plain {b_['plain_ms']:.4f} ms, bound "
-          f"{b_['bound_ms']:.4f} ms, cuDNN LSTM bwd {b_['library_ms']:.4f} ms ({card})")
+          f"dW_hh relative to its largest value; dW_hh split in {dw_splits} parts), "
+          f"plain {b_['plain_ms']:.4f} ms, bound {b_['bound_ms']:.4f} ms, cuDNN LSTM bwd "
+          f"{b_['library_ms']:.4f} ms; sweep ptxas {b_['bwd_registers']} registers, "
+          f"{b_['bwd_spill_bytes']} bytes spilled; sweep plan (mirror) {plan} "
+          f"({card})")
     return out
 
 
@@ -1246,6 +1276,82 @@ def graph_ms(fn, calls: int = 10) -> float:
     return time_ms(graph.replay, calls=1) / calls
 
 
+# cudaGraphNodeType (the CUDA runtime's driver_types.h): a kernel launch,
+# and a child graph, whose own nodes are counted too.
+GRAPH_NODE_KERNEL = 0
+GRAPH_NODE_CHILD = 4
+
+
+def cuda_runtime() -> ctypes.CDLL:
+    """The CUDA runtime library that torch has loaded (``libcudart.so.<major>``
+    of ``torch.version.cuda``), by ctypes, with the three graph queries that
+    ``count_kernel_nodes`` calls. Raises, naming what is missing."""
+    name = f"libcudart.so.{str(torch.version.cuda).split('.')[0]}"
+    try:
+        rt = ctypes.CDLL(name, mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
+    except OSError as e:
+        raise RuntimeError(f"torch has not loaded {name}, so the graph's kernel nodes cannot "
+                           f"be counted ({e})") from e
+    missing = [s for s in ("cudaGraphGetNodes", "cudaGraphNodeGetType",
+                           "cudaGraphChildGraphNodeGetGraph") if not hasattr(rt, s)]
+    if missing:
+        raise RuntimeError(f"{name} lacks {missing}")
+    return rt
+
+
+def count_kernel_nodes(graph_handle: int, runtime) -> int:
+    """The kernel nodes of the cudaGraph_t ``graph_handle`` and of its child
+    graphs, through ``runtime``'s cudaGraphGetNodes, cudaGraphNodeGetType
+    and cudaGraphChildGraphNodeGetGraph. Raises on any CUDA error."""
+    def call(fn, *args):
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__} returned CUDA error {rc}")
+
+    n = ctypes.c_size_t(0)
+    graph = ctypes.c_void_p(graph_handle)
+    call(runtime.cudaGraphGetNodes, graph, None, ctypes.pointer(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(runtime.cudaGraphGetNodes, graph, nodes, ctypes.pointer(n))
+    kernels = 0
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        call(runtime.cudaGraphNodeGetType, ctypes.c_void_p(node), ctypes.pointer(kind))
+        if kind.value == GRAPH_NODE_KERNEL:
+            kernels += 1
+        elif kind.value == GRAPH_NODE_CHILD:
+            child = ctypes.c_void_p(0)
+            call(runtime.cudaGraphChildGraphNodeGetGraph, ctypes.c_void_p(node),
+                 ctypes.pointer(child))
+            kernels += count_kernel_nodes(child.value, runtime)
+    return kernels
+
+
+def graph_launches(fn, calls: int) -> float:
+    """Kernel launches a call of ``fn``, exactly: ``calls`` calls captured in
+    one CUDA graph (after a warm-up on a side stream, as ``graph_ms``), its
+    kernel nodes counted (``count_kernel_nodes``) and divided by ``calls``.
+    Nothing is dropped, as a profiler's records can be. Raises where this
+    torch cannot hand out the captured graph or the runtime lacks a query."""
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        raise RuntimeError(f"torch {torch.__version__}'s CUDAGraph takes no keep_graph, so "
+                           f"its captured graph cannot be read ({e})") from e
+    if not hasattr(graph, "raw_cuda_graph"):
+        raise RuntimeError(f"torch {torch.__version__}'s CUDAGraph has no raw_cuda_graph")
+    runtime = cuda_runtime()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return count_kernel_nodes(graph.raw_cuda_graph(), runtime) / calls
+
+
 def time_layers_ms(fn, layers: list, calls: int) -> float:
     """Per-call time of ``fn`` over inputs that alternate between
     ``layers`` (one input set per decoder layer, as the beam step calls
@@ -1378,7 +1484,8 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
     the fused beam step's shape (B = 128, K = 5, S = 80, D = 512, 8 heads)
     and at CROSS_EDGE_SHAPES, each with a ragged mask whose row 1 is fully
     masked (uniform weights) and with no mask, two launches bitwise equal;
-    CROSS_KERNELS once each a call in the profile."""
+    CROSS_KERNELS once each a call: the count from a captured graph's
+    kernel nodes (``graph_launches``), the names from the profile."""
     result = {}
     for B, K, S, D, H, dtype in CROSS_EDGE_SHAPES + ((128, 5, 80, 512, 8, torch.float32),):
         layers = [beam_cross_inputs(device, B, K, S, D, seed=30 + i, dtype=dtype)
@@ -1406,10 +1513,13 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
                   f"within {BEAM_ATTN_ATOL} ({err:.3g}), ragged mask and none, masked row "
                   f"uniform, two launches bitwise equal")
             continue
+        # The profiler's names (a dropped record can remove a name, never add
+        # a wrong one); the count from a captured graph's kernel nodes.
         prof = kernel_profile(lambda: [beam_cross_attention(*a, H, K) for a in layers], 20)
         if not all(any(k in name for k in CROSS_KERNELS) for name in prof):
             raise AssertionError(f"beam_cross_attention launched {sorted(prof)}")
-        launches_per_call = sum(n for n, _ in prof.values()) / (20 * len(layers))
+        launches_per_call = graph_launches(
+            lambda: [beam_cross_attention(*a, H, K) for a in layers], 10) / len(layers)
         if launches_per_call != len(CROSS_KERNELS):
             raise AssertionError(f"beam_cross_attention: {launches_per_call} launches a call")
         dev = sum(t for _, t in prof.values()) / (20 * len(layers))
@@ -1588,11 +1698,21 @@ def check_fused_bottleneck(device: str, card: str) -> dict:
     return result["main"]
 
 
+# matmul_bias_act's edge shapes (M, K, N) beside the small odd one: M not
+# a multiple of the 32-row block (and several blocks a CTA), K not a
+# multiple of 16, N not a multiple of 64; N past one 256-column block with
+# K whose w streams in float32; K not a multiple of 4 (element-wise staging).
+CONV1X1_EDGE_SHAPES = ((37, 13, 9), (20000, 40, 200), (1000, 24, 72), (333, 100, 300),
+                       (50, 30, 64), (64, 256, 128))
+
+
 def check_conv1x1(device: str, card: str) -> dict:
     """matmul_bias_act against its plain version at stage 1's conv3 (M =
     100352, K = 64, N = 256) with a residual, without one, and with
     relu=False and a residual; conv1x1 at stride 2 (a stage-2 downsample);
-    a small odd shape in float32 and bfloat16."""
+    CONV1X1_EDGE_SHAPES in float32 and bfloat16 with the three epilogues;
+    every launch repeated and required bitwise equal. Device times by graph
+    replay beside the F.linear + add + ReLU composite's and the bound."""
     g = torch.Generator(device="cpu").manual_seed(50)
 
     def inputs(M, K, N, dtype=torch.float32):
@@ -1600,50 +1720,69 @@ def check_conv1x1(device: str, card: str) -> dict:
              torch.randn(N, generator=g) * 0.1, torch.randn((M, N), generator=g))
         return tuple(a.to(dtype).to(device) for a in t)
 
+    def run(x, w, b, res, relu, what):
+        got = matmul_bias_act(x, w, b, res, relu=relu)
+        again = matmul_bias_act(x, w, b, res, relu=relu)
+        want = matmul_bias_act_reference(x, w, b, res, relu=relu)
+        sync(device)
+        err = _rel_err(got, want)
+        if not err <= CNN_RTOL[x.dtype] or not torch.equal(bits(got), bits(again)):
+            raise AssertionError(f"matmul_bias_act {what}: err {err:.3g} (tol "
+                                 f"{CNN_RTOL[x.dtype]}) or two launches differ")
+        return got, want, err
+
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x, w, b, r = inputs(37, 13, 9, dtype)
-        for res, relu in ((r, True), (None, True), (r, False)):
-            err = _rel_err(matmul_bias_act(x, w, b, res, relu=relu),
-                           matmul_bias_act_reference(x, w, b, res, relu=relu))
-            if not err <= CNN_RTOL[dtype]:
-                raise AssertionError(f"matmul_bias_act (37, 13, 9) {dtype}: err {err:.3g}")
+        for M, K, N in CONV1X1_EDGE_SHAPES:
+            x, w, b, r = inputs(M, K, N, dtype)
+            for res, relu in ((r, True), (None, True), (r, False)):
+                _, _, err = run(x, w, b, res, relu, f"({M}, {K}, {N}) {dtype}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
     x, w, b, r = inputs(100352, 64, 256)
     result = None
     for name, res, relu in (("residual + relu", r, True), ("relu", None, True),
                             ("residual, relu=False", r, False)):
-        got = matmul_bias_act(x, w, b, res, relu=relu)
-        want = matmul_bias_act_reference(x, w, b, res, relu=relu)
-        torch.cuda.synchronize()
-        err = _rel_err(got, want)
-        if not err <= CNN_RTOL[torch.float32] or (not relu and not (got < 0).any()):
-            raise AssertionError(f"matmul_bias_act {name}: err {err:.3g}")
+        got, want, err = run(x, w, b, res, relu, name)
+        if not relu and not (got < 0).any():
+            raise AssertionError(f"matmul_bias_act {name}: relu=False left no negative value")
         ms = time_ms(lambda: matmul_bias_act(x, w, b, res, relu=relu), calls=20)
         plain_ms = time_ms(lambda: matmul_bias_act_reference(x, w, b, res, relu=relu), calls=20)
+        dev = graph_ms(lambda: matmul_bias_act(x, w, b, res, relu=relu))
         print(f"[kernels] matmul_bias_act (100352, 64) x (64, 256) {name} float32: max err over "
-              f"the largest |output| {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({card})")
+              f"the largest |output| {err:.3g}, two launches bitwise equal; kernel {ms:.4f} ms "
+              f"(device {dev:.4f} ms by graph replay), plain {plain_ms:.4f} ms ({card})")
         if result is None:
             M, K = x.shape
             N = w.shape[0]
-            lib_ms = time_ms(lambda: torch.relu(torch.nn.functional.linear(x, w, b) + r),
-                             calls=20)
-            dev = graph_ms(lambda: matmul_bias_act(x, w, b, res, relu=relu))
+
+            def composite():
+                return torch.relu(torch.nn.functional.linear(x, w, b) + r)
+
             result = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=plain_ms,
-                          library_ms=lib_ms, device_ms=dev,
+                          library_ms=graph_ms(composite), library_event_ms=time_ms(
+                              composite, calls=20), device_ms=dev,
                           **bound(nbytes=4 * (M * K + N * K + N + 2 * M * N),
-                                  flops=2 * M * K * N, peak_flops=F32_FLOPS))
-            print(f"[kernels] matmul_bias_act residual + relu: device {dev:.4f} ms (CUDA graph), "
-                  f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}), F.linear + add + "
-                  f"relu (a 3-call composite) {lib_ms:.4f} ms")
+                                  flops=2 * M * K * N, peak_flops=F32_FLOPS, tf32x3=True))
+            result["share_of_bound"] = result["bound_ms"] / dev
+            print(f"[kernels] matmul_bias_act residual + relu: device {dev:.4f} ms by graph "
+                  f"replay, bound {result['bound_ms']:.4f} ms ({result['bound_by']}; "
+                  f"{result['share_of_bound']:.3f} of it reached), F.linear + add + relu (a "
+                  f"3-call composite) device {result['library_ms']:.4f} ms by graph replay "
+                  f"(event {result['library_event_ms']:.4f} ms) ({card})")
     x4 = torch.randn((32, 56, 56, 256), generator=g).to(device)
     w4, b4 = (torch.randn((512, 256), generator=g) / 16).to(device), torch.zeros(512, device=device)
     got = conv1x1(x4, w4, b4, stride=2, relu=False)
+    again = conv1x1(x4, w4, b4, stride=2, relu=False)
     want = matmul_bias_act_reference(x4[:, ::2, ::2].reshape(-1, 256), w4, b4, relu=False)
     err = _rel_err(got.reshape(-1, 512), want)
-    if got.shape != (32, 28, 28, 512) or not err <= CNN_RTOL[torch.float32]:
-        raise AssertionError(f"conv1x1 stride 2: {tuple(got.shape)}, err {err:.3g}")
+    if (got.shape != (32, 28, 28, 512) or not err <= CNN_RTOL[torch.float32]
+            or not torch.equal(got, again)):
+        raise AssertionError(f"conv1x1 stride 2: {tuple(got.shape)}, err {err:.3g}, or two "
+                             f"launches differ")
     print(f"[kernels] conv1x1 stride 2 (32, 56, 56, 256) -> (32, 28, 28, 512): err {err:.3g}; "
-          f"small odd shape (37, 13, 9) float32 and bfloat16, three epilogues: within {CNN_RTOL}")
+          f"{len(CONV1X1_EDGE_SHAPES)} edge shapes {CONV1X1_EDGE_SHAPES} in float32 and "
+          f"bfloat16, three epilogues: worst errors { {str(k): v for k, v in worst.items()} } "
+          f"(tol {CNN_RTOL}); every launch twice, bitwise equal")
     return result
 
 
@@ -2964,8 +3103,8 @@ BF16_STEP_GRAD_RTOL = 2e-2
 
 def check_lstm_train_bf16(device: str, card: str) -> dict:
     """Both ``lstm_seq_train`` launches on bfloat16 xproj (the bfloat16
-    training step's) against their plain versions at (80, 2, 32, 2048) and
-    at LSTM_EDGE_SHAPES, each launched twice and required bitwise equal:
+    training step's) against their plain versions at (80, 2, 32, 2048), at
+    (80, 2, 32, 4096) (the wide forms) and at LSTM_EDGE_SHAPES, each launched twice and required bitwise equal:
     the forward's float32 residuals (h_keep, c_keep) at the float32
     phase's LSTM_TRAIN_FWD_ATOL, its bfloat16 outputs (outs, h_last,
     c_last, gact) at lstm_seq's bfloat16 tolerance (a bfloat16 rounding of
@@ -2974,9 +3113,10 @@ def check_lstm_train_bf16(device: str, card: str) -> dict:
     bf16 = torch.bfloat16
     fwd_names = ("outs", "h_last", "c_last", "gact", "h_keep", "c_keep")
     worst = {"fwd_bf16_outputs": 0.0, "fwd_f32_residuals": 0.0, "bwd": 0.0}
-    shapes = [(80, 32, 512)] + list(LSTM_EDGE_SHAPES)
+    shapes = [(80, 32, 512), (80, 32, 1024)] + list(LSTM_EDGE_SHAPES)
+    full = {}
     for T, B, H in shapes:
-        if (T, B, H) == (80, 32, 512):
+        if T == 80:
             xproj, w, mask = lstm_inputs(device, bf16, T=T, B=B, H=H)
         else:
             xproj, w, mask = lstm_edge_inputs(device, bf16, T, B, H)
@@ -3015,12 +3155,13 @@ def check_lstm_train_bf16(device: str, card: str) -> dict:
                                  f"relative to the largest value {rel:.3g} (tol "
                                  f"{LSTM_TRAIN_BWD_RTOL}) or two launches differ")
         worst["bwd"] = max(worst["bwd"], rel)
-        if (T, B, H) == (80, 32, 512):
-            main = {"fwd_err": err, "bwd_rel": rel,
-                    "fwd_ms": time_ms(lambda: lstm_seq_train_fwd(xproj, w, mask), calls=5),
-                    "bwd_ms": time_ms(lambda: lstm_seq_train_bwd(*res, w, mask, douts, dh_last,
-                                                                 dc_last), calls=5)}
-            print(f"[kernels] lstm_seq_train (80, 2, 32, 2048) bfloat16 xproj: forward max abs "
+        if T == 80:  # full width: the narrow form (H = 512) and the wide one (1024)
+            main = full[H] = {
+                "fwd_err": err, "bwd_rel": rel,
+                "fwd_ms": time_ms(lambda: lstm_seq_train_fwd(xproj, w, mask), calls=5),
+                "bwd_ms": time_ms(lambda: lstm_seq_train_bwd(*res, w, mask, douts, dh_last,
+                                                             dc_last), calls=5)}
+            print(f"[kernels] lstm_seq_train (80, 2, 32, {4 * H}) bfloat16 xproj: forward max abs "
                   f"err {err} (tol {LSTM_ATOL[bf16]} on the bf16 outputs, "
                   f"{LSTM_TRAIN_FWD_ATOL} on the float32 residuals); backward max err "
                   f"relative to the largest value {rel:.3g} (tol {LSTM_TRAIN_BWD_RTOL}); both "
@@ -3028,7 +3169,7 @@ def check_lstm_train_bf16(device: str, card: str) -> dict:
                   f"{main['bwd_ms']:.4f} ms from CUDA events ({card})")
     print(f"[kernels] lstm_seq_train on bfloat16 xproj at {len(LSTM_EDGE_SHAPES)} odd shapes: "
           f"worst errors {worst}, every launch twice bitwise equal ({card})")
-    return dict(main, worst=worst)
+    return dict(full[512], wide=full[1024], worst=worst)
 
 
 @contextlib.contextmanager

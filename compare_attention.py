@@ -51,10 +51,10 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
-HERE = Path(__file__).resolve().parent
 REPEATS = 5
 
 CROSS_MAIN = (128, 5, 80, 512, 8)
@@ -121,6 +121,62 @@ def _host_ms(torch, fn, calls: int = 200) -> float:
         times.append((time.perf_counter() - t0) * 1e3 / calls)
         torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def run_in_turns(script: Path, other: Path, rounds: int, tmp: Optional[Path] = None,
+                 extra: tuple = ()) -> tuple:
+    """Run ``script --run TREE [--out FILE] *extra`` for each tree in the
+    order other, this, this, other (``rounds`` pairs), each in a process of
+    its own from the tree's root, and print each process's last line (one
+    JSON object). With ``tmp``, FILE is a new path there for the outputs
+    the run saves. Returns the card's name and power limit (nvidia-smi),
+    each tree's results and the saved files in run order. A process that
+    fails ends this one with its exit code, after its output."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    trees = {"other": other.resolve(), "this": script.resolve().parent}
+    runs = {"other": [], "this": []}
+    files = []
+    for i in range(rounds):
+        for j, who in enumerate(("other", "this", "this", "other")):
+            cmd = [sys.executable, str(script.resolve()), "--run", str(trees[who]), *extra]
+            if tmp is not None:
+                files.append(tmp / f"{who}{i}_{j}.pt")
+                cmd += ["--out", str(files[-1])]
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=trees[who],
+                                  timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                sys.exit(proc.returncode)
+            line = proc.stdout.strip().splitlines()[-1]
+            print(f"[{who}] {line}", flush=True)
+            runs[who].append(json.loads(line))
+    return card, runs, files
+
+
+def medians(runs: dict, suffixes: tuple = ("_ms",)) -> dict:
+    """Each tree's median of every result whose key ends in one of suffixes."""
+    keys = [k for k in runs["this"][0] if k.endswith(suffixes)]
+    return {who: {k: statistics.median(r[k] for r in runs[who]) for k in keys} for who in runs}
+
+
+def same_bits_as_first(files: list) -> dict:
+    """For each saved output: whether every run gave the first run's bits."""
+    first = torch.load(files[0])
+    same = {k: True for k in first}
+    for f in files[1:]:
+        for k, v in _same_bits(first, torch.load(f)).items():
+            same[k] = same[k] and v
+    return same
+
+
+def run_one(name: str, fn, *args) -> int:
+    """One tree in this process: fn's results as one JSON line."""
+    if not torch.cuda.is_available():
+        print(f"{name}: no CUDA card", file=sys.stderr)
+        return 1
+    print(json.dumps(fn(*args)), flush=True)
+    return 0
 
 
 def cross_inputs_file(path: Path) -> None:
@@ -271,49 +327,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="the other tree's root")
     ap.add_argument("--rounds", type=int, default=2, help="(other, this, this, other) pairs")
-    ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)  # one tree, this process
+    ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)  # one tree, this process
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.time is not None:
-        if not torch.cuda.is_available():
-            print("compare_attention: no CUDA card", file=sys.stderr)
-            return 1
-        print(json.dumps(time_tree(args.time.resolve(), args.out, args.inputs)), flush=True)
-        return 0
+    if args.run is not None:
+        return run_one("compare_attention", time_tree, args.run.resolve(), args.out, args.inputs)
     if args.other is None:
         ap.error("--other is required")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    trees = {"other": args.other.resolve(), "this": HERE}
-    runs = {"other": [], "this": []}
-    same = {}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "cross_inputs.pt"
         cross_inputs_file(inputs)
-        first = None
-        for i in range(args.rounds):
-            for j, who in enumerate(("other", "this", "this", "other")):
-                out = Path(tmp) / f"{who}{i}_{j}.pt"
-                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--time",
-                                       str(trees[who]), "--out", str(out), "--inputs",
-                                       str(inputs)],
-                                      capture_output=True, text=True, cwd=trees[who],
-                                      timeout=900)
-                if proc.returncode != 0:
-                    print(proc.stdout + proc.stderr, file=sys.stderr)
-                    return proc.returncode
-                line = proc.stdout.strip().splitlines()[-1]
-                print(f"[{who}] {line}", flush=True)
-                runs[who].append(json.loads(line))
-                if first is None:
-                    first = out
-                    continue
-                bits = _same_bits(torch.load(first), torch.load(out))  # against the first run
-                same = {k: same.get(k, True) and v for k, v in bits.items()}
-    keys = [k for k in runs["this"][0] if k.endswith("_ms")]
-    summary = {who: {k: statistics.median(r[k] for r in runs[who]) for k in keys}
-               for who in runs}
+        card, runs, files = run_in_turns(Path(__file__), args.other, args.rounds, Path(tmp),
+                                         ("--inputs", str(inputs)))
+        same = same_bits_as_first(files)
+    summary = medians(runs)
     print(card)
     print(json.dumps({"card": card, "same_bits": all(same.values()),
                       "differ": sorted(k for k, v in same.items() if not v),

@@ -11,11 +11,14 @@ path's recurrences on the same seeded inputs: ``lstm_seq`` at
 (80, 2, 128, 2048) with float32 and bfloat16 xproj, and ``lstm_seq_train``'s
 forward and backward at (80, 2, 32, 2048), float32, ragged lengths (the
 narrow forms, H = 512); then the wide forms (H = 1024): ``lstm_seq`` at
-(80, 2, 128, 4096) with float32 and bfloat16 xproj and the training forward
-at (80, 2, 32, 4096). Every output is held against the tree's own plain
-version; the narrow forms' outputs are written to a temporary directory and
-compared bit for bit with the other tree's (the wide forms' bits may
-differ between designs: their errors are reported instead). The launches
+(80, 2, 128, 4096) with float32 and bfloat16 xproj, the training forward
+at (80, 2, 32, 4096), and the training backward there with float32 and
+bfloat16 xproj (on the plain forward's residuals, random cotangents). Every
+output is held against the tree's own plain version; the narrow forms'
+outputs are written to a temporary directory and compared bit for bit with
+the first run's (the wide forms' bits may differ between designs: their
+errors are reported instead: the largest absolute error, or for a backward
+the largest error over the output's largest value). The launches
 are timed by CUDA-graph replay (``compare_attention._graph_ms``: three
 calls a graph, CUDA events, median of 5). The order is other, this, this,
 other (``--rounds`` pairs), so drift on the card shows in both. Prints one
@@ -28,15 +31,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
-from compare_attention import _graph_ms
-
-HERE = Path(__file__).resolve().parent
+from compare_attention import _graph_ms, medians, run_in_turns, run_one, same_bits_as_first
 
 
 def run_tree(tree: Path, out: Path) -> dict:
@@ -100,14 +99,22 @@ def run_tree(tree: Path, out: Path) -> dict:
                                             train.lstm_seq_train_fwd_reference(x, w, m))
     res["wide_train_fwd_ms"] = _graph_ms(torch, lambda: train.lstm_seq_train_fwd(x, w, m),
                                          calls=3)
+    # The wide backward at (80, 2, 32, 4096), float32 and bfloat16 xproj, on
+    # the plain forward's residuals, with random cotangents in xproj's type.
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, w, m = inputs(dtype, 32, H=1024)
+        fwd = train.lstm_seq_train_fwd_reference(x, w, m)
+        g = torch.Generator(device="cpu").manual_seed(2)
+        douts = torch.randn(tuple(fwd[0].shape), generator=g).to("cuda", dtype)
+        dh, dc = (torch.randn(tuple(fwd[1].shape), generator=g).cuda() for _ in range(2))
+        bwd = train.lstm_seq_train_bwd(*fwd[3:], w, m, douts, dh, dc)
+        want = train.lstm_seq_train_bwd_reference(*fwd[3:], w, m, douts, dh, dc)
+        res[f"wide_train_bwd_{tag}_max_rel_err"] = max(
+            ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            for a, b in zip(bwd, want))
+        res[f"wide_train_bwd_{tag}_ms"] = _graph_ms(
+            torch, lambda: train.lstm_seq_train_bwd(*fwd[3:], w, m, douts, dh, dc), calls=3)
     return res
-
-
-def _same_bits(torch, a: dict, b: dict) -> dict:
-    def raw(t):
-        return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
-
-    return {k: all(torch.equal(raw(x), raw(y)) for x, y in zip(a[k], b[k])) for k in a}
 
 
 def main(argv=None) -> int:
@@ -118,45 +125,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.run is not None:
-        import torch
-
-        if not torch.cuda.is_available():
-            print("compare_lstm: no CUDA card", file=sys.stderr)
-            return 1
-        print(json.dumps(run_tree(args.run.resolve(), args.out)), flush=True)
-        return 0
+        return run_one("compare_lstm", run_tree, args.run.resolve(), args.out)
     if args.other is None:
         ap.error("--other is required")
-    import torch
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    trees = {"other": args.other.resolve(), "this": HERE}
-    runs = {"other": [], "this": []}
-    same = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for i in range(args.rounds):
-            for j, who in enumerate(("other", "this", "this", "other")):
-                out = Path(tmp) / f"{who}{i}_{j}.pt"
-                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run",
-                                       str(trees[who]), "--out", str(out)],
-                                      capture_output=True, text=True, cwd=trees[who],
-                                      timeout=900)
-                if proc.returncode != 0:
-                    print(proc.stdout + proc.stderr, file=sys.stderr)
-                    return proc.returncode
-                line = proc.stdout.strip().splitlines()[-1]
-                print(f"[{who}] {line}", flush=True)
-                runs[who].append(json.loads(line))
-                if j > 0:  # every run against the round's first "other" run
-                    bits = _same_bits(torch, torch.load(Path(tmp) / f"other{i}_0.pt"),
-                                      torch.load(out))
-                    same = {k: same.get(k, True) and v for k, v in bits.items()}
-    keys = [k for k in runs["this"][0] if k.endswith("_ms")]
-    summary = {who: {k: statistics.median(r[k] for r in runs[who]) for k in keys}
-               for who in runs}
+        card, runs, files = run_in_turns(Path(__file__), args.other, args.rounds, Path(tmp))
+        same = same_bits_as_first(files)
     print(card)
-    print(json.dumps({"card": card, "same_bits": same, "median_ms": summary}))
+    print(json.dumps({"card": card, "same_bits": same, "median_ms": medians(runs)}))
     return 0 if all(same.values()) else 1
 
 

@@ -177,6 +177,48 @@ def test_matmul_bias_act_plain_version_matches_pallas(epilogue):
         _t(x), _t(w.T), _t(b), None if residual is None else _t(residual), relu=relu))
 
 
+# Shapes at the edges of the card kernel's tiling (csrc/conv1x1.cu: 32-row
+# blocks, 256-column blocks of 8 warps x 32, k-tiles of 32 float32 / 64
+# bf16 values) that the JAX block rule also takes (M and N multiples of
+# 16): M not a multiple of 32, K not a multiple of 16, N not a multiple of
+# 64, and N past one column block with K over three float32 k-tiles.
+MBA_EDGE_SHAPES = [(1008, 40, 208), (336, 24, 80), (176, 100, 272)]
+
+
+@pytest.mark.parametrize("epilogue", ["residual_relu", "relu", "residual_no_relu"])
+@pytest.mark.parametrize("shape", MBA_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_matmul_bias_act_plain_version_matches_pallas_at_tiling_edges(shape, epilogue):
+    M, K, N = shape
+    rs = np.random.RandomState(M + K + N)
+    x, w, b, r = (rs.randn(*s).astype(np.float32) for s in ((M, K), (K, N), (N,), (M, N)))
+    residual = None if epilogue == "relu" else r
+    relu = epilogue != "residual_no_relu"
+    want = np.asarray(jax_matmul_bias_act(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        None if residual is None else jnp.asarray(residual), relu=relu, interpret=True))
+    got = matmul_bias_act(_t(x), _t(w.T), _t(b), None if residual is None else _t(residual),
+                          relu=relu)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4096, 64, 256), (2048, 256, 512)],
+                         ids=["stage1_conv3", "stage2_downsample"])
+def test_matmul_bias_act_3xtf32_stays_within_a_quarter_of_the_card_tolerance(shape):
+    """The card kernel's float32 products by the 3xTF32 split (hi.hi + hi.lo
+    + lo.hi) at chip_smoke.check_conv1x1's shapes and scales (w at
+    1 / sqrt(K), bias 0.1, a unit residual) against float64, with the
+    residual and ReLU: within CNN_RTOL_F32 / 4 of the largest output."""
+    M, K, N = shape
+    rs = np.random.RandomState(9)
+    x = rs.randn(M, K).astype(np.float32)
+    w = (rs.randn(N, K) / np.sqrt(K)).astype(np.float32)
+    b = (rs.randn(N) * 0.1).astype(np.float32)
+    r = rs.randn(M, N).astype(np.float32)
+    got = np.maximum(_mm_3xtf32(x, w) + b + r, 0)
+    want = np.maximum(x.astype(np.float64) @ w.T.astype(np.float64) + b + r, 0)
+    assert np.abs(got - want).max() / np.abs(want).max() <= CNN_RTOL_F32 / 4
+
+
 def test_conv1x1_stride2_plain_version_matches_pallas():
     rs = np.random.RandomState(5)
     x, w, b = (rs.randn(*s).astype(np.float32) for s in ((1, 56, 56, 32), (32, 64), (64,)))

@@ -226,29 +226,43 @@ __device__ __forceinline__ RowRange row_range(const P& p, int unit_groups) {
 // even one row group a direction does not fit, the rows run as sequential
 // slices, halved until they fit. Each launch zeroes its ND x row_groups
 // counters (sync holds ND x B) first. P has fields B, ND, b0, nb,
-// slice_rows, row_groups and sync. Returns a cudaError_t.
+// slice_rows, row_groups and sync. Consecutive runs of `cluster` CTAs
+// (unit_groups a multiple of it) form thread block clusters when cluster >
+// 1; co-residency is counted in clusters (of 1 CTA otherwise). Returns a
+// cudaError_t.
 template <typename K, typename P, typename SmemOf>
 int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf smem_of,
-                      cudaStream_t stream, int threads = kThreads) {
-  const void* kern = reinterpret_cast<const void*>(kernel_fn);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      cudaStream_t stream, int threads = kThreads, int cluster = 1) {
+  cudaError_t e = cudaFuncSetAttribute(kernel_fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(kMaxSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0, coop = 0;
+  int dev = 0, coop = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(e);
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  cudaLaunchAttribute attrs[2] = {};
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
   // Whether `groups` row groups of `rows` rows each are co-resident.
   auto fits = [&](int groups, int rows, bool* ok) -> cudaError_t {
     const size_t smem = smem_of(rows);
-    int per_sm = 0;
     *ok = false;
     if (smem > kMaxSmem) return cudaSuccess;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-    *ok = per_sm * sms >= p.ND * groups * unit_groups;
+    cfg.gridDim = dim3(p.ND * groups * unit_groups);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;  // the cluster shape
+    int clusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel_fn, &cfg);
+    *ok = clusters * cluster >= p.ND * groups * unit_groups;
     return err;
   };
   bool ok = false;
@@ -271,17 +285,18 @@ int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf s
   }
   p.row_groups = groups;
   p.nb = rows;
-  const int grid = p.ND * groups * unit_groups;
+  cfg.gridDim = dim3(p.ND * groups * unit_groups);
+  cfg.dynamicSmemBytes = smem_of(rows);
+  // Cooperative, and the cluster shape only where there are clusters.
+  cfg.attrs = cluster > 1 ? attrs : attrs + 1;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
   for (int b0 = 0; b0 < p.B; b0 += slice) {
     p.b0 = b0;
     p.slice_rows = p.B - b0 < slice ? p.B - b0 : slice;
     if ((e = cudaMemsetAsync(p.sync, 0, sizeof(unsigned) * p.ND * groups, stream)) !=
         cudaSuccess)
       return static_cast<int>(e);
-    void* kargs[] = {&p};
-    e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), kargs, smem_of(rows),
-                                    stream);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaLaunchKernelEx(&cfg, kernel_fn, p)) != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

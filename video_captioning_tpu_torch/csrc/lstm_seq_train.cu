@@ -47,14 +47,16 @@
 //   products with float32 accumulators and sums the warps' partials into
 //   DH. The exchange stays bf16 from writer to mma; 16 units a CTA halve
 //   what 8 would read.
-// - Backward sweep, wide form (600 < H <= 1024): the same CTAs, but two
-//   chunks of all 4H columns (256 KB at H = 1024) do not fit in shared
-//   memory, nor do 4H / 128 k-tiles a warp in registers. Phase B stages
-//   16 rows x 1024 columns at a time (two in flight) and each warp holds
-//   its 8 k-tiles of each column chunk (128 registers of W_hh a thread at
-//   H = 1024); a row chunk's products sum over its column chunks in the
-//   accumulators before the warps' partials go to DH. One CTA an SM: 2 x
-//   64 CTAs at H = 1024 fit on 132 SMs.
+// - Backward sweep, wide form (600 < H <= 1024): CTAs of 16 units, one an
+//   SM (2 x 64 at H = 1024), paired in thread block clusters that split K:
+//   each CTA multiplies half of the 4H dgates columns by W_hh of the pair's
+//   32 units (64 registers of W_hh a thread over 16 warps) and the two
+//   partial DH meet through distributed shared memory, so each SM reads
+//   half the dgates it would read alone (lstm_seq_bwd_wide_kernel; see the
+//   comment above it). The first wide form (8 warps of 128 registers
+//   of W_hh, 244-246 registers a thread; all 4H columns a CTA, two stages
+//   in flight, each behind a cp.async wait and two barriers) took 1.458 ms
+//   for the backward at (80, 2, 32, 4096), 0.909 ms of it the sweep.
 // - dW_hh: ordinary launches after the sweep, a bf16 tensor-core GEMM
 //   over K = (T - 1) B rows of (h_keep[t - 1], dxproj[t]): 128 x 256 output
 //   tiles, 32 rows a stage in two shared-memory stages, the next stage's
@@ -79,25 +81,13 @@ constexpr int kBwdRows = 16;   // batch rows of dgates staged per chunk
 constexpr int kBwdPartStride = kBwdUnits + 1;
 // k-tiles of 16 over 4H per warp: ceil((4 * 600 / 16) / 8) = 19.
 constexpr int kBwdKt = (4 * kMaxHidden / 16 + kWarps - 1) / kWarps;
-// The wide form (H > 600) stages 16 rows x 1024 columns of dgates at a time
-// (a column chunk of 64 k-tiles, 33 KB; two in flight), at most four
-// chunks at H = 1024; warp w owns k-tiles w, w + 8, ... of each chunk: 32
-// k-tiles, 128 registers of W_hh a thread.
-constexpr int kBwdColTiles = 64;
-constexpr int kBwdColChunks = (4 * kMaxWideHidden / 16 + kBwdColTiles - 1) / kBwdColTiles;
-constexpr int kBwdWideKt = kBwdColChunks * kBwdColTiles / kWarps;
 
-// Row stride (bf16) of a staged dgates chunk: all 4H columns in the narrow
-// form, a column chunk in the wide one; + 8 puts ldmatrix rows in distinct
-// banks.
-template <bool kWide>
-__host__ __device__ inline int bwd_gstride(int H) {
-  return kWide ? kBwdColTiles * 16 + 8 : 4 * H + 8;
-}
+// Row stride (bf16) of the narrow form's staged dgates chunk: all 4H
+// columns; + 8 puts ldmatrix rows in distinct banks.
+__host__ __device__ inline int bwd_gstride(int H) { return 4 * H + 8; }
 
-template <bool kWide>
 inline size_t bwd_smem_bytes(int H, int nb) {
-  return static_cast<size_t>(2 * kBwdRows) * bwd_gstride<kWide>(H) * 2 +
+  return static_cast<size_t>(2 * kBwdRows) * bwd_gstride(H) * 2 +
          static_cast<size_t>(kWarps) * kBwdRows * kBwdPartStride * 4 +
          static_cast<size_t>(nb) * kBwdUnits * 8;
 }
@@ -121,13 +111,14 @@ struct BwdParams {
 
 constexpr int kBatch = 4;  // phase A items a thread loads before it computes
 
-template <typename T, bool kWide>
+// The narrow form (H <= 600).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) {
-  constexpr int Kt = kWide ? kBwdWideKt : kBwdKt;
+  constexpr int Kt = kBwdKt;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H;
   const int H4 = 4 * H;
-  const int gstride = bwd_gstride<kWide>(H);
+  const int gstride = bwd_gstride(H);
   const int KT = H4 / 16;
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kBwdRows][gstride]
   float* part = reinterpret_cast<float*>(gs + 2 * kBwdRows * gstride);
@@ -146,12 +137,11 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
   const int tq = lane & 3;
 
   // B fragments: B[k][n] = W_hh[d][j0 + n][k], two consecutive k in one
-  // register; zero for units past H. Fragment i is k-tile w + 8 i (narrow),
-  // or k-tile w + 8 (i % 8) of column chunk i / 8 (wide).
+  // register; zero for units past H. Fragment i is k-tile w + 8 i.
   uint32_t wf[Kt][2][2];
 #pragma unroll
   for (int i = 0; i < Kt; ++i) {
-    const int kt = kWide ? (i / 8) * kBwdColTiles + warp + (i % 8) * kWarps : warp + i * kWarps;
+    const int kt = warp + i * kWarps;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int jj = j0 + nt * 8 + g;
@@ -284,108 +274,432 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
       const int si = bl * kBwdUnits + eu;
       st_dh[si] = sum + (1.0f - m) * st_dh[si];
     };
-    if constexpr (!kWide) {
-      auto stage = [&](int c) {
-        __nv_bfloat16* dst = gs + (c & 1) * kBwdRows * gstride;
-        const int r0 = c * kBwdRows;
-        const int rows = min(kBwdRows, rr.n - r0);
-        for (int e = tid; e < rows * vecs; e += kThreads) {
-          const int r = e / vecs;
-          const int v = e % vecs;
-          cp_async16(dst + r * gstride + v * 8,
-                     gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + v * 8);
-        }
-      };
-      stage(0);
-      cp_async_commit();
-      if (n_chunks > 1) stage(1);
-      cp_async_commit();
-      prefetch_prev();  // the next phase A's inputs into L2 while phase B runs
-      for (int c = 0; c < n_chunks; ++c) {
-        const int rows = min(kBwdRows, rr.n - c * kBwdRows);
-        cp_async_wait_one();
-        __syncthreads();
-        float acc[2][4];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
-        const __nv_bfloat16* gb = gs + (c & 1) * kBwdRows * gstride;
-#pragma unroll
-        for (int i = 0; i < kBwdKt; ++i) {
-          const int kt = warp + i * kWarps;
-          if (kt >= KT) break;
-          uint32_t a[4];
-          ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kt * 16 +
-                             (lane >> 4) * 8);
-          mma_bf16(acc[0], a, wf[i][0][0], wf[i][0][1]);
-          mma_bf16(acc[1], a, wf[i][1][0], wf[i][1][1]);
-        }
-        store_partials(acc);
-        __syncthreads();
-        if (c + 2 < n_chunks) stage(c + 2);
-        cp_async_commit();
-        add_dh(c, rows);
+    auto stage = [&](int c) {
+      __nv_bfloat16* dst = gs + (c & 1) * kBwdRows * gstride;
+      const int r0 = c * kBwdRows;
+      const int rows = min(kBwdRows, rr.n - r0);
+      for (int e = tid; e < rows * vecs; e += kThreads) {
+        const int r = e / vecs;
+        const int v = e % vecs;
+        cp_async16(dst + r * gstride + v * 8,
+                   gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + v * 8);
       }
-    } else {
-      // Stages s = (row chunk s / n_cc, column chunk s % n_cc), two in
-      // flight; the products of a row chunk sum over its column chunks.
-      const int n_cc = (KT + kBwdColTiles - 1) / kBwdColTiles;
-      const int n_stages = n_chunks * n_cc;
-      auto stage = [&](int s2) {
-        if (s2 >= n_stages) return;
-        __nv_bfloat16* dst = gs + (s2 & 1) * kBwdRows * gstride;
-        const int r0 = (s2 / n_cc) * kBwdRows;
-        const int rows = min(kBwdRows, rr.n - r0);
-        const int c0 = (s2 % n_cc) * kBwdColTiles * 16;
-        const int cvecs = min(kBwdColTiles * 16, H4 - c0) / 8;
-        for (int e = tid; e < rows * cvecs; e += kThreads) {
-          const int r = e / cvecs;
-          const int v = e % cvecs;
-          cp_async16(dst + r * gstride + v * 8,
-                     gnow + static_cast<size_t>(rr.b0 + r0 + r) * H4 + c0 + v * 8);
-        }
-      };
-      stage(0);
-      cp_async_commit();
-      stage(1);
-      cp_async_commit();
-      prefetch_prev();  // the next phase A's inputs into L2 while phase B runs
-      for (int c = 0; c < n_chunks; ++c) {
-        const int rows = min(kBwdRows, rr.n - c * kBwdRows);
-        float acc[2][4];
+    };
+    stage(0);
+    cp_async_commit();
+    if (n_chunks > 1) stage(1);
+    cp_async_commit();
+    prefetch_prev();  // the next phase A's inputs into L2 while phase B runs
+    for (int c = 0; c < n_chunks; ++c) {
+      const int rows = min(kBwdRows, rr.n - c * kBwdRows);
+      cp_async_wait_one();
+      __syncthreads();
+      float acc[2][4];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+        for (int q = 0; q < 4; ++q) acc[nt][q] = 0.0f;
+      const __nv_bfloat16* gb = gs + (c & 1) * kBwdRows * gstride;
 #pragma unroll
-        for (int cc = 0; cc < kBwdColChunks; ++cc) {
-          if (cc >= n_cc) break;
-          const int s2 = c * n_cc + cc;
-          cp_async_wait_one();  // stage s2 has landed
-          __syncthreads();
-          const __nv_bfloat16* gb = gs + (s2 & 1) * kBwdRows * gstride;
-#pragma unroll
-          for (int i = 0; i < kBwdColTiles / kWarps; ++i) {
-            const int kl = warp + i * kWarps;
-            if (cc * kBwdColTiles + kl >= KT) break;
-            uint32_t a[4];
-            ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kl * 16 +
-                               (lane >> 4) * 8);
-            mma_bf16(acc[0], a, wf[cc * 8 + i][0][0], wf[cc * 8 + i][0][1]);
-            mma_bf16(acc[1], a, wf[cc * 8 + i][1][0], wf[cc * 8 + i][1][1]);
-          }
-          __syncthreads();  // every warp is done with stage s2's buffer
-          stage(s2 + 2);
-          cp_async_commit();  // possibly empty: keeps the group count in step
-        }
-        store_partials(acc);
-        __syncthreads();
-        add_dh(c, rows);
+      for (int i = 0; i < kBwdKt; ++i) {
+        const int kt = warp + i * kWarps;
+        if (kt >= KT) break;
+        uint32_t a[4];
+        ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * gstride + kt * 16 +
+                           (lane >> 4) * 8);
+        mma_bf16(acc[0], a, wf[i][0][0], wf[i][0][1]);
+        mma_bf16(acc[1], a, wf[i][1][0], wf[i][1][1]);
       }
+      store_partials(acc);
+      __syncthreads();
+      if (c + 2 < n_chunks) stage(c + 2);
+      cp_async_commit();
+      add_dh(c, rows);
     }
     __syncthreads();  // DH complete before the next phase A reads it
   }
+}
+
+// ------------------------------------------------------- wide backward sweep
+//
+// 600 < H <= 1024 (the wide form). Each step a CTA multiplies the step's
+// bf16 dgates of its rows by its W_hh slice; with 16 units a CTA (2 x 64
+// CTAs at H = 1024, one an SM) it reads all B x 4H of them, 256 KB a CTA at
+// B = 32, four times the forward's h. Probe builds (PERF.md) found
+// those bytes set the sweep whatever brings them (cp.async rings of 1 to
+// 5 stages, bulk copies, copies multicast to a cluster, a private region
+// instead of the shared exchange). So each SM reads half:
+// - Pairs of CTAs with neighbouring unit groups (the same rows) form a
+//   thread block cluster that owns 32 units, and split K instead of the
+//   units: CTA rank r multiplies the dgates of gates 2r and 2r + 1 (columns
+//   2rH .. 2(r + 1)H of 4H) by W_hh of all 32 units, 128 KB of dgates a
+//   step at B = 32. Each CTA's partial DH of the 32 units goes half to
+//   itself and half into its peer's shared memory (distributed shared
+//   memory), and after a cluster barrier each adds rank 0's part and rank
+//   1's in that order for its own 16 units. An odd count of unit groups is
+//   padded with a CTA whose units all lie past H.
+// - 16 warps (512 threads), all along K: warp w owns k-tiles w, w + 16,
+//   w + 32, w + 48 of each 1024-column chunk of its 2H columns (2 chunks at
+//   H = 1024) for the 4 n-tiles of the 32 units: the CTA's W_hh slice
+//   (32 units x 2H bf16, 128 KB) is 64 registers of B fragments a thread.
+// - dgates arrive in stages of 16 rows x 1024 columns (32 KB) through a
+//   ring of slots, as many as fit (bwd_wide_ring; all 4 of a step's
+//   stages at B = 32, H = 1024), each thread's 16-byte
+//   cp.async share completing on the slot's mbarrier; a slot is refilled as
+//   soon as its products are done.
+// - A row chunk's products sum over its column chunks in the accumulators;
+//   the 16 warps' partials then meet in shared memory at a stride of 40
+//   floats (conflict-free float2 stores) and are added in a fixed order.
+// - Phase A's inputs of the next step (gact, c_keep at t and t - 1, douts,
+//   the mask), which do not depend on the recurrence, are staged into
+//   shared memory by cp.async during phase B, on an mbarrier of their own,
+//   so phase A reads no device memory on the critical path.
+// The counters and the two-slot exchange are the narrow form's; the launch
+// is launch_recurrence's with clusters of 2.
+constexpr int kBwdWideThreads = 512;
+constexpr int kBwdWideWarps = kBwdWideThreads / 32;
+constexpr int kBwdCluster = 2;                      // CTAs that split K
+constexpr int kBwdPairUnits = kBwdCluster * kBwdUnits;  // units of a cluster's product
+constexpr int kBwdColTiles = 64;  // k-tiles of 16 a staged column chunk: 1024 columns
+constexpr int kBwdColChunks = (4 * kMaxWideHidden / kBwdCluster / 16) / kBwdColTiles;
+constexpr int kBwdWideKt = kBwdColTiles / kBwdWideWarps;  // a warp's k-tiles of a chunk
+constexpr int kBwdWideNt = kBwdPairUnits / 8;             // n-tiles of the pair's units
+constexpr int kBwdWideGStride = kBwdColTiles * 16 + 8;    // bf16 a staged row
+constexpr int kBwdWidePart = kBwdPairUnits + 8;  // floats a row of a warp's partials
+constexpr int kBwdMaxRing = 8;
+
+__host__ __device__ inline int bwd_wide_bar_bytes(int ring) { return (8 * (ring + 1) + 15) / 16 * 16; }
+
+// The ring's and the staged inputs' mbarriers, the dgates slots, the
+// partials, DH and DC of nb rows, this step's mask, the two ranks' partial
+// DH of the CTA's units, and the next step's inputs (float32 room whatever
+// xproj's type: gact 4 x 16, c and c_prev 16 each, douts 16, the mask).
+// ops/lstm_seq_train.py:bwd_wide_smem mirrors it.
+__host__ __device__ inline size_t bwd_wide_smem_bytes(int nb, int ring) {
+  return static_cast<size_t>(bwd_wide_bar_bytes(ring)) +
+         static_cast<size_t>(ring) * kBwdRows * kBwdWideGStride * 2 +
+         static_cast<size_t>(kBwdWideWarps) * kBwdRows * kBwdWidePart * 4 +
+         static_cast<size_t>(nb) * kBwdUnits * 8 + static_cast<size_t>(nb + 3) / 4 * 16 +
+         static_cast<size_t>(kBwdCluster) * nb * kBwdUnits * 4 +
+         static_cast<size_t>(nb) * 7 * kBwdUnits * 4 + static_cast<size_t>(nb) * 4;
+}
+
+// The ring's slots for CTAs of nb rows: the most that fit, at most a
+// step's stages and kBwdMaxRing; 1 when none fits (the launch then takes
+// fewer rows a CTA). The launch sizes shared memory by it and the kernel
+// lays it out by it. ops/lstm_seq_train.py:bwd_wide_ring mirrors it.
+__host__ __device__ inline int bwd_wide_ring(int nb, int H) {
+  const int col_chunks = (4 * H / kBwdCluster / 16 + kBwdColTiles - 1) / kBwdColTiles;
+  const int stages = (nb + kBwdRows - 1) / kBwdRows * col_chunks;
+  int ring = stages < kBwdMaxRing ? stages : kBwdMaxRing;
+  while (ring > 1 && bwd_wide_smem_bytes(nb, ring) > kMaxSmem) --ring;
+  return ring;
+}
+
+// 4 bytes global -> shared, through L1 (the mask: read-only in the launch).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// 16 bytes global -> shared through L2, or 16 zero bytes when src is null
+// (then `other`, a valid address, stands in for it and is not read).
+__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src,
+                                                   const void* other) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src != nullptr ? src : other), "r"(src != nullptr ? 16 : 0)
+               : "memory");
+}
+// v at p in the shared memory of cluster CTA `rank` (this CTA's own included).
+__device__ __forceinline__ void st_cluster_f32(float* p, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)),
+               "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdWideThreads, 1) lstm_seq_bwd_wide_kernel(BwdParams p) {
+  constexpr int kT = kBwdWideThreads;
+  constexpr int U = kBwdUnits;
+  constexpr int PU = kBwdPairUnits;
+  constexpr int VT = 16 / static_cast<int>(sizeof(T));  // T values a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = p.H;
+  const int H4 = 4 * H;
+  const int KH = H4 / kBwdCluster;  // this CTA's columns of 4H
+  const int KT = KH / 16;
+  const int ring = bwd_wide_ring(p.nb, H);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [ring] slots, then the inputs'
+  uint64_t* in_bar = bars + ring;
+  unsigned char* q = smem + bwd_wide_bar_bytes(ring);
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(q);  // [ring][kBwdRows][kBwdWideGStride]
+  q += static_cast<size_t>(ring) * kBwdRows * kBwdWideGStride * 2;
+  float* part = reinterpret_cast<float*>(q);  // [warps][kBwdRows][kBwdWidePart]
+  q += kBwdWideWarps * kBwdRows * kBwdWidePart * 4;
+  float* st_dh = reinterpret_cast<float*>(q);  // [nb][U]
+  float* st_dc = st_dh + p.nb * U;
+  float* st_m = st_dc + p.nb * U;  // [nb] this step's mask
+  q += static_cast<size_t>(p.nb) * U * 8 + (p.nb + 3) / 4 * 16;
+  float* xp = reinterpret_cast<float*>(q);  // [kBwdCluster][nb][U]: rank r's partial DH
+  q += static_cast<size_t>(kBwdCluster) * p.nb * U * 4;
+  T* in_ga = reinterpret_cast<T*>(q);  // [nb][4][U]
+  q += static_cast<size_t>(p.nb) * 4 * U * 4;
+  float* in_c = reinterpret_cast<float*>(q);  // [nb][U]
+  float* in_cp = in_c + p.nb * U;             // [nb][U]
+  T* in_do = reinterpret_cast<T*>(in_cp + p.nb * U);  // [nb][U]
+  float* in_m = reinterpret_cast<float*>(q + static_cast<size_t>(p.nb) * 3 * U * 4);  // [nb]
+
+  // Unit groups padded to whole clusters: a cluster's CTAs share their rows.
+  const int unit_groups = ((H + U - 1) / U + kBwdCluster - 1) / kBwdCluster * kBwdCluster;
+  const RowRange rr = row_range(p, unit_groups);
+  const int d = rr.d;
+  const int j0 = rr.unit_group * U;  // this CTA's units (phase A)
+  const uint32_t rank = cluster_rank();
+  const int pj0 = j0 - static_cast<int>(rank) * U;  // the cluster's units (phase B)
+  const int kbase = static_cast<int>(rank) * KH;     // this CTA's columns of 4H
+  unsigned* counter = p.sync + d * p.row_groups + rr.group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int n_chunks = (rr.n + kBwdRows - 1) / kBwdRows;
+  const int n_cc = (KT + kBwdColTiles - 1) / kBwdColTiles;
+  const int n_stages = n_chunks * n_cc;
+
+  // B fragments: B[k][n] = W_hh[d][pj0 + n][kbase + k], two consecutive k
+  // in one register; zero for units past H and k-tiles past KT. wf[cc][i]
+  // is k-tile w + 16 i of column chunk cc.
+  uint32_t wf[kBwdColChunks][kBwdWideKt][kBwdWideNt][2];
+#pragma unroll
+  for (int cc = 0; cc < kBwdColChunks; ++cc) {
+#pragma unroll
+    for (int i = 0; i < kBwdWideKt; ++i) {
+      const int kt = cc * kBwdColTiles + warp + i * kBwdWideWarps;
+#pragma unroll
+      for (int nt = 0; nt < kBwdWideNt; ++nt) {
+        const int jj = pj0 + nt * 8 + g;
+        const uint32_t* wrow = reinterpret_cast<const uint32_t*>(
+            p.w_hh + (static_cast<size_t>(d) * H + (jj < H ? jj : 0)) * H4 + kbase);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          wf[cc][i][nt][half] =
+              kt < KT && jj < H ? __ldg(wrow + (kt * 16 + half * 8 + 2 * tq) / 2) : 0u;
+        }
+      }
+    }
+  }
+  for (int e = tid; e < rr.n * U; e += kT) {
+    const int j = j0 + e % U;
+    const size_t si = (static_cast<size_t>(d) * p.B + rr.b0 + e / U) * H + j;
+    st_dh[e] = p.dh_last != nullptr && j < H ? p.dh_last[si] : 0.0f;
+    st_dc[e] = p.dc_last != nullptr && j < H ? p.dc_last[si] : 0.0f;
+  }
+  if (p.mask == nullptr) {  // all valid: the staged mask stays 1
+    for (int bl = tid; bl < rr.n; bl += kT) in_m[bl] = 1.0f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i <= ring; ++i) mbar_init(&bars[i], kT);
+  }
+  __syncthreads();
+  cluster_sync();  // both CTAs run before either writes into the other
+
+  const T* gact = static_cast<const T*>(p.gact);
+  const T* douts = static_cast<const T*>(p.douts);
+  T* dx = static_cast<T*>(p.dxproj);
+  const size_t step_rows = static_cast<size_t>(p.ND) * p.B;
+  const int items = rr.n * U;
+
+  // Phase A's inputs of step t into shared memory, each thread's copies
+  // then its arrival on in_bar. Rows of 16 units: gact's 4 gates and douts
+  // in 16 / VT copies each, c_keep at t and t - 1 (zeros at t = 0) in 4.
+  auto stage_inputs = [&](int t) {
+    const size_t row0 = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
+    constexpr int kGa = 4 * U / VT, kDo = U / VT, kC = U / 4;
+    constexpr int kRow = kGa + kDo + 2 * kC;
+#pragma unroll 1
+    for (int e = tid; e < rr.n * kRow; e += kT) {
+      const int bl = e / kRow;
+      int v = e % kRow;
+      const size_t row = row0 + bl;
+      void* dst;
+      const void* src = nullptr;  // null: 16 zero bytes
+      if (v < kGa) {
+        const int k = v / (U / VT), u = (v % (U / VT)) * VT;
+        dst = in_ga + (bl * 4 + k) * U + u;
+        if (j0 + u < H) src = gact + row * H4 + k * H + j0 + u;
+      } else if ((v -= kGa) < kDo) {
+        const int u = v * VT;
+        dst = in_do + bl * U + u;
+        if (douts != nullptr && j0 + u < H) src = douts + row * H + j0 + u;
+      } else if ((v -= kDo) < kC) {
+        const int u = v * 4;
+        dst = in_c + bl * U + u;
+        if (j0 + u < H) src = p.c_keep + row * H + j0 + u;
+      } else {
+        const int u = (v - kC) * 4;
+        dst = in_cp + bl * U + u;
+        if (t > 0 && j0 + u < H) src = p.c_keep + (row - step_rows) * H + j0 + u;
+      }
+      cp_async16_or_zero(dst, src, gact);
+    }
+    if (p.mask != nullptr) {
+      for (int bl = tid; bl < rr.n; bl += kT)
+        cp_async4(in_m + bl, p.mask + static_cast<size_t>(rr.b0 + bl) * p.T + t);
+    }
+    mbar_arrive_on_copies(in_bar);
+  };
+
+  // Ring: the stages of steps T - 1 .. 1 in order; stage s2 of a step is
+  // (row chunk s2 / n_cc, column chunk s2 % n_cc), and the step's stages
+  // are chunks gbase .. gbase + n_stages - 1 of the ring: chunk gc lands in
+  // slot gc % ring, for the (gc / ring)-th time.
+  unsigned gbase = 0;
+  stage_inputs(p.T - 1);
+  for (int s = 0; s < p.T; ++s) {
+    const int t = p.T - 1 - s;
+    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H4;
+    const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
+
+    // Phase A: the CTA's dgates columns for its rows, from the staged inputs.
+    mbar_wait(in_bar, s & 1);
+    for (int e = tid; e < items; e += kT) {
+      const int bl = e / U;
+      const int u = e % U;
+      const int j = j0 + u;
+      if (j >= H) continue;
+      const T* ga = in_ga + bl * 4 * U + u;
+      const float gi = to_f(ga[0]), gf = to_f(ga[U]);
+      const float gg = to_f(ga[2 * U]), go = to_f(ga[3 * U]);
+      const float c_new = in_c[e], c_prev = in_cp[e], m = in_m[bl];
+      if (u == 0) st_m[bl] = m;  // the carry of DH at a padded step
+      const float DH = st_dh[e];
+      const float DC = st_dc[e];
+      const float dh_new = m * (to_f(in_do[e]) + DH);
+      const float tc = tanhf(c_new);
+      const float do_ = dh_new * tc;
+      const float dc_new = m * DC + dh_new * go * (1.0f - tc * tc);
+      st_dc[e] = dc_new * gf + (1.0f - m) * DC;
+      const float dg4[4] = {
+          dc_new * gg * gi * (1.0f - gi),
+          dc_new * c_prev * gf * (1.0f - gf),
+          dc_new * gi * (1.0f - gg * gg),
+          do_ * go * (1.0f - go),
+      };
+      T* dxr = dx + (step_row + bl) * H4;
+      unsigned short* gr = reinterpret_cast<unsigned short*>(gnow) +
+                           static_cast<size_t>(rr.b0 + bl) * H4;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        store_f(dxr + k * H + j, dg4[k]);
+        __stcg(gr + k * H + j, __bfloat16_as_ushort(__float2bfloat16(dg4[k])));
+      }
+    }
+    if (t == 0) break;  // the cotangent of the initial state is not needed
+
+    __syncthreads();  // the staged inputs are read; this step's dgates written
+    if (tid == 0) {
+      dir_arrive(counter);
+      dir_wait(counter, static_cast<unsigned>((s + 1) * unit_groups));
+    }
+    __syncthreads();  // every CTA sharing these rows has published step t
+
+    // Phase B: this CTA's part of the pair's DH. The next step's inputs go
+    // first, so their mbarrier waits on nothing of the ring.
+    stage_inputs(t - 1);
+    // Thread tid copies 16-byte vector tid % 128 of rows tid / 128,
+    // tid / 128 + 4, ... of the stage (a row is at most 128 vectors).
+    constexpr int kRowVecs = kBwdColTiles * 2;
+    auto stage = [&](int s2) {
+      const unsigned gc = gbase + s2;
+      const int slot = static_cast<int>(gc % ring);
+      const int r0 = (s2 / n_cc) * kBwdRows;
+      const int rows = min(kBwdRows, rr.n - r0);
+      const int c0 = (s2 % n_cc) * kBwdColTiles * 16;
+      const int v = tid % kRowVecs;
+      if (v * 8 < KH - c0) {
+        __nv_bfloat16* dst = gs + slot * kBwdRows * kBwdWideGStride + v * 8;
+        const __nv_bfloat16* src =
+            gnow + static_cast<size_t>(rr.b0 + r0) * H4 + kbase + c0 + v * 8;
+#pragma unroll 1
+        for (int r = tid / kRowVecs; r < rows; r += kT / kRowVecs)
+          cp_async16(dst + r * kBwdWideGStride, src + static_cast<size_t>(r) * H4);
+      }
+      mbar_arrive_on_copies(&bars[slot]);
+    };
+#pragma unroll 1
+    for (int s2 = 0; s2 < min(ring, n_stages); ++s2) stage(s2);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int rows = min(kBwdRows, rr.n - c * kBwdRows);
+      float acc[kBwdWideNt][4];
+#pragma unroll
+      for (int nt = 0; nt < kBwdWideNt; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[nt][k] = 0.0f;
+#pragma unroll
+      for (int cc = 0; cc < kBwdColChunks; ++cc) {
+        if (cc >= n_cc) break;
+        const int s2 = c * n_cc + cc;
+        const unsigned gc = gbase + s2;
+        const int slot = static_cast<int>(gc % ring);
+        mbar_wait(&bars[slot], (gc / ring) & 1);  // stage s2 has landed
+        const __nv_bfloat16* gb = gs + slot * kBwdRows * kBwdWideGStride;
+#pragma unroll
+        for (int i = 0; i < kBwdWideKt; ++i) {
+          const int kl = warp + i * kBwdWideWarps;
+          if (cc * kBwdColTiles + kl >= KT) break;
+          uint32_t a[4];
+          ldmatrix_x4(a, gb + ((lane & 7) + ((lane >> 3) & 1) * 8) * kBwdWideGStride +
+                             kl * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int nt = 0; nt < kBwdWideNt; ++nt)
+            mma_bf16(acc[nt], a, wf[cc][i][nt][0], wf[cc][i][nt][1]);
+        }
+        if (s2 + ring < n_stages) {
+          __syncthreads();  // every warp is done with the slot
+          stage(s2 + ring);
+        }
+      }
+      // Accumulator k of an m16n8 tile: row g + 8 (k / 2), column 2 tq + k % 2.
+      float* pw = part + warp * kBwdRows * kBwdWidePart;
+#pragma unroll
+      for (int nt = 0; nt < kBwdWideNt; ++nt)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+          *reinterpret_cast<float2*>(pw + (g + h2 * 8) * kBwdWidePart + nt * 8 + 2 * tq) =
+              make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
+      __syncthreads();
+      // The warps' partials in order: this CTA's part of DH of the pair's
+      // 32 units, each half sent to the CTA that owns those units.
+      const int er = tid / PU, eu = tid % PU;
+      if (er < rows && pj0 + eu < H) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kBwdWideWarps; ++w) sum += part[(w * kBwdRows + er) * kBwdWidePart + eu];
+        st_cluster_f32(xp + (static_cast<int>(rank) * p.nb + c * kBwdRows + er) * U + eu % U,
+                       static_cast<uint32_t>(eu / U), sum);
+      }
+      __syncthreads();  // partials read before the next chunk's
+    }
+    cluster_sync();  // both ranks' parts of DH are in place
+    // DH of the CTA's units: rank 0's part, rank 1's, and the carry at a
+    // padded step (the same threads read DH in phase A).
+    for (int e = tid; e < items; e += kT) {
+      if (j0 + e % U < H)
+        st_dh[e] = xp[e] + xp[p.nb * U + e] + (1.0f - st_m[e / U]) * st_dh[e];
+    }
+    gbase += n_stages;
+  }
+  cluster_sync();  // the peer may still write into this CTA's partials
 }
 
 // dW_hh tiles: 128 k (of H) x 256 columns (of 4H), 32 rows of the
@@ -575,11 +889,16 @@ int launch_bwd(const BwdParams& p, float* dw, float* dw_part, int splits,
                cudaStream_t stream) {
   const int H = p.H;
   const int unit_groups = (H + kBwdUnits - 1) / kBwdUnits;
-  int rc = H <= kMaxHidden
-               ? launch_recurrence(&lstm_seq_bwd_kernel<T, false>, p, unit_groups, kBwdRows,
-                                   [H](int nb) { return bwd_smem_bytes<false>(H, nb); }, stream)
-               : launch_recurrence(&lstm_seq_bwd_kernel<T, true>, p, unit_groups, kBwdRows,
-                                   [H](int nb) { return bwd_smem_bytes<true>(H, nb); }, stream);
+  int rc;
+  if (H <= kMaxHidden) {
+    rc = launch_recurrence(&lstm_seq_bwd_kernel<T>, p, unit_groups, kBwdRows,
+                           [H](int nb) { return bwd_smem_bytes(H, nb); }, stream);
+  } else {
+    rc = launch_recurrence(&lstm_seq_bwd_wide_kernel<T>, p,
+                           (unit_groups + kBwdCluster - 1) / kBwdCluster * kBwdCluster, kBwdRows,
+                           [H](int nb) { return bwd_wide_smem_bytes(nb, bwd_wide_ring(nb, H)); },
+                           stream, kBwdWideThreads, kBwdCluster);
+  }
   if (rc != 0) return rc;
   const int steps = ((p.T - 1) * p.B + kDwK - 1) / kDwK;
   const int split_steps = (steps + splits - 1) / splits;
@@ -655,7 +974,8 @@ extern "C" int vct_lstm_seq_train_dw_splits(int T, int ND, int B, int H) {
 // Backward sweep, then the dW_hh product. douts, dh_last and dc_last
 // (float32) may be null for zeros; gbuf is (2, ND, B, 4H) bf16, sync
 // (ND, B) unsigned and dw_part (splits - 1, ND, H, 4H) float32 scratch,
-// all uninitialised. Returns a cudaError_t.
+// all uninitialised; at H > 600 gact, c_keep and douts 16-byte aligned
+// (the wide sweep stages them by 16-byte copies). Returns a cudaError_t.
 extern "C" int vct_lstm_seq_train_bwd(
     const void* gact, int is_bf16, const float* h_keep, const float* c_keep,
     const void* w_hh, const float* mask, const void* douts, const float* dh_last,

@@ -13,20 +13,107 @@ bf16 operands with float32 sums in both recurrent products and in dW_hh,
 float32 gates, state and residuals, dxproj the float32 dgates cast to
 xproj's type. Both kernels take H a multiple of 8 up to 1024 (narrow forms
 up to 600, wide forms above); ``wide_launches`` on each wrapper counts the
-wide form's launches among its ``launches``.
+wide form's launches among its ``launches``. ``bwd_wide_plan`` mirrors the wide
+backward sweep's launch plan, which the C launcher picks (its rows, ring of
+dgates stages and shared memory), for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .build import check_launch, load_library
-from .lstm_seq import check_inputs, fwd_ring
+from .lstm_seq import (CARD_SMS, NARROW_MAX_HIDDEN, SMEM_LIMIT, WIDE_MIN_ROWS, WIDE_UNITS,
+                       check_inputs, fwd_ring)
 
 Tensor = torch.Tensor
+
+# The wide backward sweep's plan as the C launcher picks it (csrc/
+# lstm_seq_train.cu: lstm_seq_bwd_wide_kernel, bwd_wide_smem_bytes,
+# bwd_wide_ring; launch_recurrence's row groups and slices).
+BWD_WIDE_THREADS = 512  # 16 warps, all along K
+BWD_WIDE_WARPS = BWD_WIDE_THREADS // 32
+BWD_CLUSTER = 2         # CTAs a cluster: neighbouring unit groups that split K
+BWD_ROWS = 16           # batch rows a staged dgates chunk
+BWD_COL_TILES = 64      # k-tiles of 16 a staged column chunk (1024 columns)
+BWD_WIDE_GSTRIDE = BWD_COL_TILES * 16 + 8  # bf16 a staged row
+BWD_WIDE_PART = BWD_CLUSTER * WIDE_UNITS + 8  # floats a row of a warp's partial sums
+BWD_MAX_RING = 8
+
+
+def bwd_wide_smem(nb: int, ring: int) -> int:
+    """Shared memory of a wide backward CTA (bwd_wide_smem_bytes): the
+    ring's and the staged inputs' mbarriers, ``ring`` slots of BWD_ROWS x
+    1024 bf16 dgates, 16 warps' partial sums of the cluster's 32 units, DH
+    and DC of nb rows, the step's mask, the two ranks' parts of DH, and the
+    next step's inputs in float32 room (gact 4 x 16, c_keep at t and t - 1,
+    douts, the mask)."""
+    return (-(-8 * (ring + 1) // 16) * 16 + ring * BWD_ROWS * BWD_WIDE_GSTRIDE * 2
+            + BWD_WIDE_WARPS * BWD_ROWS * BWD_WIDE_PART * 4
+            + nb * WIDE_UNITS * 8 + -(-nb // 4) * 16 + BWD_CLUSTER * nb * WIDE_UNITS * 4
+            + nb * 7 * WIDE_UNITS * 4 + nb * 4)
+
+
+def bwd_wide_col_chunks(H: int) -> int:
+    """Column chunks of BWD_COL_TILES k-tiles in a CTA's half of 4H."""
+    return -(-(4 * H // BWD_CLUSTER // 16) // BWD_COL_TILES)
+
+
+def bwd_wide_ring(nb: int, H: int) -> int:
+    """The ring's slots for CTAs of nb rows (bwd_wide_ring): the most that
+    fit, at most a step's stages and BWD_MAX_RING; 1 when none fits."""
+    ring = min(-(-nb // BWD_ROWS) * bwd_wide_col_chunks(H), BWD_MAX_RING)
+    while ring > 1 and bwd_wide_smem(nb, ring) > SMEM_LIMIT:
+        ring -= 1
+    return ring
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_wide_plan(H: int, B: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
+    """The wide backward sweep's launch plan at 600 < H <= 1024:
+    ``unit_groups`` CTAs of WIDE_UNITS units (BWD_WIDE_THREADS threads) a
+    direction and row group, padded to a multiple of BWD_CLUSTER (clusters
+    of neighbouring unit groups that split K: each CTA multiplies half of
+    the 4H dgates columns by W_hh of the pair's units; a padding CTA's
+    units all lie past H), one CTA an SM (W_hh in registers), so
+    ND x row_groups x unit_groups <= sms; the most row groups of at least
+    WIDE_MIN_ROWS rows that fit (``nb`` rows a CTA), or one row group over
+    sequential ``slice``-row launches where even one does not fit shared
+    memory. A step reads its half of the direction's dgates in ``stages``
+    of BWD_ROWS rows x 1024 columns (``chunks`` row chunks x
+    ``col_chunks``); ``ring`` of them are in flight (``bwd_wide_ring``:
+    all 4 at B = 32, H = 1024)."""
+    ug = -(-H // WIDE_UNITS)
+    ug = -(-ug // BWD_CLUSTER) * BWD_CLUSTER
+    col_chunks = bwd_wide_col_chunks(H)
+
+    def smem(nb: int) -> int:
+        return bwd_wide_smem(nb, bwd_wide_ring(nb, H))
+
+    groups, nb = 0, 0
+    for g in range(max(1, B // WIDE_MIN_ROWS), 0, -1):
+        nb = -(-B // g)
+        if ND * g * ug <= sms and smem(nb) <= SMEM_LIMIT:
+            groups = g
+            break
+    slice_rows = B
+    if not groups:  # one row group; the rows in sequential slices
+        groups = 1
+        while smem(slice_rows) > SMEM_LIMIT:
+            if slice_rows <= WIDE_MIN_ROWS:
+                raise ValueError(f"no wide backward plan fits H = {H}, B = {B}")
+            slice_rows = -(-slice_rows // 2)
+        nb = slice_rows
+    ring = bwd_wide_ring(nb, H)
+    chunks = -(-nb // BWD_ROWS)
+    return dict(unit_groups=ug, row_groups=groups, nb=nb, slice=slice_rows,
+                launches=-(-B // slice_rows), chunks=chunks, col_chunks=col_chunks,
+                stages=chunks * col_chunks, ring=ring, smem=bwd_wide_smem(nb, ring),
+                ctas=ND * groups * ug)
 
 
 def _bf16_exact(x: Tensor) -> Tensor:
@@ -214,6 +301,10 @@ def lstm_seq_train_bwd(
     h_keep, c_keep = h_keep.contiguous(), c_keep.contiguous()
     # A missing cotangent goes to the kernel as a null pointer (zeros).
     douts = None if douts is None else douts.to(dt).contiguous()
+    # The wide sweep stages gact, c_keep and douts by 16-byte copies.
+    if H > NARROW_MAX_HIDDEN:
+        gact, c_keep, douts = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
+                               for x in (gact, c_keep, douts))
     dh_last = None if dh_last is None else dh_last.to(torch.float32).contiguous()
     dc_last = None if dc_last is None else dc_last.to(torch.float32).contiguous()
     gbuf = torch.empty((2, ND, B, H4), dtype=torch.bfloat16, device=dev)
