@@ -50,7 +50,11 @@ exits non-zero without printing the final result line:
    device time beside the PyTorch composite of its whole function and SDPA's
    context alone), each also at odd shapes (the cross kernel at twelve,
    every launch repeated bitwise), with the
-   profiler's device time beside the CUDA-event time;
+   profiler's device time beside the CUDA-event time; both also with a
+   bfloat16 query (the bfloat16 beam state's forms: outputs within one
+   bf16 ulp beyond BEAM_ATTN_ATOL of the plain versions, the context bit
+   for bit the float32-query form's rounded, graph-replay device times
+   beside the float32 query's, the library calls in bfloat16);
 4. the served slice, four times: the default full-width ``Config()`` (4096-d
    features, 512 hidden, 2+2 LSTM layers, Bahdanau, V = 10000, 80 frames),
    then the fused decode step (the same with ``use_pallas_attention``,
@@ -187,7 +191,24 @@ exits non-zero without printing the final result line:
    counted as kernel launches (2 ``lstm_seq`` and 20 ``topk2d_lse`` a call;
    40 of each beam attention kernel), exported encode + beam-5 profiled
    beside the live one;
-18. data parallelism (``run_parallel``): a one-rank NCCL process group
+18. the transformer in bfloat16 (``run_bf16_transformer``):
+   ``transformer_config()`` and ``fused_transformer_config()`` with
+   ``compute_dtype="bfloat16"``, the fused one also with
+   ``transformer_bf16_beam_state`` and with ``transformer_cross_kv_bf16``
+   in float32 and bfloat16, greedy and beam-5 at B = 128: launches exactly
+   as implied (40 of each beam-attention kernel and 20 ``topk2d_lse`` a
+   fused beam search), each greedy step's logits within BF16_LOGIT_RTOL of
+   the CPU port's (teacher-forced along its tokens), clip agreement with
+   the CPU port's run and the card's float32 run recorded (the float32 arm
+   gated at MIN_CLIP_AGREEMENT), encode + beam-5 of each arm profiled
+   beside float32;
+19. bfloat16 ``.vcx`` artifacts (``run_bf16_export``): ``Config()``
+   greedy, whose program must be handed bfloat16 features (ROADMAP C.7)
+   and give the live model's tokens on them, and the fused transformer
+   with ``transformer_bf16_beam_state``, beam-5: both kernels launched with
+   a bfloat16 query and held against their plain versions on the inputs
+   they got, tokens beside the CPU port's on the same bfloat16 features;
+20. data parallelism (``run_parallel``): a one-rank NCCL process group
    whose DP train step at B = 32 equals the step without one (loss and
    every gradient; both ``lstm_seq_train`` kernels launched), the DP step
    across 2 NCCL ranks where two cards are visible (a line says so
@@ -196,7 +217,7 @@ exits non-zero without printing the final result line:
    (``torch.distributed.checkpoint``) through ``cli.train``: 2 epochs, a
    resume whose parameters and Adam moments equal the trained ones, one
    more epoch through ``--resume``;
-19. a JSON line of the kernels, the nvidia-smi line, then the result line.
+21. a JSON line of the kernels, the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -217,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.request
 from pathlib import Path
 
@@ -341,6 +363,16 @@ SAMPLE_LOGP_ATOL = 1e-3
 # bfloat16 (activations into the projections) can flip a near-tie; the
 # JAX package's own CPU test holds the port to 0.9 against JAX's bf16.
 MIN_BF16_GREEDY_AGREEMENT = 0.9
+# The transformer in bfloat16, card against the CPU port: every linear
+# rounds its float32 input to bfloat16 (about a dozen roundings a block and
+# step, where the LSTM has a few), so those flips part 9–14% of the 128
+# clips' greedy decodes at full width, and as many with float32 GEMMs of
+# the bfloat16 values on the card (PERF.md): a token gate on 16 of
+# them passes or fails by chance. The decode is held by value instead:
+# each greedy step's logits, teacher-forced along the CPU's tokens, within
+# the CPU tests' 2e-2 of the largest CPU value (tests/test_torch_bf16.py:
+# REL, the port against JAX), END's suppressed column left out.
+BF16_LOGIT_RTOL = 2e-2
 # A data-parallel step against the step without a process group: the
 # tests' DP tolerances (tests/test_torch_parallel.py), here over every
 # gradient's max error relative to the largest gradient value.
@@ -369,6 +401,14 @@ BEAM_ATTN_ATOL = 1e-5
 # decode quantizes its context, so a kernel more than about 6e-8 from the
 # plain version flips int8 roundings (run_int8_decode's gate).
 CROSS_MAIN_ATOL = 1e-7
+# The bfloat16-query forms of both: the float32 results above, each rounded
+# once to bfloat16 (the head-mean weights by the JAX kernel's head blocks);
+# where the float32 values differ they may round to neighbouring bfloat16
+# values, so one bfloat16 ulp beyond BEAM_ATTN_ATOL (a context near 0 is a
+# sum of terms of both signs, whose float32 difference can be many bfloat16
+# ulps of the small result). The context must also be, bit for bit, the
+# float32-query form's on the widened query, rounded once.
+BF16_ULP_TOL = 1.0
 # fused_bottleneck and matmul_bias_act: float32 sums of up to 9 * 512
 # products in different orders (fused_bottleneck's products by the 3xTF32
 # split, each within about 2^-21 of the float32 product; its share is held
@@ -1431,7 +1471,85 @@ def check_beam_self_attention(device: str, card: str) -> dict:
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {distinct} distinct rows of "
               f"{(t + 1) * B * K}); two layers' inputs alternate ({card})")
         result.setdefault("main", res)
+    result["main"]["bf16_query"] = check_beam_self_attention_bf16q(device, card)
     return result["main"]
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float:
+    """The largest |got - want| beyond ``atol``, in units of the bfloat16
+    spacing at want (2^(e - 7) for |want| in [2^e, 2^(e + 1)))."""
+    w = want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return ((got.float() - w).abs().sub(atol).clamp_min(0.0) / spacing).max().item()
+
+
+def check_beam_self_attention_bf16q(device: str, card: str) -> dict:
+    """The bfloat16-query form (the bfloat16 beam state's): the context in
+    bfloat16 within BF16_ULP_TOL of the plain version, at the edge shape
+    (B = 3, K = 2, D = 64, 4 heads, T = 9, t = 0, 4, 8; float32 and bfloat16
+    caches) and the main shape (bfloat16 caches); two launches bitwise equal;
+    one launch a call (captured graph); device time by graph replay beside
+    the float32-query form's on the same caches, the plain version's,
+    ``torch.gather`` + SDPA in bfloat16, and the bound."""
+    for cdt in (torch.float32, torch.bfloat16):
+        for t in (0, 4, 8):
+            q, k, v, anc = beam_self_inputs(device, 3, 2, 64, 9, t, cdt, seed=10 + t)
+            q = q.to(torch.bfloat16)
+            got = beam_self_attention(q, k, v, anc, t, 4, 2)
+            ulps = bf16_ulps(got, beam_self_attention_reference(q, k, v, anc, t, 4, 2),
+                             BEAM_ATTN_ATOL)
+            rounded = beam_self_attention(q.float(), k, v, anc, t, 4, 2).to(torch.bfloat16)
+            if (got.dtype != torch.bfloat16 or not ulps <= BF16_ULP_TOL
+                    or not same_bits(got, rounded)):
+                raise AssertionError(f"beam_self_attention bf16 q B=3 K=2 D=64 t={t} {cdt} "
+                                     f"caches: {got.dtype}, {ulps:g} bf16 ulps, the float32 "
+                                     f"form's rounding {same_bits(got, rounded)}")
+    print(f"[kernels] beam_self_attention bf16 query B=3 K=2 D=64 h=4 T=9, t = 0, 4, 8, "
+          f"float32 and bfloat16 caches: within {BF16_ULP_TOL:g} bf16 ulp beyond "
+          f"{BEAM_ATTN_ATOL}, the float32 form's bits rounded")
+    B, K, D, H, T, t = 128, 5, 512, 8, 21, 19
+    q, k, v, anc = beam_self_inputs(device, B, K, D, T, t, torch.bfloat16, seed=20)
+    q16 = q.to(torch.bfloat16)
+    got = beam_self_attention(q16, k, v, anc, t, H, K)
+    again = beam_self_attention(q16, k, v, anc, t, H, K)
+    want = beam_self_attention_reference(q16, k, v, anc, t, H, K)
+    sync(device)
+    ulps = bf16_ulps(got, want, BEAM_ATTN_ATOL)
+    rounded = same_bits(got, beam_self_attention(q16.float(), k, v, anc, t, H, K)
+                        .to(torch.bfloat16))
+    launches = graph_launches(lambda: beam_self_attention(q16, k, v, anc, t, H, K), 10)
+    if not (ulps <= BF16_ULP_TOL and rounded and same_bits(got, again) and launches == 1):
+        raise AssertionError(f"beam_self_attention bf16 q: {ulps:g} bf16 ulps, the float32 "
+                             f"form's rounding {rounded}, repeat bitwise "
+                             f"{same_bits(got, again)}, {launches} launches a call")
+
+    def library(q, k, v, anc):
+        N, dh = B * K, D // H
+        kh, vh = (gather_beam_prefix(c, anc, t).reshape(t + 1, N, H, dh).permute(1, 2, 0, 3)
+                  for c in (k, v))
+        return torch.nn.functional.scaled_dot_product_attention(q.reshape(N, H, 1, dh), kh, vh)
+
+    rows = (torch.arange(B, device=device)[:, None, None] * K + anc[:, :, :t + 1].long())
+    distinct = sum(torch.unique(rows[:, :, tau]).numel() for tau in range(t + 1))
+    res = dict(max_abs_err=(got.float() - want.float()).abs().max().item(), max_bf16_ulps=ulps,
+               max_bf16_ulps_raw=bf16_ulps(got, want),
+               ms=graph_ms(lambda: beam_self_attention(q16, k, v, anc, t, H, K)),
+               f32_query_ms=graph_ms(lambda: beam_self_attention(q, k, v, anc, t, H, K)),
+               plain_ms=time_ms(lambda: beam_self_attention_reference(q16, k, v, anc, t, H, K),
+                                calls=20),
+               library_ms=graph_ms(lambda: library(q16, k, v, anc)),
+               **bound(nbytes=2 * 2 * distinct * D + 4 * B * K * (t + 1) + 2 * 2 * B * K * D,
+                       flops=4 * B * K * (t + 1) * D, peak_flops=F32_FLOPS))
+    print(f"[kernels] beam_self_attention B={B} K={K} D={D} h={H} T={T} t={t} bf16 query, bf16 "
+          f"caches: max abs err {res['max_abs_err']:.3g}, {ulps:g} bf16 ulps from the plain "
+          f"version beyond {BEAM_ATTN_ATOL} ({res['max_bf16_ulps_raw']:g} without it; tol "
+          f"{BF16_ULP_TOL:g}), the float32 form's bits rounded, two launches bitwise equal, "
+          f"{launches:g} launch a call; kernel device "
+          f"{res['ms']:.4f} ms by graph replay (float32 query on the same caches "
+          f"{res['f32_query_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, torch.gather + SDPA "
+          f"in bf16 device {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}) ({card})")
+    return res
 
 
 def beam_cross_inputs(device: str, B: int, K: int, S: int, D: int, seed: int,
@@ -1585,7 +1703,79 @@ def check_beam_cross_attention(device: str, card: str) -> dict:
           f"(casts included) device {bf16['library_ms']:.4f} ms, bound {bf16['bound_ms']:.4f} "
           f"ms ({bf16['bound_by']}) ({card})")
     result["main"]["bf16"] = bf16
+    result["main"]["bf16_query"] = check_beam_cross_attention_bf16q(device, card)
     return result["main"]
+
+
+def check_beam_cross_attention_bf16q(device: str, card: str) -> dict:
+    """The bfloat16-query form (the bfloat16 beam state's): context and
+    head-mean weights in bfloat16 within BF16_ULP_TOL of the plain version
+    at CROSS_EDGE_SHAPES (both K/V dtypes) and the main shape (bfloat16 K/V),
+    ragged mask with row 1 fully masked (uniform weights) and none, two
+    launches bitwise equal; two launches a call (captured graph); device
+    time by graph replay beside the float32-query form's on the same K/V, the
+    plain version's, the PyTorch composite in bfloat16, and the bound."""
+    for B, K, S, D, H, dtype in CROSS_EDGE_SHAPES + ((128, 5, 80, 512, 8, torch.bfloat16),):
+        q, ck, cv, mask = beam_cross_inputs(device, B, K, S, D, seed=30, dtype=dtype)
+        q = q.to(torch.bfloat16)
+        ulps = 0.0
+        for m in (mask, None):
+            got = beam_cross_attention(q, ck, cv, m, H, K)
+            again = beam_cross_attention(q, ck, cv, m, H, K)
+            want = beam_cross_attention_reference(q, ck, cv, m, H, K)
+            sync(device)
+            ulps = max([ulps] + [bf16_ulps(a, b, BEAM_ATTN_ATOL) for a, b in zip(got, want)])
+            rounded = beam_cross_attention(q.float(), ck, cv, m, H, K)[0].to(torch.bfloat16)
+            # A fully masked row's weights are one value (1/S, rounded).
+            uniform = m is None or bool((got[1][K:2 * K] == got[1][K, 0]).all())
+            if (not same_bits(got, again) or not uniform or not same_bits(got[0], rounded)
+                    or any(o.dtype != torch.bfloat16 for o in got)):
+                raise AssertionError(f"beam_cross_attention bf16 q B={B} K={K} S={S} D={D} "
+                                     f"h={H} {dtype}: repeat bitwise {same_bits(got, again)}, "
+                                     f"masked row uniform {uniform}, the float32 form's context "
+                                     f"rounded {same_bits(got[0], rounded)}, dtypes "
+                                     f"{[o.dtype for o in got]}")
+        if not ulps <= BF16_ULP_TOL:
+            raise AssertionError(f"beam_cross_attention bf16 q B={B} K={K} S={S} D={D} h={H} "
+                                 f"{dtype} K/V: {ulps:g} bf16 ulps")
+    print(f"[kernels] beam_cross_attention bf16 query at {len(CROSS_EDGE_SHAPES)} edge shapes "
+          f"and the main one, ragged mask and none: within {BF16_ULP_TOL:g} bf16 ulp beyond "
+          f"{BEAM_ATTN_ATOL}, the context the float32 form's bits rounded, masked row uniform, "
+          f"two launches bitwise equal")
+    B, K, S, D, H = 128, 5, 80, 512, 8
+    q, ck, cv, mask = beam_cross_inputs(device, B, K, S, D, seed=30, dtype=torch.bfloat16)
+    q16 = q.to(torch.bfloat16)
+    got = beam_cross_attention(q16, ck, cv, mask, H, K)
+    want = beam_cross_attention_reference(q16, ck, cv, mask, H, K)
+    sync(device)
+    launches = graph_launches(lambda: beam_cross_attention(q16, ck, cv, mask, H, K), 10)
+    if launches != len(CROSS_KERNELS):
+        raise AssertionError(f"beam_cross_attention bf16 q: {launches} launches a call")
+    per_kernel = {next((k for k in ("head_mean_bf16", "beam_cross_attn") if k in name), name):
+                  round(ms / 20, 5) for name, (_, ms)
+                  in kernel_profile(lambda: beam_cross_attention(q16, ck, cv, mask, H, K),
+                                    20).items()}
+    res = dict(max_abs_err=max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)),
+               max_bf16_ulps=max(bf16_ulps(a, b, BEAM_ATTN_ATOL) for a, b in zip(got, want)),
+               max_bf16_ulps_raw=max(bf16_ulps(a, b) for a, b in zip(got, want)),
+               ms=graph_ms(lambda: beam_cross_attention(q16, ck, cv, mask, H, K)),
+               f32_query_ms=graph_ms(lambda: beam_cross_attention(q, ck, cv, mask, H, K)),
+               plain_ms=time_ms(lambda: beam_cross_attention_reference(q16, ck, cv, mask, H, K),
+                                calls=20),
+               library_ms=graph_ms(lambda: beam_cross_composite(q16, ck, cv, mask, H, K)),
+               **bound(nbytes=2 * 2 * B * S * D + 4 * B * S + 2 * 2 * B * K * D + 2 * B * K * S,
+                       flops=4 * B * K * S * D, peak_flops=F32_FLOPS))
+    print(f"[kernels] beam_cross_attention B={B} K={K} S={S} D={D} h={H} bf16 query, bf16 K/V: "
+          f"max abs err {res['max_abs_err']:.3g}, {res['max_bf16_ulps']:g} bf16 ulps from the "
+          f"plain version beyond {BEAM_ATTN_ATOL} ({res['max_bf16_ulps_raw']:g} without it; tol "
+          f"{BF16_ULP_TOL:g}), "
+          f"{launches:g} launches a call; kernel device {res['ms']:.4f} ms by graph replay "
+          f"(float32 query on the same K/V {res['f32_query_ms']:.4f} ms), plain "
+          f"{res['plain_ms']:.4f} ms, PyTorch composite in bf16 device {res['library_ms']:.4f} "
+          f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); profiler ms a call by "
+          f"kernel {per_kernel} ({card})")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2226,7 +2416,9 @@ def expected_launches(config: Config, batches: int, steps: int = 20) -> dict:
 def describe(config: Config) -> str:
     k, m = config.kernels, config.model
     if m.architecture == "transformer":
-        return f"transformer, {'fused' if k.transformer_fused_beam_attn else 'default'}"
+        flags = "".join(f", {f}" for f in ("transformer_bf16_beam_state",
+                                           "transformer_cross_kv_bf16") if getattr(k, f))
+        return f"transformer, {'fused' if k.transformer_fused_beam_attn else 'default'}{flags}"
     attention = ("no attention" if not m.use_attention else
                  f"luong {m.luong_score}" if m.attention_type == "luong" else
                  f"multihead x{m.attention_num_heads}" if m.attention_type == "multihead" else "")
@@ -3093,6 +3285,301 @@ def run_bf16_serving(card: str, clips: np.ndarray, device: str = "cuda",
             out["profile"]["float32"] = profile_decode(p32, batch, card)
     return out
 
+def bf16_transformer_arms() -> list:
+    """(config, compute dtype) of each arm of ``run_bf16_transformer``:
+    the transformer and its fused beam attention in bfloat16, the fused one
+    with ``transformer_bf16_beam_state``, and with
+    ``transformer_cross_kv_bf16`` in float32 and in bfloat16."""
+    state = fused_transformer_config()
+    state.kernels.transformer_bf16_beam_state = True
+    cross = fused_transformer_config()
+    cross.kernels.transformer_cross_kv_bf16 = True
+    return [(transformer_config(), "bfloat16"), (fused_transformer_config(), "bfloat16"),
+            (state, "bfloat16"), (cross, None), (cross, "bfloat16")]
+
+
+def greedy_step_logits(predictor: VideoCaptionPredictor, feats: np.ndarray, tokens: list,
+                       steps: int) -> torch.Tensor:
+    """(steps, B, V) float32 logits of the predictor's greedy decode steps on
+    ``feats`` (float32, as the live predictor is handed them), fed START and
+    then ``tokens`` (B lists), on the CPU."""
+    from video_captioning_tpu_torch.generation.families import make_decode_family
+
+    model, config = predictor.model, predictor.config
+    start = predictor.vocabulary.start_idx
+    out = []
+    with torch.inference_mode():
+        x = torch.from_numpy(feats).to(predictor.device)
+        enc, final, mask = encode(model, config, x)
+        family = make_decode_family(model, config, enc, final, mask, num_beams=1,
+                                    max_length=steps)
+        state = family.state0
+        prev = torch.full((len(tokens),), start, dtype=torch.int64, device=x.device)
+        for t in range(steps):
+            logits, state, _ = family.step(prev, state, t)
+            out.append(logits.float().cpu())
+            prev = torch.tensor([row[t] for row in tokens], dtype=torch.int64, device=x.device)
+    return torch.stack(out)
+
+
+def run_bf16_transformer(card: str, clips: np.ndarray, device: str = "cuda",
+                         cpu_clips: int = 16, arms=None) -> dict:
+    """The transformer family served in bfloat16 and with
+    ``transformer_cross_kv_bf16`` (``bf16_transformer_arms``) at full width,
+    from smoke_package's package (projection sharpened x3, END suppressed),
+    greedy and beam-5 at B = 128: a beam search launches each beam-attention
+    kernel once a decoder block and step in the fused arms (40 each) and
+    ``topk2d_lse`` once a step, a greedy decode neither; each greedy step's
+    logits on the first ``cpu_clips`` clips, teacher-forced along the CPU
+    port's tokens, within BF16_LOGIT_RTOL of the CPU's (the float32 arm
+    also gated by token agreement at MIN_CLIP_AGREEMENT, as the float32
+    slices are); clip agreement with the CPU port's run in the same dtype
+    on those clips and with the card's float32 run of the same kernels on
+    all of them recorded; one encode + beam-5 of each arm profiled, and of
+    the float32 runs."""
+    steps = 20
+    out = {"launches": {}, "agreement": {}, "profile": {}}
+    batch = list(clips)
+    f32_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = smoke_package(tmp, transformer_config())
+        for config, dtype in arms or bf16_transformer_arms():
+            label = f"{describe(config)}, {dtype or 'float32'}"
+            fused = config.kernels.transformer_fused_beam_attn
+            blocks = config.model.transformer_decoder_layers * steps
+            card_p = VideoCaptionPredictor(pkg, config=config, device=device, compute_dtype=dtype)
+            cpu_p = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
+                                          compute_dtype=dtype)
+            plain = Config.from_dict(config.to_dict())
+            for flag in ("transformer_bf16_beam_state", "transformer_cross_kv_bf16"):
+                setattr(plain.kernels, flag, False)
+            p32 = VideoCaptionPredictor(pkg, config=plain, device=device)
+            out["agreement"][label] = {}
+            for method in ("greedy", "beam"):
+                attn = blocks if fused and method == "beam" else 0
+                want = {"beam_self_attention": attn, "beam_cross_attention": attn,
+                        "topk2d_lse": steps if method == "beam" else 0}
+                got, n = counted(device, f"{label} {method} B={len(batch)}", want,
+                                 lambda: card_p.predict_batch(batch, method=method, beam_size=5))
+                out["launches"] = add_counts(out["launches"], n)
+                cpu = cpu_p.predict_batch(batch[:cpu_clips], method=method, beam_size=5)
+                key = (describe(plain), method)
+                if key not in f32_runs:
+                    f32_runs[key] = p32.predict_batch(batch, method=method, beam_size=5)
+                vs_cpu, vs_f32 = agreement(got[:cpu_clips], cpu), agreement(got, f32_runs[key])
+                out["agreement"][label][method] = {"card_vs_cpu": vs_cpu, "vs_f32": vs_f32}
+                for i, r in enumerate(got):
+                    _check_caption(r, config.model.vocab_size, f"{label} {method} clip {i}")
+                print(f"[bf16 transformer] {label}: {method} B={len(batch)} on {device}: clip "
+                      f"agreement with the CPU port's run (first {cpu_clips}) {vs_cpu:.4f}, with "
+                      f"the card's float32 {describe(plain)} run {vs_f32:.4f}; first divergence "
+                      f"vs CPU at {first_divergence(got[:cpu_clips], cpu)}; launches "
+                      f"{ {k: n[k] for k in want} }")
+            ref = [r["tokens"] for r in cpu_p.predict_batch(batch[:cpu_clips], method="greedy")]
+            feats = np.stack(batch[:cpu_clips])
+            cpu_logits = greedy_step_logits(cpu_p, feats, ref, steps)
+            card_logits = greedy_step_logits(card_p, feats, ref, steps)
+            live = torch.arange(cpu_logits.shape[-1]) != card_p.vocabulary.end_idx
+            err = ((card_logits - cpu_logits)[..., live].abs().max()
+                   / cpu_logits[..., live].abs().max()).item()
+            out["agreement"][label]["greedy_logits_rel_err"] = err
+            print(f"[bf16 transformer] {label}: greedy step logits, card against the CPU port "
+                  f"teacher-forced along its tokens ({cpu_clips} clips, {steps} steps): max err "
+                  f"{err:.3g} of the largest value (tol {BF16_LOGIT_RTOL})")
+            if not err <= BF16_LOGIT_RTOL:
+                raise AssertionError(f"{label}: greedy step logits {err:.3g} from the CPU's")
+            vs_cpu = out["agreement"][label]["greedy"]["card_vs_cpu"]
+            if dtype is None and vs_cpu < MIN_CLIP_AGREEMENT:
+                raise AssertionError(f"{label}: greedy card vs CPU agreement {vs_cpu} < "
+                                     f"{MIN_CLIP_AGREEMENT}")
+            if device == "cuda":
+                out["profile"][label] = profile_decode(card_p, batch, card)
+                f32_label = f"{describe(plain)}, float32"
+                if f32_label not in out["profile"]:
+                    out["profile"][f32_label] = profile_decode(p32, batch, card)
+    return out
+
+
+class _AttentionRecorder:
+    """While installed, the ``vct::`` attention ops of an exported program
+    (``ops/library.py``, which reaches the wrappers through its handle on
+    ``ops.transformer_attn``) call the wrappers through this recorder: it
+    keeps (inputs, outputs) of the self-attention call at step ``last_t`` of
+    each decoder layer and of the last cross-attention call, cloned when
+    made (the program reuses its buffers), so that they can be held against
+    the plain versions afterwards. The wrappers and their counts are
+    untouched."""
+
+    def __init__(self, last_t: int):
+        from video_captioning_tpu_torch.ops import library
+        from video_captioning_tpu_torch.ops import transformer_attn as ta
+
+        self.library, self.ta, self.last_t = library, ta, last_t
+        self.self_calls, self.cross_call = [], None
+
+    def _self(self, q, k_lyr, v_lyr, anc, t, num_heads, num_beams):
+        out = self.ta.beam_self_attention(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
+        if t == self.last_t:
+            self.self_calls.append(((q.clone(), k_lyr.clone(), v_lyr.clone(), anc.clone(), t,
+                                     num_heads, num_beams), out.clone()))
+        return out
+
+    def _cross(self, q, ck, cv, mask, num_heads, num_beams):
+        out = self.ta.beam_cross_attention(q, ck, cv, mask, num_heads, num_beams)
+        self.cross_call = ((q.clone(), ck.clone(), cv.clone(),
+                            None if mask is None else mask.clone(), num_heads, num_beams),
+                           tuple(o.clone() for o in out))
+        return out
+
+    def __enter__(self):
+        self.library.transformer_attn = types.SimpleNamespace(
+            beam_self_attention=self._self, beam_cross_attention=self._cross)
+        return self
+
+    def __exit__(self, *exc):
+        self.library.transformer_attn = self.ta
+
+    def ulps(self) -> dict:
+        """Each recorded call's largest distance from its plain version, in
+        bfloat16 ulps beyond BEAM_ATTN_ATOL, and the query dtypes the kernels
+        took."""
+        ta = self.ta
+        res = {"self": max(bf16_ulps(out, ta.beam_self_attention_reference(*args),
+                                     BEAM_ATTN_ATOL) for args, out in self.self_calls),
+               "cross": max(bf16_ulps(o, w, BEAM_ATTN_ATOL) for o, w in zip(
+                   self.cross_call[1], ta.beam_cross_attention_reference(*self.cross_call[0])))}
+        res["query_dtypes"] = sorted({str(a[0].dtype) for a, _ in self.self_calls}
+                                     | {str(self.cross_call[0][0].dtype)})
+        return res
+
+
+def serve_spying_inputs(aot, batch: np.ndarray) -> tuple:
+    """(records, the dtypes the artifact's program was handed) of one
+    ``predict_batch`` call."""
+    dtypes, load = [], aot._load_program
+
+    def spying(table, bucket):
+        program = load(table, bucket)
+
+        def call(x):
+            dtypes.append(x.dtype)
+            return program(x)
+        return call
+
+    aot._load_program = spying
+    try:
+        return aot.predict_batch(batch), dtypes
+    finally:
+        del aot._load_program
+
+
+def decode_features(predictor: VideoCaptionPredictor, feats: np.ndarray, dtype: torch.dtype,
+                    method: str, steps: int) -> list:
+    """Token lists of the predictor's model on ``feats`` cast to ``dtype``
+    (what a ``.vcx`` of that compute dtype is handed): encode, then greedy
+    or beam-5, as the exported serving program traced them."""
+    from video_captioning_tpu_torch.generation.greedy import greedy_generate
+
+    vocab, model, config = predictor.vocabulary, predictor.model, predictor.config
+    with torch.inference_mode():
+        x = torch.from_numpy(feats).to(dtype).to(predictor.device)
+        enc, final, mask = encode(model, config, x)
+        if method == "greedy":
+            out = greedy_generate(model, config, enc, final, vocab.start_idx, vocab.end_idx,
+                                  steps, mask)
+        else:
+            out = beam_mod.beam_search_generate(model, config, enc, final, vocab.start_idx,
+                                                vocab.end_idx, steps, mask, beam_size=5)
+    return out["generated_tokens"].cpu().tolist()
+
+
+def run_bf16_export(card: str, clips: np.ndarray, device: str = "cuda",
+                    cpu_clips: int = 16) -> dict:
+    """bfloat16 serving artifacts (``cli.export --compute-dtype bfloat16``)
+    on the card, bucket 128. ``Config()`` greedy: the program is handed
+    bfloat16 features (ROADMAP C.7), launches ``lstm_seq`` once a layer,
+    and gives the live model's tokens on the same bfloat16 features. The
+    fused transformer with ``transformer_bf16_beam_state``, beam-5:
+    bfloat16 features in, 40 launches of each beam-attention kernel and 20
+    of ``topk2d_lse`` a call, the kernels' calls at the last step (every
+    layer) and the last cross call taking a bfloat16 query and within
+    BF16_ULP_TOL of the plain versions on the same inputs, and the card's
+    tokens beside the CPU port's on the same bfloat16 features for the
+    first ``cpu_clips`` clips (beam agreement recorded: bfloat16 beams part
+    on near ties)."""
+    from video_captioning_tpu_torch.cli import export as cli_export
+    from video_captioning_tpu_torch.inference.export import ExportedPredictor
+
+    steps = 20
+    out = {"launches": {}, "export_s": {}, "agreement": {}}
+    batch = np.stack(list(clips))
+    with tempfile.TemporaryDirectory() as tmp:
+        state = fused_transformer_config()
+        state.kernels.transformer_bf16_beam_state = True
+        for i, (config, method) in enumerate(((Config(), "greedy"), (state, "beam"))):
+            label = describe(config)
+            pkg = smoke_package(f"{tmp}/pkg{i}", config)
+            t0 = time.perf_counter()
+            vcx = cli_export.main(["--model-path", pkg, "--output", f"{tmp}/model{i}.vcx",
+                                   "--batch-sizes", str(len(batch)), "--method", method,
+                                   "--beam-size", "5", "--max-length", str(steps),
+                                   "--compute-dtype", "bfloat16", "--platforms", device,
+                                   "--log-level", "WARNING"])
+            out["export_s"][label] = time.perf_counter() - t0
+            aot = ExportedPredictor(vcx, device=device)
+            if config.model.architecture == "lstm":
+                want = {"lstm_seq": config.model.encoder_num_layers, "topk2d_lse": 0}
+            else:
+                blocks = config.model.transformer_decoder_layers * steps
+                want = {"beam_self_attention": blocks, "beam_cross_attention": blocks,
+                        "topk2d_lse": steps}
+            (got, dtypes), n = counted(device, f"bf16 exported {label}", want,
+                                       lambda: serve_spying_inputs(aot, batch))
+            out["launches"] = add_counts(out["launches"], n)
+            if dtypes != [torch.bfloat16]:
+                raise AssertionError(f"bf16 exported {label}: the program was handed {dtypes}")
+            for j, r in enumerate(got):
+                _check_caption(r, config.model.vocab_size, f"bf16 exported {label} clip {j}")
+            if config.model.architecture == "lstm":
+                live = VideoCaptionPredictor(pkg, device=device, compute_dtype="bfloat16")
+                if [r["tokens"] for r in got] != decode_features(live, batch, torch.bfloat16,
+                                                                  method, steps):
+                    raise AssertionError(f"bf16 exported {label}: tokens differ from the live "
+                                         f"model's on the same bfloat16 features")
+                print(f"[bf16 export] {label} greedy: the program was handed {dtypes}; tokens "
+                      f"equal to the live bf16 model's on the same bfloat16 features for all "
+                      f"{len(batch)} clips; launches { {k: n[k] for k in want} }; cli.export in "
+                      f"{out['export_s'][label]:.1f} s")
+                continue
+            # On the card the program's vct:: ops run the wrappers (on the
+            # CPU they run the plain versions, ops/library.py).
+            ulps = {"self": 0.0, "cross": 0.0, "query_dtypes": "not recorded on the CPU"}
+            if device == "cuda":
+                with _AttentionRecorder(steps - 1) as rec:
+                    aot.predict_batch(batch)
+                    sync(device)
+                ulps = rec.ulps()
+                if (ulps["query_dtypes"] != ["torch.bfloat16"]
+                        or max(ulps["self"], ulps["cross"]) > BF16_ULP_TOL):
+                    raise AssertionError(f"bf16 exported {label}: kernels against the plain "
+                                         f"versions on their recorded inputs {ulps}")
+            cpu = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
+                                        compute_dtype="bfloat16")
+            cpu_tokens = decode_features(cpu, batch[:cpu_clips], torch.bfloat16, method, steps)
+            same = [r["tokens"] == t for r, t in zip(got, cpu_tokens)]
+            out["agreement"][label] = sum(same) / len(same)
+            out["kernels_bf16_ulps"] = ulps
+            print(f"[bf16 export] {label} beam-5: the program was handed {dtypes}; launches "
+                  f"{ {k: n[k] for k in want} }; its beam_self_attention calls at t = "
+                  f"{steps - 1} and last beam_cross_attention call took a {ulps['query_dtypes']} "
+                  f"query and lie within {max(ulps['self'], ulps['cross']):g} bf16 ulp (beyond "
+                  f"{BEAM_ATTN_ATOL}) of the plain versions on the same inputs; clip agreement "
+                  f"with the CPU port on the same bfloat16 features (first {cpu_clips}) "
+                  f"{out['agreement'][label]:.4f}; cli.export in "
+                  f"{out['export_s'][label]:.1f} s ({card})")
+    return out
+
+
 # bfloat16 training, card against the CPU port's bfloat16 step: the
 # tolerances of tests/test_torch_bf16_train.py (the port against the JAX
 # cast policy on the CPU): the loss relative, every gradient's max error
@@ -3910,9 +4397,11 @@ def main() -> int:
     bf16_train = run_bf16_training(smi)
     bf16_fused = run_bf16_fused(smi, clips)
     exported = run_export(smi, clips)
+    bf16_transformer = run_bf16_transformer(smi, clips)
+    bf16_exported = run_bf16_export(smi, clips)
     parallel = run_parallel(smi, clips)
     runs = (sl, fsl, tsl, tfsl, tr, ttr["train"], entry, wide, options, sampling, bf16, int8,
-            bf16_train, bf16_fused, exported, parallel)
+            bf16_train, bf16_fused, exported, bf16_transformer, bf16_exported, parallel)
     launches = {k: sum(run["launches"].get(k, 0) for run in runs)
                 + sum(n.get(k, 0) for n in ext["launches"].values())
                 for k in sl["launches"]}

@@ -67,14 +67,15 @@ PATCHES = (
     ("  float* wh;  // (B*K, H, S) per-head scores, then weights\n",
      "  float* wh;  // (B*K, H, S) per-head scores, then weights\n"
      "  float* wout;  // (B*K, S) head mean (mode 2)\n  int off_w;\n"),
-    ("template <typename T, int kEpl, bool kVec>\n__global__ void beam_cross_attn_kernel(",
-     "template <typename T, int kEpl, bool kVec, int kMode>\n"
+    ("template <typename T, typename TQ, int kEpl, bool kVec>\n"
+     "__global__ void beam_cross_attn_kernel(",
+     "template <typename T, typename TQ, int kEpl, bool kVec, int kMode>\n"
      "__global__ void beam_cross_attn_kernel("),
     ("  float* prow = a.wh + (n * H + head) * S;\n",
      "  float* ws = reinterpret_cast<float*>(smem + a.off_w);  // [K][S] (modes 1, 2)\n"
      "  float* prow = kMode ? ws + k * S : a.wh + (n * H + head) * S;\n"),
-    ("    if (d < dh) a.ctx[n * D + col0 + d] = acc[i];\n  }\n}",
-     """    if (d < dh) a.ctx[n * D + col0 + d] = acc[i];
+    ("    if (d < dh) store_out(static_cast<TQ*>(a.ctx) + n * D + col0 + d, acc[i]);\n  }\n}",
+     """    if (d < dh) store_out(static_cast<TQ*>(a.ctx) + n * D + col0 + d, acc[i]);
   }
   if (kMode == 1) {
     float* g = a.wh + (n * H + head) * S;
@@ -93,15 +94,15 @@ PATCHES = (
     cl.sync();
   }
 }"""),
-    ("  auto kernel = beam_cross_attn_kernel<T, kEpl, kVec>;",
-     "  auto kernel = beam_cross_attn_kernel<T, kEpl, kVec, 0>;"),
+    ("  auto kernel = beam_cross_attn_kernel<T, TQ, kEpl, kVec>;",
+     "  auto kernel = beam_cross_attn_kernel<T, TQ, kEpl, kVec, 0>;"),
 )
 
 ENTRY = r'''
 namespace {
 template <typename T, int kMode>
 cudaError_t probe_launch(const CrossArgs& a, int B, int H, cudaStream_t st) {
-  auto kernel = beam_cross_attn_kernel<T, 2, true, kMode>;
+  auto kernel = beam_cross_attn_kernel<T, float, 2, true, kMode>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          a.smem);
   if (err != cudaSuccess) return err;
@@ -278,7 +279,8 @@ def host(other: Path) -> dict:
 
     parts = {
         "wrapper": lambda: ta.beam_cross_attention(q, ck, cv, mask, H, K),
-        "C entry": lambda: lib.vct_beam_cross_attention(*ptrs, 0, B, K, H, D, S, 1, FC, st),
+        "C entry": lambda: lib.vct_beam_cross_attention(*ptrs, 0, 0, B, K, H, D, S, 1, FC,
+                                                        ta.heads_per_block(D, H), st),
         "other tree's C entry": lambda: olib.vct_beam_cross_attention(*ptrs, 0, B, K, H, D, S,
                                                                       st),
         "plan (cross_vec + cross_plan)": lambda: ta.cross_plan(K, H, D, S, ck.element_size(),

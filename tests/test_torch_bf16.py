@@ -3,8 +3,9 @@ JAX package's bfloat16 parameters on the CPU: the predictor casts every
 float32 parameter once; encoder outputs, decode-step logits and states and
 teacher-forced logits stay within 2e-2 of the largest JAX value for every
 attention option; greedy tokens agree with JAX's on at least 90% of 64
-sharpened clips (the beam figure is printed); and bfloat16 for the
-transformer family is refused at load. bfloat16 under the fused
+sharpened clips (the beam figure is printed); and the transformer family
+loads and serves in bfloat16 (held against JAX in
+tests/test_torch_bf16_transformer.py). bfloat16 under the fused
 decode-step flags is held in tests/test_torch_bf16_fused.py."""
 
 from pathlib import Path
@@ -140,16 +141,26 @@ def test_bf16_greedy_clip_agreement_with_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", ["transformer"])
 def test_bf16_with_a_fused_decode_flag_is_refused_at_load(tmp_path, flag):
-    """Only the transformer family is still refused in bfloat16: the fused
-    decode-step flags serve it (tests/test_torch_bf16_fused.py)."""
+    """No family is refused in bfloat16 any more: the transformer loads and
+    serves greedy and beam-5 in float32 and in bfloat16, with its fused
+    beam attention too (held against JAX in
+    tests/test_torch_bf16_transformer.py)."""
     cfg = _config()
     cfg.model.architecture = "transformer"
     cfg.model.embedding_dim, cfg.model.transformer_num_heads = 16, 4
     pkg = _package(tmp_path, cfg)
-    pcfg = _port(cfg)
-    VideoCaptionPredictor(pkg, config=pcfg, device="cpu")  # float32 serves
-    with pytest.raises(NotImplementedError, match="transformer family"):
-        VideoCaptionPredictor(pkg, config=pcfg, device="cpu", compute_dtype="bfloat16")
+    feats = np.random.RandomState(2).randn(10, 24).astype(np.float32)
+    for fused in (False, True):
+        pcfg = _port(cfg)
+        pcfg.kernels.transformer_fused_beam_attn = fused
+        for dtype in (None, "bfloat16"):
+            tp = VideoCaptionPredictor(pkg, config=pcfg, device="cpu", compute_dtype=dtype)
+            want = torch.bfloat16 if dtype else torch.float32
+            assert all(p.dtype == want for p in tp.model.parameters())
+            for method in ("greedy", "beam"):
+                res = tp.predict_from_features(feats, method=method, max_length=6)
+                assert isinstance(res["caption"], str) and res["tokens"]
+                assert all(0 <= t < len(tp.vocabulary) for t in res["tokens"])
 
 
 def test_serve_cli_passes_the_compute_dtype(monkeypatch):

@@ -367,8 +367,9 @@ def test_decode_kernel_flags_build_and_leave_training_unchanged(tiny_config, tmp
 def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
     from video_captioning_tpu_torch.inference.predictor import VideoCaptionPredictor
 
-    # The transformer family builds, with context parallelism too; its
-    # bfloat16 cross keys/values do not.
+    # The transformer family builds, with context parallelism and with
+    # bfloat16 cross keys/values too; an architecture the port does not
+    # know is refused.
     for section, field, value in (("kernels", "transformer_cross_kv_bf16", True),
                                   ("parallel", "context_axis", "model")):
         cfg = port(tiny_config)
@@ -376,11 +377,11 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         cfg.model.embedding_dim = cfg.model.decoder_hidden_dim
         VideoCaptioningModel(cfg, 20)
         setattr(getattr(cfg, section), field, value)
-        if field == "context_axis":
-            VideoCaptioningModel(cfg, 20)
-            continue
-        with pytest.raises(NotImplementedError, match=f"not ported.*{field}"):
-            VideoCaptioningModel(cfg, 20)
+        VideoCaptioningModel(cfg, 20)
+    cfg = port(tiny_config)
+    cfg.model.architecture = "gru"
+    with pytest.raises(NotImplementedError, match="not ported.*architecture='gru'"):
+        VideoCaptioningModel(cfg, 20)
     # bfloat16 serving, with each fused decode-step flag too.
     cfg = port(tiny_config)
     vocab = PortVocabulary(cfg)
@@ -392,6 +393,18 @@ def test_port_raises_on_what_it_does_not_run(tiny_config, tmp_path):
         fused = PortConfig.from_dict(cfg.to_dict())
         setattr(fused.kernels, flag, True)
         VideoCaptionPredictor(pkg, config=fused, device="cpu", compute_dtype="bfloat16")
+    # The transformer in bfloat16 with bfloat16 cross keys/values serves.
+    tcfg = port(tiny_config)
+    tcfg.model.architecture = "transformer"
+    tcfg.model.embedding_dim = tcfg.model.decoder_hidden_dim
+    tcfg.kernels.transformer_cross_kv_bf16 = True
+    (tmp_path / "transformer").mkdir()
+    tpkg = port_ckpt.save_model_for_inference(init_params_numpy(tcfg, len(vocab)), vocab, tcfg,
+                                              tmp_path / "transformer")
+    tp = VideoCaptionPredictor(tpkg, device="cpu", compute_dtype="bfloat16")
+    for method in ("greedy", "beam"):
+        assert tp.predict_from_features(np.zeros((10, 24), np.float32), method=method,
+                                        max_length=4)["tokens"]
     # W8A8 decode is ported; an unknown level is refused with the JAX message.
     with pytest.raises(ValueError, match="decode_int8 must be one of"):
         VideoCaptionPredictor(pkg, device="cpu", decode_int8="int4")

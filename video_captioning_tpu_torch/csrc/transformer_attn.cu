@@ -21,9 +21,17 @@
 // kernels.transformer_fused_cross_attn).
 //
 // Contract (held by the tests against the plain PyTorch versions in
-// ops/transformer_attn.py): q and the outputs are float32; the caches and
-// the cross keys/values are float32 or bfloat16, read as stored and
-// widened to float32, so scores, softmax and sums are float32 either way.
+// ops/transformer_attn.py): q is float32 or bfloat16 and the outputs are
+// in q's dtype (the TPU kernels' out_shape); the caches and the cross
+// keys/values are float32 or bfloat16. Every operand is read as stored and
+// widened to float32, so scores, softmax and sums are float32 whatever
+// the dtypes, and a bfloat16 output is rounded once from the float32
+// result. The head-mean weights in bfloat16 follow the TPU kernel's
+// rounding (transformer_attn_pallas.py:_cross_attn_kernel): its grid
+// averages a block of heads_per_blk heads at a time (128 lanes of heads),
+// so each block's float32 sum over H is rounded to bfloat16 and the
+// blocks' parts are added in block order, rounded after each add; in
+// float32 the heads are summed in order and divided once, as before.
 // anc[b, k, tau] lies in [0, K) for tau <= t.
 //
 // What bounds them on an H100: device-memory reads. The self kernel reads
@@ -33,6 +41,10 @@
 // clip's keys and values once per clip, not once per beam: 2 x 128 x 80 x
 // 512 x 4 B = 42 MB, about 13 us. Their operations (two FMAs a loaded
 // element per beam) are far below the card's float32 rate.
+//
+// A bfloat16 query (the bfloat16 serving artifact's beam state) halves the
+// query and context bytes and the weights': at the main shape with
+// bfloat16 K/V the cross call moves about 22.4 MB, 6.7 us at 3.35 TB/s.
 //
 // Design: one CTA per (clip, head), one warp per beam (K <= 16 warps).
 // Self: each warp reads its own beam's rows, a lane holding up to four of
@@ -109,6 +121,13 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// A float32 result stored in the output's dtype: as is, or rounded to
+// nearest even.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // Four consecutive elements as float32: one 16-byte (float) or 8-byte
 // (bfloat16) load; p is aligned to that size.
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -122,11 +141,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 }
 
 // Grid (B, heads), 32 * K threads: warp k is beam k of clip blockIdx.x.
-// kEpl = ceil(dh / 32) columns a lane.
-template <typename T, int kEpl>
-__global__ void beam_self_attn_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+// kEpl = ceil(dh / 32) columns a lane. T: the caches' dtype, TQ: q's and
+// the context's.
+template <typename T, typename TQ, int kEpl>
+__global__ void beam_self_attn_kernel(const TQ* __restrict__ q, const T* __restrict__ kc,
                                       const T* __restrict__ vc, const int* __restrict__ anc,
-                                      float* __restrict__ ctx, int K, int D, int dh,
+                                      TQ* __restrict__ ctx, int K, int D, int dh,
                                       int T_max, int t, float scale) {
   const int b = blockIdx.x;
   const int col0 = blockIdx.y * dh;
@@ -139,7 +159,7 @@ __global__ void beam_self_attn_kernel(const float* __restrict__ q, const T* __re
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) {
     const int d = lane + 32 * i;
-    qr[i] = d < dh ? __ldg(q + n * D + col0 + d) : 0.0f;
+    qr[i] = d < dh ? to_f32(__ldg(q + n * D + col0 + d)) : 0.0f;
     acc[i] = 0.0f;
   }
   const int* anc_n = anc + n * T_max;
@@ -172,7 +192,7 @@ __global__ void beam_self_attn_kernel(const float* __restrict__ q, const T* __re
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) {
     const int d = lane + 32 * i;
-    if (d < dh) ctx[n * D + col0 + d] = acc[i] / l;
+    if (d < dh) store_out(ctx + n * D + col0 + d, acc[i] / l);
   }
 }
 
@@ -245,11 +265,11 @@ __device__ __forceinline__ void load16(float (&v)[8], const __nv_bfloat16* p) {
 // cross_plan: frames a chunk) with the shared-memory layout cross_layout
 // fills in.
 struct CrossArgs {
-  const float* q;
+  const void* q;  // TQ: float or bfloat16, like ctx
   const void* ck;
   const void* cv;
   const float* mask;
-  float* ctx;
+  void* ctx;
   float* wh;  // (B*K, H, S) per-head scores, then weights
   int K, D, dh, S;
   float scale;
@@ -266,13 +286,16 @@ struct CrossArgs {
 // a row, so the score loop's 16-byte reads, lane l on row l, hit distinct
 // banks), value rows dense (the context loop reads a row's consecutive
 // columns); otherwise rows of dh + 1 elements by plain loads. kEpl =
-// ceil(dh / 32) context columns a lane.
-template <typename T, int kEpl, bool kVec>
+// ceil(dh / 32) context columns a lane. TQ: q's and the context's dtype;
+// the K queries' head slice is staged in shared memory as float32,
+// widened as it is loaded.
+template <typename T, typename TQ, int kEpl, bool kVec>
 __global__ void beam_cross_attn_kernel(const CrossArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   T* ring = reinterpret_cast<T*>(smem + a.off_ring);
   float* qs = reinterpret_cast<float*>(smem + a.off_q);  // [K][dh]
+  const TQ* qg = static_cast<const TQ*>(a.q);
   const int b = blockIdx.x;
   const int head = blockIdx.y;
   const int H = gridDim.y;
@@ -331,7 +354,7 @@ __global__ void beam_cross_attn_kernel(const CrossArgs a) {
   for (int j = 0; j < kSlots; ++j) issue(j);
   for (int e = tid; e < K * dh; e += nthr) {
     const int kk = e / dh;
-    qs[e] = __ldg(a.q + (static_cast<size_t>(b) * K + kk) * D + col0 + (e - kk * dh));
+    qs[e] = to_f32(__ldg(qg + (static_cast<size_t>(b) * K + kk) * D + col0 + (e - kk * dh)));
   }
   __syncthreads();
 
@@ -419,7 +442,7 @@ __global__ void beam_cross_attn_kernel(const CrossArgs a) {
 #pragma unroll
   for (int i = 0; i < kEpl; ++i) {
     const int d = lane + 32 * i;
-    if (d < dh) a.ctx[n * D + col0 + d] = acc[i];
+    if (d < dh) store_out(static_cast<TQ*>(a.ctx) + n * D + col0 + d, acc[i]);
   }
 }
 
@@ -436,19 +459,42 @@ __global__ void __launch_bounds__(kMeanThreads)
   w[idx] = acc / static_cast<float>(H);
 }
 
-template <typename T>
-cudaError_t launch_self(const float* q, const void* kc, const void* vc, const int* anc,
-                        float* ctx, int B, int K, int H, int D, int T_max, int t,
+// The bfloat16 weights, by the TPU kernel's rounding: heads in blocks of
+// hpb, each block's float32 sum (in head order) over H rounded, the parts
+// added in block order with each sum rounded.
+__global__ void __launch_bounds__(kMeanThreads)
+    head_mean_bf16_kernel(const float* __restrict__ wh, __nv_bfloat16* __restrict__ w, int NS,
+                          int H, int S, int hpb) {
+  const int idx = blockIdx.x * kMeanThreads + threadIdx.x;
+  if (idx >= NS) return;
+  const int n = idx / S;
+  const int s = idx - n * S;
+  const float* p = wh + static_cast<size_t>(n) * H * S + s;
+  float out = 0.0f;
+  for (int h0 = 0; h0 < H; h0 += hpb) {
+    float acc = 0.0f;
+    for (int h = h0; h < h0 + hpb; ++h) acc += p[static_cast<size_t>(h) * S];
+    const float part = __bfloat162float(__float2bfloat16_rn(acc / static_cast<float>(H)));
+    out = h0 == 0 ? part : __bfloat162float(__float2bfloat16_rn(out + part));
+  }
+  w[idx] = __float2bfloat16_rn(out);
+}
+
+template <typename T, typename TQ>
+cudaError_t launch_self(const void* q, const void* kc, const void* vc, const int* anc,
+                        void* ctx, int B, int K, int H, int D, int T_max, int t,
                         cudaStream_t st) {
   const int dh = D / H;
   const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   const dim3 grid(B, H);
   const int threads = 32 * K;
+  const TQ* qp = static_cast<const TQ*>(q);
+  TQ* cp = static_cast<TQ*>(ctx);
   const T* kp = static_cast<const T*>(kc);
   const T* vp = static_cast<const T*>(vc);
 #define VCT_SELF(EPL)                                                                   \
-  beam_self_attn_kernel<T, EPL>                                                         \
-      <<<grid, threads, 0, st>>>(q, kp, vp, anc, ctx, K, D, dh, T_max, t, scale)
+  beam_self_attn_kernel<T, TQ, EPL>                                                     \
+      <<<grid, threads, 0, st>>>(qp, kp, vp, anc, cp, K, D, dh, T_max, t, scale)
   switch ((dh + 31) / 32) {
     case 1: VCT_SELF(1); break;
     case 2: VCT_SELF(2); break;
@@ -480,9 +526,9 @@ bool cross_layout(CrossArgs& a, bool vec, int esz) {
   return a.smem <= 232448;
 }
 
-template <typename T, int kEpl, bool kVec>
+template <typename T, typename TQ, int kEpl, bool kVec>
 cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t st) {
-  auto kernel = beam_cross_attn_kernel<T, kEpl, kVec>;
+  auto kernel = beam_cross_attn_kernel<T, TQ, kEpl, kVec>;
   // The kernel's shared-memory attributes are two driver calls: set once a
   // device, and again only for a larger size (the largest so far stays).
   // The carveout asks for as many CTAs an SM as shared memory allows.
@@ -506,19 +552,19 @@ cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <typename T, int kEpl>
+template <typename T, typename TQ, int kEpl>
 cudaError_t launch_cross_epl(const CrossArgs& a, int B, int H, bool vec, cudaStream_t st) {
-  return vec ? launch_cross_kernel<T, kEpl, true>(a, B, H, st)
-             : launch_cross_kernel<T, kEpl, false>(a, B, H, st);
+  return vec ? launch_cross_kernel<T, TQ, kEpl, true>(a, B, H, st)
+             : launch_cross_kernel<T, TQ, kEpl, false>(a, B, H, st);
 }
 
-template <typename T>
+template <typename T, typename TQ>
 cudaError_t launch_cross(const CrossArgs& a, int B, int H, bool vec, cudaStream_t st) {
   switch ((a.dh + 31) / 32) {
-    case 1: return launch_cross_epl<T, 1>(a, B, H, vec, st);
-    case 2: return launch_cross_epl<T, 2>(a, B, H, vec, st);
-    case 3: return launch_cross_epl<T, 3>(a, B, H, vec, st);
-    default: return launch_cross_epl<T, 4>(a, B, H, vec, st);
+    case 1: return launch_cross_epl<T, TQ, 1>(a, B, H, vec, st);
+    case 2: return launch_cross_epl<T, TQ, 2>(a, B, H, vec, st);
+    case 3: return launch_cross_epl<T, TQ, 3>(a, B, H, vec, st);
+    default: return launch_cross_epl<T, TQ, 4>(a, B, H, vec, st);
   }
 }
 
@@ -533,30 +579,41 @@ extern "C" const char* vct_error_string(int code) {
 }
 
 // Returns a cudaError_t: 0 when the launch was accepted. q, ctx (B*K, D)
-// float32; kc, vc (T, B*K, D) float32 or (cache_bf16) bfloat16; anc
-// (B, K, T) int32.
-extern "C" int vct_beam_self_attention(const float* q, const void* kc, const void* vc,
-                                       const int* anc, float* ctx, int cache_bf16, int B, int K,
-                                       int H, int D, int T_max, int t, void* stream) {
+// float32 or (q_bf16) bfloat16; kc, vc (T, B*K, D) float32 or
+// (cache_bf16) bfloat16; anc (B, K, T) int32.
+extern "C" int vct_beam_self_attention(const void* q, const void* kc, const void* vc,
+                                       const int* anc, void* ctx, int cache_bf16, int q_bf16,
+                                       int B, int K, int H, int D, int T_max, int t,
+                                       void* stream) {
   if (bad_shape(B, K, H, D) || t < 0 || t >= T_max) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      cache_bf16 ? launch_self<__nv_bfloat16>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st)
-                 : launch_self<float>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st);
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (cache_bf16) {
+    err = q_bf16 ? launch_self<bf16, bf16>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st)
+                 : launch_self<bf16, float>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st);
+  } else {
+    err = q_bf16 ? launch_self<float, bf16>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st)
+                 : launch_self<float, float>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st);
+  }
   return static_cast<int>(err);
 }
 
 // Returns a cudaError_t: 0 when both launches were accepted. q, ctx
-// (B*K, D) float32; ck, cv (B, S, D) float32 or (kv_bf16) bfloat16; mask
-// (B, S) float32 or null (every frame valid); wh (B*K, H, S) float32
-// scratch; w (B*K, S) float32. vec: dh * sizeof(T) and D * sizeof(T)
-// multiples of 16 and ck, cv 16-byte aligned; FC: frames a chunk, the
-// plan of ops/transformer_attn.py:cross_plan.
-extern "C" int vct_beam_cross_attention(const float* q, const void* ck, const void* cv,
-                                        const float* mask, float* ctx, float* wh, float* w,
-                                        int kv_bf16, int B, int K, int H, int D, int S,
-                                        int vec, int FC, void* stream) {
-  if (bad_shape(B, K, H, D) || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// (B*K, D) and w (B*K, S) float32 or (q_bf16) bfloat16; ck, cv (B, S, D)
+// float32 or (kv_bf16) bfloat16; mask (B, S) float32 or null (every frame
+// valid); wh (B*K, H, S) float32 scratch. vec: dh * sizeof(T) and
+// D * sizeof(T) multiples of 16 and ck, cv 16-byte aligned; FC: frames a
+// chunk, the plan of ops/transformer_attn.py:cross_plan; hpb: heads a
+// block of the bfloat16 head mean (ops/transformer_attn.py:
+// heads_per_block), a divisor of H, unused in float32.
+extern "C" int vct_beam_cross_attention(const void* q, const void* ck, const void* cv,
+                                        const float* mask, void* ctx, float* wh, void* w,
+                                        int kv_bf16, int q_bf16, int B, int K, int H, int D,
+                                        int S, int vec, int FC, int hpb, void* stream) {
+  if (bad_shape(B, K, H, D) || S <= 0 || (q_bf16 && (hpb < 1 || H % hpb != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int esz = kv_bf16 ? 2 : 4;
   const int dh = D / H;
   if (vec && ((dh * esz) % 16 != 0 || (D * esz) % 16 != 0 ||
@@ -579,11 +636,24 @@ extern "C" int vct_beam_cross_attention(const float* q, const void* ck, const vo
   a.nch = (S + FC - 1) / (FC > 0 ? FC : 1);
   if (!cross_layout(a, vec != 0, esz)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = kv_bf16 ? launch_cross<__nv_bfloat16>(a, B, H, vec != 0, st)
-                            : launch_cross<float>(a, B, H, vec != 0, st);
+  using bf16 = __nv_bfloat16;
+  const bool v = vec != 0;
+  cudaError_t err;
+  if (kv_bf16) {
+    err = q_bf16 ? launch_cross<bf16, bf16>(a, B, H, v, st)
+                 : launch_cross<bf16, float>(a, B, H, v, st);
+  } else {
+    err = q_bf16 ? launch_cross<float, bf16>(a, B, H, v, st)
+                 : launch_cross<float, float>(a, B, H, v, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int NS = B * K * S;
   const int blocks = (NS + kMeanThreads - 1) / kMeanThreads;
-  head_mean_kernel<<<blocks, kMeanThreads, 0, st>>>(wh, w, NS, H, S);
+  if (q_bf16) {
+    head_mean_bf16_kernel<<<blocks, kMeanThreads, 0, st>>>(wh, static_cast<bf16*>(w), NS, H, S,
+                                                           hpb);
+  } else {
+    head_mean_kernel<<<blocks, kMeanThreads, 0, st>>>(wh, static_cast<float*>(w), NS, H, S);
+  }
   return static_cast<int>(cudaGetLastError());
 }

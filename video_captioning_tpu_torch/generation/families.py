@@ -9,6 +9,7 @@ caches and position table need.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -99,25 +100,70 @@ def _lstm_family(model, config, encoder_outputs, encoder_final_state, encoder_ma
     return DecodeFamily(state0, step, step_beam, step_beam_core, rebeam, dec.use_attention)
 
 
+def float32_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with every bfloat16 parameter and buffer widened to
+    float32 (exactly), the others shared: a copy of the module tree whose
+    tensors are the casts, as the JAX package's ``tree_map`` of
+    ``astype(float32)`` over the parameters. The casts are ordinary ops, so
+    a traced program (``torch.export``) repeats them each call, as the JAX
+    program does."""
+    new = copy.copy(module)
+
+    def widen(x):
+        return x.float() if x is not None and x.dtype == torch.bfloat16 else x
+
+    new._parameters = {k: widen(p) for k, p in module._parameters.items()}
+    new._buffers = {k: widen(b) for k, b in module._buffers.items()}
+    new._modules = {k: None if m is None else float32_copy(m) for k, m in module._modules.items()}
+    return new
+
+
 def _transformer_family(model, config, encoder_outputs, encoder_mask, K,
                         max_length) -> DecodeFamily:
-    """KV-cache decoding. The JAX package's other transformer options need
-    no counterpart here: ``transformer_beam_params_f32`` and
-    ``transformer_bf16_beam_state`` act only on bfloat16 parameters, which
-    the port does not serve for the transformer;
-    ``transformer_decode_weights_bf16`` is gated to the TPU;
-    ``transformer_attn_dots_f32`` and ``transformer_select_gather``
-    give equal values in float32 (``transformer_cross_kv_bf16`` is refused
-    by ``check_supported``)."""
+    """KV-cache decoding under the JAX package's dtype policy
+    (``generation/families.py:_transformer_family``):
+
+    * ``transformer_beam_params_f32`` (beam, bfloat16 parameters, unless
+      ``transformer_bf16_beam_state``): the decoder's parameters widened to
+      float32 once a call (``float32_copy``);
+    * the residual stream and caches (``state_dtype``) in the encoder
+      outputs' dtype, except the float32-state hybrid: a beam search over
+      bfloat16 encoder outputs without the fused beam attention and without
+      ``transformer_bf16_beam_state`` runs a float32 state and widens the
+      cross keys and values;
+    * ``transformer_cross_kv_bf16``: the cross keys and values stored in
+      bfloat16 in every arm (the greedy step, the plain beam step, whose
+      JAX operand layout only orders the same values for the TPU, and the
+      fused ``beam_cross_attention``);
+    * greedy keeps bfloat16 parameters and state.
+
+    ``transformer_attn_dots_f32`` is read by the decode steps
+    (``models/transformer.py:_operand``). ``transformer_decode_weights_bf16``
+    is gated to the TPU in the JAX package and has no counterpart;
+    ``transformer_select_gather`` selects the same values as the one-hot
+    product it replaces."""
     dec = model.decoder
     kc = config.kernels
     B = encoder_outputs.shape[0]
     dev = encoder_outputs.device
+    fused_attn = (kc.transformer_fused_beam_attn and kc.transformer_lazy_rebeam
+                  and config.parallel.context_axis is None)
+    proj_weight = getattr(dec.output_projection, "weight", None)
+    if (K > 1 and kc.transformer_beam_params_f32 and not kc.transformer_bf16_beam_state
+            and proj_weight is not None and proj_weight.dtype == torch.bfloat16):
+        dec = float32_copy(dec)
     # Beam search only, as in the JAX package.
     qkv = tr.merge_self_attn_qkv(dec) if kc.transformer_merge_qkv and K > 1 else None
     cross_kv = tr.precompute_cross_kv(dec, encoder_outputs)
+    state_dtype = encoder_outputs.dtype
+    if (K > 1 and state_dtype == torch.bfloat16 and not fused_attn
+            and not kc.transformer_bf16_beam_state):
+        state_dtype = torch.float32
+        cross_kv = {name: [c.float() for c in cs] for name, cs in cross_kv.items()}
+    if kc.transformer_cross_kv_bf16:
+        cross_kv = {name: [c.to(torch.bfloat16) for c in cs] for name, cs in cross_kv.items()}
     cache_dtype = torch.bfloat16 if kc.transformer_cache_bf16 else None
-    state0 = tr.init_decode_state(dec, config, B * K, encoder_outputs.dtype, dev,
+    state0 = tr.init_decode_state(dec, config, B * K, state_dtype, dev,
                                   max_positions=max_length, cache_dtype=cache_dtype)
     # Lazy rebeam: the caches stay physical-slot indexed and the rebeam
     # composes only the (B, K, T) ancestry. At K = 1, or with the flag off,
@@ -127,15 +173,18 @@ def _transformer_family(model, config, encoder_outputs, encoder_mask, K,
         state0["anc"] = tr.init_beam_ancestry(B, K, state0["k"][0].shape[0], dev)
 
     def step(tokens, state, t):
-        return tr.decode_step(dec, config, tokens, state, t, cross_kv, encoder_mask, qkv)
+        return tr.decode_step(dec, config, tokens, state, t, cross_kv, encoder_mask, qkv,
+                              state_dtype)
 
     def step_beam(tokens_bk, state, t):
         fn = tr.decode_step_beam if lazy else tr.decode_step
-        return fn(dec, config, tokens_bk.reshape(-1), state, t, cross_kv, encoder_mask, qkv)
+        return fn(dec, config, tokens_bk.reshape(-1), state, t, cross_kv, encoder_mask, qkv,
+                  state_dtype)
 
     def step_beam_core(tokens_bk, state, t):
         fn = tr.decode_step_beam_core if lazy else tr.decode_step_core
-        return fn(dec, config, tokens_bk.reshape(-1), state, t, cross_kv, encoder_mask, qkv)
+        return fn(dec, config, tokens_bk.reshape(-1), state, t, cross_kv, encoder_mask, qkv,
+                  state_dtype)
 
     def rebeam(state, beam_idx):
         Bn, Kn = beam_idx.shape

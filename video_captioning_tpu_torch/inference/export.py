@@ -52,7 +52,8 @@ def _sha256(blob: bytes) -> str:
 
 
 class _ServingProgram(torch.nn.Module):
-    """features (B, T, F) float32 -> the decode's outputs."""
+    """features (B, T, F) in the artifact's compute dtype -> the decode's
+    outputs."""
 
     def __init__(self, model, config, start: int, end: int, method: str, max_length: int,
                  beam_size: int, length_penalty: float):
@@ -81,19 +82,22 @@ class _ServingProgram(torch.nn.Module):
 
 class _FramesProgram(torch.nn.Module):
     """uint8 frames (B, T, H, W, 3) -> CNN features in chunks of
-    ``cnn_chunk`` frames -> the serving program."""
+    ``cnn_chunk`` frames, cast to ``feature_dtype`` -> the serving
+    program."""
 
-    def __init__(self, serving: _ServingProgram, cnn_fn, feature_dim: int, cnn_chunk: int):
+    def __init__(self, serving: _ServingProgram, cnn_fn, feature_dim: int, cnn_chunk: int,
+                 feature_dtype: torch.dtype):
         super().__init__()
         self.serving, self.cnn_fn = serving, cnn_fn
         self.feature_dim, self.cnn_chunk = feature_dim, cnn_chunk
+        self.feature_dtype = feature_dtype
 
     def forward(self, frames_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         B, T = frames_u8.shape[:2]
         flat = frames_u8.reshape((B * T,) + tuple(frames_u8.shape[2:]))
         feats = torch.cat([self.cnn_fn(flat[i:i + self.cnn_chunk])
                            for i in range(0, B * T, self.cnn_chunk)])
-        return self.serving(feats.reshape(B, T, self.feature_dim).float())
+        return self.serving(feats.reshape(B, T, self.feature_dim).to(self.feature_dtype))
 
 
 def _export_bytes(module: torch.nn.Module, example: torch.Tensor) -> bytes:
@@ -126,11 +130,12 @@ def export_serving_artifact(
     """Trace and save the serving program of each batch bucket for each
     platform (default: ``cuda``, the card): the live predictor's model,
     loaded once a platform (``compute_dtype`` and all), under
-    ``torch.export`` with float32 features in. ``include_cnn`` adds the
-    frames programs over ``FeatureExtractor.traceable_fn`` (the backbone
-    chosen by the model's feature width, or ``cnn_model_type``).
-    ``config`` overrides the package's configuration, as the predictor's
-    does."""
+    ``torch.export`` with features in the compute dtype (bfloat16 features
+    for a bfloat16 artifact, as the JAX artifact casts them).
+    ``include_cnn`` adds the frames programs over
+    ``FeatureExtractor.traceable_fn`` (the backbone chosen by the model's
+    feature width, or ``cnn_model_type``). ``config`` overrides the
+    package's configuration, as the predictor's does."""
     from ..inference.predictor import VideoCaptionPredictor
 
     if method not in ("beam", "greedy"):
@@ -147,6 +152,7 @@ def export_serving_artifact(
     if include_cnn and (not frame_buckets or frame_buckets[0] < 1):
         raise ValueError(f"frame_batch_sizes must be positive, got {frame_buckets}")
 
+    feature_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
     programs: Dict[str, bytes] = {}
     frame_programs: Dict[str, bytes] = {}
     cnn_meta = None
@@ -160,7 +166,7 @@ def export_serving_artifact(
         for B in batch_sizes:
             key = f"{B}_{platform}"
             programs[key] = _export_bytes(
-                serving, torch.zeros((B, T, F), dtype=torch.float32, device=platform))
+                serving, torch.zeros((B, T, F), dtype=feature_dtype, device=platform))
             logger.info(f"exported batch-{B} {platform} program: "
                         f"{len(programs[key]) / 2**20:.1f} MiB")
         if include_cnn:
@@ -177,7 +183,8 @@ def export_serving_artifact(
                 compute_dtype=compute_dtype if compute_dtype in (None, "float32", "bfloat16")
                 else None, device=platform)
             H, W = (int(s) for s in cfg.data.img_size)
-            frames = _FramesProgram(serving, extractor.traceable_fn(), F, int(cnn_chunk)).eval()
+            frames = _FramesProgram(serving, extractor.traceable_fn(), F, int(cnn_chunk),
+                                    feature_dtype).eval()
             for B in frame_buckets:
                 key = f"{B}_{platform}"
                 frame_programs[key] = _export_bytes(
@@ -339,6 +346,9 @@ class ExportedPredictor:
         return " ".join(words)
 
     def _run(self, table: str, buckets: List[int], batch: np.ndarray) -> List[Dict[str, object]]:
+        # A bfloat16 artifact's features go in as bfloat16, as the JAX
+        # ExportedPredictor casts them (cast on the host: half the copy).
+        cast = table == "programs" and self.manifest["compute_dtype"] == "bfloat16"
         results: List[Dict[str, object]] = []
         n, pos = batch.shape[0], 0
         while pos < n:
@@ -348,8 +358,11 @@ class ExportedPredictor:
             if real < bucket:
                 pad = np.zeros((bucket - real,) + tuple(chunk.shape[1:]), chunk.dtype)
                 chunk = np.concatenate([chunk, pad], axis=0)
+            inputs = torch.from_numpy(chunk)
+            if cast:
+                inputs = inputs.to(torch.bfloat16)
             with torch.inference_mode():
-                out = self._load_program(table, bucket)(torch.from_numpy(chunk).to(self.device))
+                out = self._load_program(table, bucket)(inputs.to(self.device))
             results.extend(self._records(out, real))
             pos += real
         return results

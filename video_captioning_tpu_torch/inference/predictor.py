@@ -57,16 +57,11 @@ METHODS = ("greedy", "beam", "sample")
 FEATURE_MODES = ("pixel_stub", "cnn")
 
 
-def check_compute_dtype(config: Config, compute_dtype: Optional[str]) -> None:
-    """Raise for a compute dtype the port does not serve with ``config``."""
-    if compute_dtype in (None, "float32"):
-        return
-    if compute_dtype != "bfloat16":
+def check_compute_dtype(compute_dtype: Optional[str]) -> None:
+    """Raise for a compute dtype other than float32 and bfloat16 (both
+    serve either family)."""
+    if compute_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"compute_dtype {compute_dtype!r} is not float32 or bfloat16")
-    if config.model.architecture == "transformer":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' for the transformer family is not ported to "
-            "video_captioning_tpu_torch yet (ROADMAP.md A4, bfloat16 transformer serving)")
 
 
 class VideoCaptionPredictor:
@@ -136,7 +131,7 @@ class VideoCaptionPredictor:
 
         package = load_model_for_inference(model_path)
         self.config = config if config is not None else Config.from_dict(package["model_config"])
-        check_compute_dtype(self.config, compute_dtype)
+        check_compute_dtype(compute_dtype)
         self.vocabulary = vocabulary_from_package(package, self.config)
         params = package["model_state_dict"]
         vocab_size = np.asarray(params["decoder"]["output_projection"]["kernel"]).shape[1]

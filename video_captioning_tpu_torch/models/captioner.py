@@ -28,24 +28,15 @@ def is_transformer(config: Config) -> bool:
 
 
 def check_supported(config: Config) -> None:
-    """Raise NotImplementedError for what the port does not run yet.
-
-    The transformer family reads none of the LSTM decoder's options; of its
-    own, ``transformer_cross_kv_bf16`` stores the cross keys and values in
-    bfloat16, which changes results on every backend, so it is refused
-    (the others: generation/families.py:_transformer_family). The LSTM
-    family runs every attention type, ``use_attention=False`` and
+    """Raise NotImplementedError for an architecture the port does not run.
+    The transformer family runs every one of its options
+    (generation/families.py:_transformer_family); the LSTM family runs
+    every attention type, ``use_attention=False`` and
     ``kernels.attention_score_bf16``."""
-    m, k = config.model, config.kernels
-    if is_transformer(config):
-        unsupported = [(k.transformer_cross_kv_bf16, "kernels.transformer_cross_kv_bf16")]
-    else:
-        unsupported = [(m.architecture != "lstm", f"architecture={m.architecture!r}")]
-    names = [name for bad, name in unsupported if bad]
-    if names:
+    m = config.model
+    if not is_transformer(config) and m.architecture != "lstm":
         raise NotImplementedError(
-            f"not ported to video_captioning_tpu_torch yet: {', '.join(names)}"
-        )
+            f"not ported to video_captioning_tpu_torch yet: architecture={m.architecture!r}")
 
 
 class VideoCaptioningModel(nn.Module):

@@ -132,7 +132,13 @@ def linear(mod: nn.Module, x: Tensor) -> Tensor:
         return int8_linear(mod, x)
     if getattr(mod, "vocab_split", False):  # parallel.sharding.ColumnParallelLinear
         return mod(x)
-    w, b = mod.weight, mod.bias
+    return affine(x, mod.weight, mod.bias)
+
+
+def affine(x: Tensor, w: Tensor, b: Optional[Tensor]) -> Tensor:
+    """``apply_linear`` on a torch-layout (out, in) weight and its bias:
+    ``F.linear`` in float32, else ``matmul_default`` and then the bias added
+    (promoted as jnp promotes; in bfloat16 two roundings, as in JAX)."""
     if x.dtype == w.dtype == torch.float32:
         return F.linear(x, w, b)
     y = matmul_default(x, w)

@@ -153,7 +153,7 @@ def beam_cross_attention_op(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Te
 
 @beam_cross_attention_op.register_fake
 def _(q, ck, cv, mask, num_heads, num_beams):
-    return q.new_empty(q.shape), q.new_empty((q.shape[0], ck.shape[1]), dtype=torch.float32)
+    return q.new_empty(q.shape), q.new_empty((q.shape[0], ck.shape[1]))
 
 
 # --------------------------------------------------------- extraction ops

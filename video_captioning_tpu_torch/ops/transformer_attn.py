@@ -13,12 +13,16 @@ Counterpart of video_captioning_tpu/ops/transformer_attn_pallas.py:
   valid): returns the context (B*K, D) and the softmax weights averaged
   over the heads (B*K, S).
 
-q and the outputs are float32; the caches and cross keys/values may be
-float32 or bfloat16 (``kernels.transformer_cache_bf16``), and the softmax
-and sums are float32 either way. Masked scores are -1e9, not -inf, so a
-fully masked row gets uniform weights. On a CUDA tensor each wrapper
-launches its kernel in ``csrc/transformer_attn.cu``; on a CPU tensor it
-runs its plain version.
+q is float32 or bfloat16 and the outputs are in q's dtype (the JAX
+kernels' ``out_shape``: a bfloat16 query is the bfloat16 beam state's); the
+caches and cross keys/values may be float32 or bfloat16
+(``kernels.transformer_cache_bf16``, ``transformer_cross_kv_bf16``, the
+bfloat16 state). Scores, softmax and sums are float32 whatever the dtypes,
+and a bfloat16 context is rounded once from them. The bfloat16 head-mean
+weights follow the JAX kernel's grid (``head_mean``). Masked scores are
+-1e9, not -inf, so a fully masked row gets uniform weights. On a CUDA
+tensor each wrapper launches its kernel in ``csrc/transformer_attn.cu``;
+on a CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ MASK_FILL = -1e9
 MAX_BEAMS = 16
 MAX_HEAD_DIM = 128
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
+QUERY_DTYPES = (torch.float32, torch.bfloat16)
 
 # The cross kernel's plan (csrc/transformer_attn.cu: cross_layout).
 CROSS_SMEM = 232448           # bytes a CTA may hold on Hopper (227 KB)
@@ -55,7 +60,8 @@ def cross_smem(K: int, H: int, D: int, S: int, kv_bytes: int, vec: bool, FC: int
     cross_layout): the ring's mbarriers; with one chunk a tensor (FC = S) a
     slot of key rows and one of value rows, else CROSS_SLOTS slots of FC key
     rows (key rows dh + 16 bytes, value rows dh elements with vector copies,
-    both dh + 1 elements without); and the K queries' head slice."""
+    both dh + 1 elements without); and the K queries' head slice, staged as
+    float32 whatever q's dtype (widened as it is loaded)."""
     dh = D // H
     ldk = dh + 16 // kv_bytes if vec else dh + 1
     ldv = dh if vec else dh + 1
@@ -102,10 +108,37 @@ def gather_beam_prefix(cache: Tensor, anc: Tensor, t: int) -> Tensor:
     return torch.gather(cache[:t + 1], 1, rows[..., None].expand(t + 1, B * K, D))
 
 
+def heads_per_block(D: int, num_heads: int) -> int:
+    """Heads a block of the JAX cross kernel's grid
+    (``transformer_attn_pallas.py:beam_cross_attention``): 128 lanes of
+    heads where D and the head width allow, else all of them."""
+    dh = D // num_heads
+    return 128 // dh if D % 128 == 0 and 128 % dh == 0 else num_heads
+
+
+def head_mean(w: Tensor, dtype: torch.dtype, hpb: int) -> Tensor:
+    """The head-mean weights (..., S) in ``dtype`` of float32 softmax
+    weights (..., H, S). Float32: the mean. Bfloat16: the JAX kernel's
+    rounding, whose grid visits ``hpb`` heads (``heads_per_block``) at a
+    time: each block's float32 sum in head order, divided by H, rounded;
+    the blocks' parts added in block order, each sum rounded."""
+    H = w.shape[-2]
+    if dtype == torch.float32:
+        return w.mean(dim=-2)
+    out = None
+    for h0 in range(0, H, hpb):
+        acc = torch.zeros_like(w[..., 0, :])
+        for h in range(h0, h0 + hpb):
+            acc = acc + w[..., h, :]
+        part = (acc / H).to(dtype)
+        out = part if out is None else (out.float() + part.float()).to(dtype)
+    return out
+
+
 def beam_self_attention_reference(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor,
                                   t: int, num_heads: int, num_beams: int) -> Tensor:
     """Plain version: gather each beam's prefix, float32 scores, softmax
-    and context."""
+    and context, the context rounded once to q's dtype."""
     N, D = q.shape
     dh = D // num_heads
     kh = gather_beam_prefix(k_lyr, anc, t).float().reshape(t + 1, N, num_heads, dh)
@@ -119,7 +152,8 @@ def beam_self_attention_reference(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: 
 def beam_cross_attention_reference(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tensor],
                                    num_heads: int, num_beams: int) -> Tuple[Tensor, Tensor]:
     """Plain version: the K beams of a clip broadcast over its keys and
-    values; float32 masked softmax, context, and the head-mean weights."""
+    values; float32 masked softmax, context (rounded once a head to q's
+    dtype), and the head-mean weights (``head_mean``)."""
     N, D = q.shape
     B, S, _ = ck.shape
     K, dh = num_beams, D // num_heads
@@ -132,14 +166,16 @@ def beam_cross_attention_reference(q: Tensor, ck: Tensor, cv: Tensor, mask: Opti
                              torch.full_like(scores, MASK_FILL))
     w = torch.softmax(scores, dim=-1)  # (B, K, h, S)
     ctx = torch.einsum("bkhs,bshd->bkhd", w, vh).reshape(N, D)
-    return ctx.to(q.dtype), w.mean(dim=2).reshape(N, S).to(q.dtype)
+    weights = head_mean(w, q.dtype, heads_per_block(D, num_heads))
+    return ctx.to(q.dtype), weights.reshape(N, S).to(q.dtype)
 
 
 def _check_common(what: str, q: Tensor, num_heads: int, num_beams: int,
                   tensors: dict) -> None:
     N, D = q.shape if q.dim() == 2 else (0, 0)
-    if q.dim() != 2 or q.dtype != torch.float32:
-        raise ValueError(f"{what} takes q (B*K, D) float32, got {q.dtype} {tuple(q.shape)}")
+    if q.dim() != 2 or q.dtype not in QUERY_DTYPES:
+        raise ValueError(f"{what} takes q (B*K, D) float32 or bfloat16, got {q.dtype} "
+                         f"{tuple(q.shape)}")
     if not 1 <= num_beams <= MAX_BEAMS or N % num_beams:
         raise ValueError(f"{what}: K = {num_beams} must be in [1, {MAX_BEAMS}] and divide "
                          f"B*K = {N}")
@@ -189,9 +225,9 @@ def _check_cross(q, ck, cv, mask, num_heads, num_beams) -> None:
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("transformer_attn")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vct_beam_self_attention.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.vct_beam_self_attention.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     lib.vct_beam_self_attention.restype = i32
-    lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     lib.vct_beam_cross_attention.restype = i32
     return lib
 
@@ -222,8 +258,8 @@ def beam_self_attention(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor, t:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vct_beam_self_attention(
             q.data_ptr(), k_lyr.data_ptr(), v_lyr.data_ptr(), anc.data_ptr(), ctx.data_ptr(),
-            int(k_lyr.dtype == torch.bfloat16), N // num_beams, num_beams, num_heads, D,
-            k_lyr.shape[0], t, stream,
+            int(k_lyr.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16),
+            N // num_beams, num_beams, num_heads, D, k_lyr.shape[0], t, stream,
         )
     check_launch(lib, rc, "beam_self_attention")
     beam_self_attention.launches += 1
@@ -244,7 +280,7 @@ def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tenso
     N, D = q.shape
     S = ck.shape[1]
     ctx = torch.empty_like(q)
-    weights = torch.empty((N, S), dtype=torch.float32, device=q.device)
+    weights = torch.empty((N, S), dtype=q.dtype, device=q.device)
     if N == 0 or S == 0:
         return ctx, weights
     vec = cross_vec(ck, cv, num_heads)
@@ -255,8 +291,9 @@ def beam_cross_attention(q: Tensor, ck: Tensor, cv: Tensor, mask: Optional[Tenso
         rc = lib.vct_beam_cross_attention(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
             None if mask is None else mask.data_ptr(), ctx.data_ptr(), per_head.data_ptr(),
-            weights.data_ptr(), int(ck.dtype == torch.bfloat16), N // num_beams, num_beams,
-            num_heads, D, S, int(vec), plan["FC"], stream,
+            weights.data_ptr(), int(ck.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16),
+            N // num_beams, num_beams, num_heads, D, S, int(vec), plan["FC"],
+            heads_per_block(D, num_heads), stream,
         )
     check_launch(lib, rc, "beam_cross_attention")
     beam_cross_attention.launches += 1

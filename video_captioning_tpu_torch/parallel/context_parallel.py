@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config
+from ..models.layers import linear
 from .mesh import Mesh, current_mesh
 
 Tensor = torch.Tensor
@@ -155,7 +156,7 @@ def cross_attention_step_cp(p, x: Tensor, ck: Tensor, cv: Tensor,
         encoder_mask = torch.ones((B, S), dtype=x.dtype, device=x.device)
     ck_l, cv_l = shard_frames(ck, n, i), shard_frames(cv, n, i)
     mask_l = shard_frames(encoder_mask, n, i)
-    q = p.wq(x).reshape(B, K, heads, dh)
+    q = linear(p.wq, x).reshape(B, K, heads, dh)
     scores = torch.einsum("bkhd,bshd->bkhs", q.to(ck.dtype).float(),
                           ck_l.float().reshape(B, -1, heads, dh)) / math.sqrt(dh)
     w = online_softmax(_masked(scores, mask_l), group)  # (B, K, h, S_l)
@@ -163,4 +164,4 @@ def cross_attention_step_cp(p, x: Tensor, ck: Tensor, cv: Tensor,
                        cv_l.float().reshape(B, -1, heads, dh)).to(x.dtype)
     ctx = _all_reduce(ctx.reshape(B * K, D), group)
     w = _gather_frames(w.mean(dim=2).reshape(B * K, -1), group)
-    return p.wo(ctx), w.to(x.dtype)
+    return linear(p.wo, ctx), w.to(x.dtype)
