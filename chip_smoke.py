@@ -43,7 +43,9 @@ exits non-zero without printing the final result line:
    L2, and cold) beside the bf16 ``torch.addmm`` + ``torch.topk`` +
    ``torch.logsumexp`` composite's,
    ``beam_self_attention`` at the transformer's beam step (B = 128, K = 5,
-   D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches) and
+   D = 512, 8 heads, T = 21, t = 19; float32 and bfloat16 caches; one
+   kernel node a call, graph-replay device times warm and cold; at ten
+   edge shapes too, its launcher's plan held to ``self_plan``) and
    ``beam_cross_attention`` (B = 128, K = 5, S = 80, D = 512, ragged mask
    with an all-masked row; within 1e-7 of its plain version in float32;
    its two launches a call counted in a captured CUDA graph, graph-replay
@@ -315,6 +317,8 @@ from video_captioning_tpu_torch.ops.transformer_attn import (
     beam_self_attention,
     beam_self_attention_reference,
     gather_beam_prefix,
+    kernel_self_plan,
+    self_plan,
 )
 from video_captioning_tpu_torch.ops.vocab_topk import (
     TILE_COLS as VOCAB_TILE_COLS,
@@ -1414,33 +1418,73 @@ def beam_self_inputs(device: str, B: int, K: int, D: int, T: int, t: int, dtype:
             anc.to(device))
 
 
+# beam_self_attention's edge shapes (B, K, D, heads, T, t): t = 0 and
+# t = T - 1; K = 1, 2, 16; dh = 16, 32, 48 (not a multiple of 32), 64, 128
+# and 25 (no 16-byte copies); two and three 32-position windows of the
+# ancestry; odd B and B = 1.
+SELF_EDGE_SHAPES = ((3, 2, 64, 4, 9, 0), (3, 2, 64, 4, 9, 4), (3, 2, 64, 4, 9, 8),
+                    (5, 1, 256, 8, 21, 19), (3, 16, 512, 8, 21, 20), (3, 16, 1024, 8, 21, 13),
+                    (7, 5, 384, 8, 21, 19), (3, 5, 100, 4, 21, 10), (3, 4, 256, 2, 70, 69),
+                    (1, 5, 512, 8, 40, 33))
+SELF_MAIN = (128, 5, 512, 8, 21, 19)
+
+
+def check_self_plan(K: int, dh: int, t: int, cache_bytes: int) -> None:
+    """The card launcher's plan (``kernel_self_plan``) is ``self_plan``'s."""
+    got, want = kernel_self_plan(K, dh, t, cache_bytes), self_plan(K, dh, t, cache_bytes)
+    if got != want:
+        raise AssertionError(f"beam_self_attention K={K} dh={dh} t={t} {cache_bytes}-byte "
+                             f"caches: the launcher's plan {got}, self_plan's {want}")
+
+
 def check_beam_self_attention(device: str, card: str) -> dict:
     """The ancestry-select self-attention kernel against its plain version
-    at the fused beam step's shape (B = 128, K = 5, D = 512, 8 heads, T = 21,
-    t = 19; float32 and bfloat16 caches) and at a small odd shape (B = 3,
-    K = 2, D = 64, 4 heads, T = 9, t = 0, 4 and 8)."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for t in (0, 4, 8):
-            q, k, v, anc = beam_self_inputs(device, 3, 2, 64, 9, t, dtype, seed=10 + t)
-            err = (beam_self_attention(q, k, v, anc, t, 4, 2)
-                   - beam_self_attention_reference(q, k, v, anc, t, 4, 2)).abs().max().item()
-            if not err <= BEAM_ATTN_ATOL:
-                raise AssertionError(f"beam_self_attention B=3 K=2 D=64 t={t} {dtype}: max abs "
-                                     f"err {err:.3g}")
-    print(f"[kernels] beam_self_attention B=3 K=2 D=64 h=4 T=9, t = 0, 4, 8, float32 and "
-          f"bfloat16 caches: within {BEAM_ATTN_ATOL}")
-    B, K, D, H, T, t = 128, 5, 512, 8, 21, 19
+    at the fused beam step's shape (SELF_MAIN: B = 128, K = 5, D = 512, 8
+    heads, T = 21, t = 19; float32 and bfloat16 caches) and at
+    SELF_EDGE_SHAPES, every launch repeated bitwise and its plan the
+    Python mirror's; at the main shape one kernel node a call (captured
+    graph), device time by graph replay with one input set (warm) and two
+    layers' in turn (cold), beside the events' time, the profiler's, the
+    plain version's, ``torch.gather`` + SDPA's and the bound."""
+    for B, K, D, H, T, t in SELF_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, anc = beam_self_inputs(device, B, K, D, T, t, dtype, seed=10 + t)
+            got = beam_self_attention(q, k, v, anc, t, H, K)
+            again = beam_self_attention(q, k, v, anc, t, H, K)
+            want = beam_self_attention_reference(q, k, v, anc, t, H, K)
+            sync(device)
+            err = (got - want).abs().max().item()
+            if not (err <= BEAM_ATTN_ATOL and same_bits(got, again)):
+                raise AssertionError(f"beam_self_attention B={B} K={K} D={D} h={H} T={T} t={t} "
+                                     f"{dtype}: max abs err {err:.3g}, repeat bitwise "
+                                     f"{same_bits(got, again)}")
+            if device == "cuda":
+                check_self_plan(K, D // H, t, k.element_size())
+    print(f"[kernels] beam_self_attention at {len(SELF_EDGE_SHAPES)} edge shapes (K 1-16, dh "
+          f"16-128 and 25, t = 0 to 69, up to three ancestry windows), float32 and bfloat16 "
+          f"caches: within {BEAM_ATTN_ATOL}, two launches bitwise equal, the launcher's plan "
+          f"self_plan's")
+    B, K, D, H, T, t = SELF_MAIN
+    if device == "cuda":
+        regs = kernel_resources("transformer_attn", "beam_self_attn")
+        print(f"[kernels] beam_self_attn_kernel ptxas: "
+              f"{ {n[-40:]: r for n, r in sorted(regs.items())} }")
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
         layers = [beam_self_inputs(device, B, K, D, T, t, dtype, seed=20 + i) for i in range(2)]
         q, k, v, anc = layers[0]
         got = beam_self_attention(q, k, v, anc, t, H, K)
+        again = beam_self_attention(q, k, v, anc, t, H, K)
         want = beam_self_attention_reference(q, k, v, anc, t, H, K)
-        torch.cuda.synchronize()
+        sync(device)
         err = (got - want).abs().max().item()
-        if not err <= BEAM_ATTN_ATOL:
-            raise AssertionError(f"beam_self_attention {dtype}: max abs err {err:.3g} > "
-                                 f"{BEAM_ATTN_ATOL}")
+        launches = graph_launches(lambda: beam_self_attention(q, k, v, anc, t, H, K), 10)
+        if not (err <= BEAM_ATTN_ATOL and same_bits(got, again) and launches == 1):
+            raise AssertionError(f"beam_self_attention {dtype}: max abs err {err:.3g} (tol "
+                                 f"{BEAM_ATTN_ATOL}), repeat bitwise {same_bits(got, again)}, "
+                                 f"{launches} launches a call")
+        if device == "cuda":
+            check_self_plan(K, D // H, t, k.element_size())
         ms = time_layers_ms(lambda *a: beam_self_attention(*a, t, H, K), layers, calls=50)
         dev = device_ms(lambda: [beam_self_attention(*a, t, H, K) for a in layers], 20,
                         ("beam_self_attn_kernel",)) / len(layers)
@@ -1461,18 +1505,28 @@ def check_beam_self_attention(device: str, card: str) -> dict:
         distinct = sum(torch.unique(rows[:, :, tau]).numel() for tau in range(t + 1))
         esize = k.element_size()
         res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   graph_ms=graph_ms(lambda: beam_self_attention(q, k, v, anc, t, H, K)),
+                   cold_graph_ms=graph_ms(_rotating(lambda *a: beam_self_attention(*a, t, H, K),
+                                                    layers), calls=10),
+                   profiler_ms=dev, launches_a_call=launches,
                    **bound(nbytes=2 * distinct * D * esize + 4 * B * K * (t + 1)
                            + 2 * 4 * B * K * D,
                            flops=4 * B * K * (t + 1) * D, peak_flops=F32_FLOPS))
         print(f"[kernels] beam_self_attention B={B} K={K} D={D} h={H} T={T} t={t} {dtype} "
-              f"caches: max abs err {err:.3g} (tol {BEAM_ATTN_ATOL}); kernel {ms:.4f} ms "
-              f"(device time {dev:.4f} ms, profiler), plain "
-              f"{plain_ms:.4f} ms, torch.gather + SDPA {lib_ms:.4f} ms, bound "
-              f"{res['bound_ms']:.4f} ms ({res['bound_by']}, {distinct} distinct rows of "
-              f"{(t + 1) * B * K}); two layers' inputs alternate ({card})")
-        result.setdefault("main", res)
-    result["main"]["bf16_query"] = check_beam_self_attention_bf16q(device, card)
-    return result["main"]
+              f"caches: max abs err {err:.3g} (tol {BEAM_ATTN_ATOL}), two launches bitwise "
+              f"equal, {launches:g} launch a call, plan {self_plan(K, D // H, t, esize)}; "
+              f"kernel device "
+              f"{res['graph_ms']:.4f} ms by graph replay ({res['cold_graph_ms']:.4f} ms with two "
+              f"layers' inputs in turn; {res['bound_ms'] / res['graph_ms']:.2f} of the bound), "
+              f"events {ms:.4f} ms, profiler {dev:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.gather + SDPA {lib_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}, {distinct} distinct rows of {(t + 1) * B * K}) ({card})")
+        if dtype == torch.float32:
+            result = res
+        else:
+            result["bf16"] = res
+    result["bf16_query"] = check_beam_self_attention_bf16q(device, card)
+    return result
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float:
@@ -1485,29 +1539,31 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor, atol: float = 0.0) -> float
 
 def check_beam_self_attention_bf16q(device: str, card: str) -> dict:
     """The bfloat16-query form (the bfloat16 beam state's): the context in
-    bfloat16 within BF16_ULP_TOL of the plain version, at the edge shape
-    (B = 3, K = 2, D = 64, 4 heads, T = 9, t = 0, 4, 8; float32 and bfloat16
-    caches) and the main shape (bfloat16 caches); two launches bitwise equal;
-    one launch a call (captured graph); device time by graph replay beside
+    bfloat16 within BF16_ULP_TOL of the plain version, at SELF_EDGE_SHAPES
+    (float32 and bfloat16 caches) and the main shape (bfloat16 caches); two
+    launches bitwise equal; one launch a call (captured graph); device time
+    by graph replay beside
     the float32-query form's on the same caches, the plain version's,
     ``torch.gather`` + SDPA in bfloat16, and the bound."""
-    for cdt in (torch.float32, torch.bfloat16):
-        for t in (0, 4, 8):
-            q, k, v, anc = beam_self_inputs(device, 3, 2, 64, 9, t, cdt, seed=10 + t)
+    for B, K, D, H, T, t in SELF_EDGE_SHAPES:
+        for cdt in (torch.float32, torch.bfloat16):
+            q, k, v, anc = beam_self_inputs(device, B, K, D, T, t, cdt, seed=10 + t)
             q = q.to(torch.bfloat16)
-            got = beam_self_attention(q, k, v, anc, t, 4, 2)
-            ulps = bf16_ulps(got, beam_self_attention_reference(q, k, v, anc, t, 4, 2),
+            got = beam_self_attention(q, k, v, anc, t, H, K)
+            again = beam_self_attention(q, k, v, anc, t, H, K)
+            ulps = bf16_ulps(got, beam_self_attention_reference(q, k, v, anc, t, H, K),
                              BEAM_ATTN_ATOL)
-            rounded = beam_self_attention(q.float(), k, v, anc, t, 4, 2).to(torch.bfloat16)
+            rounded = beam_self_attention(q.float(), k, v, anc, t, H, K).to(torch.bfloat16)
             if (got.dtype != torch.bfloat16 or not ulps <= BF16_ULP_TOL
-                    or not same_bits(got, rounded)):
-                raise AssertionError(f"beam_self_attention bf16 q B=3 K=2 D=64 t={t} {cdt} "
-                                     f"caches: {got.dtype}, {ulps:g} bf16 ulps, the float32 "
-                                     f"form's rounding {same_bits(got, rounded)}")
-    print(f"[kernels] beam_self_attention bf16 query B=3 K=2 D=64 h=4 T=9, t = 0, 4, 8, "
+                    or not same_bits(got, rounded) or not same_bits(got, again)):
+                raise AssertionError(f"beam_self_attention bf16 q B={B} K={K} D={D} h={H} T={T} "
+                                     f"t={t} {cdt} caches: {got.dtype}, {ulps:g} bf16 ulps, the "
+                                     f"float32 form's rounding {same_bits(got, rounded)}, repeat "
+                                     f"bitwise {same_bits(got, again)}")
+    print(f"[kernels] beam_self_attention bf16 query at {len(SELF_EDGE_SHAPES)} edge shapes, "
           f"float32 and bfloat16 caches: within {BF16_ULP_TOL:g} bf16 ulp beyond "
-          f"{BEAM_ATTN_ATOL}, the float32 form's bits rounded")
-    B, K, D, H, T, t = 128, 5, 512, 8, 21, 19
+          f"{BEAM_ATTN_ATOL}, the float32 form's bits rounded, two launches bitwise equal")
+    B, K, D, H, T, t = SELF_MAIN
     q, k, v, anc = beam_self_inputs(device, B, K, D, T, t, torch.bfloat16, seed=20)
     q16 = q.to(torch.bfloat16)
     got = beam_self_attention(q16, k, v, anc, t, H, K)

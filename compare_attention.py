@@ -1,6 +1,6 @@
-"""Two trees' encoder-attention kernels on one card: beam_cross_attention's
-bits, both kernels' device times, and the cross kernel's cost seen from the
-host and in the fused transformer's decode, in turns.
+"""Two trees' attention kernels on one card: the two beam-attention
+kernels' bits, their and bahdanau_attend's device times, and their cost
+seen from the host and in the fused transformer's decode, in turns.
 
     python3 compare_attention.py --other DIR [--rounds 2]
 
@@ -18,6 +18,14 @@ both. Each process:
   entry, with the ragged mask and with none, and writes the outputs to a
   temporary file; the summary's ``same_bits`` says whether every run of
   both trees gave the same bits as the first;
+* runs ``beam_self_attention`` likewise (``chip_smoke.beam_self_inputs``,
+  seed 20) at ``chip_smoke.SELF_MAIN`` (B = 128, K = 5, D = 512, 8 heads,
+  T = 21, t = 19) and at every ``chip_smoke.SELF_EDGE_SHAPES`` entry, in
+  its three forms (``SELF_FORMS``: float32 query and caches, bfloat16
+  caches, bfloat16 query and caches) and with a bfloat16 query on float32
+  caches, into the same ``same_bits``; and times each of the three forms
+  at the main shape by graph replay, warm and with two input sets in turn
+  (cold), and by ``_host_ms``;
 * times ``bahdanau_attend`` (B = 128, S = 80, D = A = E = 512) and
   ``beam_cross_attention`` at the main shape by CUDA-graph replay: 10
   calls captured in one graph, the replay timed with CUDA events, median
@@ -36,9 +44,10 @@ both. Each process:
   ``beam_cross_attention`` calls), CUDA-event time, median of 11 after two
   warm-ups, and its device busy time in one more run under torch.profiler.
 
-Prints one JSON line per process and a summary line with ``same_bits`` and
-each tree's medians, beside the card's name and power limit. Exits 1 if
-the bits differ. Needs a CUDA card; imports nothing of JAX.
+Prints one JSON line per process and a summary line with ``same_bits``,
+whether each self form's warm and cold medians are below the other
+tree's, and each tree's medians, beside the card's name and power limit.
+Exits 1 if the bits differ. Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ REPEATS = 5
 
 CROSS_MAIN = (128, 5, 80, 512, 8)
 WINDOW_RUNS = 11
+# beam_self_attention's forms: (key suffix, q's dtype, the caches' dtype).
+SELF_FORMS = (("", torch.float32, torch.float32), ("_bf16", torch.float32, torch.bfloat16),
+              ("_bf16q", torch.bfloat16, torch.bfloat16))
 
 
 def _graph_ms(torch, fn, calls: int = 10) -> float:
@@ -179,29 +191,58 @@ def run_one(name: str, fn, *args) -> int:
     return 0
 
 
-def cross_inputs_file(path: Path) -> None:
-    """Write the bit comparison's inputs, on the CPU: this tree's
-    ``chip_smoke.beam_cross_inputs`` (seed 30) at the main shape (float32
-    and bfloat16 K/V) and at ``chip_smoke.CROSS_EDGE_SHAPES``."""
-    from chip_smoke import CROSS_EDGE_SHAPES, beam_cross_inputs
+def inputs_file(path: Path) -> None:
+    """Write the bit comparison's and the self timing's inputs, on the CPU,
+    from this tree's ``chip_smoke``: ``beam_cross_inputs`` (seed 30) at the
+    main shape (float32 and bfloat16 K/V) and at ``CROSS_EDGE_SHAPES``;
+    ``beam_self_inputs`` (seed 20, float32) at ``SELF_MAIN`` and at
+    ``SELF_EDGE_SHAPES``, and a second main-shape set (seed 21) for the
+    cold timing."""
+    from chip_smoke import (CROSS_EDGE_SHAPES, SELF_EDGE_SHAPES, SELF_MAIN, beam_cross_inputs,
+                            beam_self_inputs)
 
-    cases = {}
+    cross = {}
     shapes = [(*CROSS_MAIN, dt) for dt in (torch.float32, torch.bfloat16)] + list(CROSS_EDGE_SHAPES)
     for B, K, S, D, H, dtype in shapes:
-        cases[f"B{B}_K{K}_S{S}_D{D}_h{H}_{str(dtype)[6:]}"] = (
+        cross[f"B{B}_K{K}_S{S}_D{D}_h{H}_{str(dtype)[6:]}"] = (
             H, K, beam_cross_inputs("cpu", B, K, S, D, seed=30, dtype=dtype))
-    torch.save(cases, path)
+    self_cases = {}
+    for B, K, D, H, T, t in (SELF_MAIN,) + SELF_EDGE_SHAPES:
+        self_cases[f"B{B}_K{K}_D{D}_h{H}_T{T}_t{t}"] = (
+            H, K, t, beam_self_inputs("cpu", B, K, D, T, t, torch.float32, seed=20))
+    B, K, D, H, T, t = SELF_MAIN
+    timing = [beam_self_inputs("cpu", B, K, D, T, t, torch.float32, seed=20 + i)
+              for i in range(2)]
+    torch.save({"cross": cross, "self": self_cases, "self_timing": (SELF_MAIN, timing)}, path)
 
 
-def cross_outputs(transformer_attn, inputs: Path) -> dict:
-    """beam_cross_attention's outputs on every case of ``inputs``, with the
-    mask and with none."""
+def cross_outputs(transformer_attn, cases: dict) -> dict:
+    """beam_cross_attention's outputs on every case, with the mask and with
+    none."""
     outputs = {}
-    for name, (H, K, tensors) in torch.load(inputs).items():
+    for name, (H, K, tensors) in cases.items():
         q, ck, cv, mask = (t.cuda() for t in tensors)
         for m, tag in ((mask, "mask"), (None, "none")):
             got = transformer_attn.beam_cross_attention(q, ck, cv, m, H, K)
             outputs[f"{name}_{tag}"] = [t.cpu() for t in got]
+    return outputs
+
+
+def self_form(tensors: tuple, q_dtype: torch.dtype, cache_dtype: torch.dtype) -> tuple:
+    """One self case's operands on the card in a form's dtypes."""
+    q, kc, vc, anc = tensors
+    return q.to(q_dtype).cuda(), kc.to(cache_dtype).cuda(), vc.to(cache_dtype).cuda(), anc.cuda()
+
+
+def self_outputs(transformer_attn, cases: dict) -> dict:
+    """beam_self_attention's context on every case in every form
+    (SELF_FORMS, and the bfloat16 query on float32 caches)."""
+    outputs = {}
+    forms = SELF_FORMS + (("_bf16q_f32c", torch.bfloat16, torch.float32),)
+    for name, (H, K, t, tensors) in cases.items():
+        for tag, qdt, cdt in forms:
+            got = transformer_attn.beam_self_attention(*self_form(tensors, qdt, cdt), t, H, K)
+            outputs[f"self_{name}{tag}"] = [got.cpu()]
     return outputs
 
 
@@ -287,8 +328,25 @@ def time_tree(tree: Path, out: Path, inputs: Path) -> dict:
         mask[1] = 0.0
         return tuple(t.to(dev) for t in (q, ck, cv, mask))
 
-    torch.save(cross_outputs(transformer_attn, inputs), out)
+    cases = torch.load(inputs)
+    torch.save({**cross_outputs(transformer_attn, cases["cross"]),
+                **self_outputs(transformer_attn, cases["self"])}, out)
     res = {"tree": str(tree), "card": torch.cuda.get_device_name(0)}
+    (B, K, D, H, T, t), timing = cases["self_timing"]
+    for tag, qdt, cdt in SELF_FORMS:
+        sets = [self_form(x, qdt, cdt) for x in timing]
+
+        def call(a):
+            return transformer_attn.beam_self_attention(*a, t, H, K)
+
+        got = call(sets[0])
+        want = transformer_attn.beam_self_attention_reference(*sets[0], t, H, K)
+        res[f"beam_self_attention{tag}_max_abs_err"] = (
+            got.float() - want.float()).abs().max().item()
+        res[f"beam_self_attention{tag}_ms"] = _graph_ms(torch, lambda: call(sets[0]))
+        res[f"beam_self_attention{tag}_cold_ms"] = _graph_ms(
+            torch, _in_turn([lambda a=a: call(a) for a in sets]))
+        res[f"beam_self_attention{tag}_host_ms"] = _host_ms(torch, lambda: call(sets[0]))
     sets = [attend_inputs(8), attend_inputs(18)]
     got = attention.bahdanau_attend(*sets[0])
     want = attention.bahdanau_attend_reference(*sets[0])
@@ -336,16 +394,20 @@ def main(argv=None) -> int:
     if args.other is None:
         ap.error("--other is required")
     with tempfile.TemporaryDirectory() as tmp:
-        inputs = Path(tmp) / "cross_inputs.pt"
-        cross_inputs_file(inputs)
+        inputs = Path(tmp) / "inputs.pt"
+        inputs_file(inputs)
         card, runs, files = run_in_turns(Path(__file__), args.other, args.rounds, Path(tmp),
                                          ("--inputs", str(inputs)))
         same = same_bits_as_first(files)
     summary = medians(runs)
+    faster = {f"beam_self_attention{tag}{kind}": summary["this"][f"beam_self_attention{tag}{kind}"]
+              < summary["other"][f"beam_self_attention{tag}{kind}"]
+              for tag, _, _ in SELF_FORMS for kind in ("_ms", "_cold_ms")}
     print(card)
     print(json.dumps({"card": card, "same_bits": all(same.values()),
                       "differ": sorted(k for k, v in same.items() if not v),
-                      "compared": len(same), "median_ms": summary}))
+                      "compared": len(same), "self_faster_than_other": faster,
+                      "median_ms": summary}))
     return 0 if all(same.values()) else 1
 
 

@@ -142,6 +142,19 @@ def test_make_mesh_sizes_and_errors(tiny_config):
         "decoder.embedding.weight"].spec == P("model", None)
 
 
+def test_make_mesh_without_devices_group_or_card_raises(tiny_config, monkeypatch):
+    """With no devices, no process group and no card visible, make_mesh
+    raises instead of building a CPU mesh; a CPU mesh is asked for by name."""
+    cfg = port(tiny_config)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        make_mesh(cfg)
+    mesh = make_mesh(cfg, ["cpu"])
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert list(mesh.devices.reshape(-1)) == [torch.device("cpu")]
+
+
 def test_shard_batch_takes_each_data_index_its_block(tiny_config):
     cfg = port(tiny_config)
     mesh = make_mesh(cfg, ["cpu"] * 4)

@@ -212,3 +212,77 @@ def test_serve_cli_refuses_flags_not_ported(extra, tmp_path, monkeypatch):
     serve.main(["--model-path", str(pkg), "--device", "cpu", *extra])
     assert served["p"].mesh.shape == {"data": 1, "model": 1}
     assert len(served["p"].replicas) == 1
+
+
+def _tiny_port_package(tmp_path):
+    from video_captioning_tpu_torch.config import Config as PortConfig
+    from video_captioning_tpu_torch.data.vocabulary import Vocabulary as PortVocabulary
+    from video_captioning_tpu_torch.models.weights import init_params_numpy
+    from video_captioning_tpu_torch.utils.checkpoint import save_model_for_inference
+
+    cfg = PortConfig()
+    cfg.model.cnn_feature_dim, cfg.model.encoder_hidden_dim = 24, 16
+    cfg.model.decoder_hidden_dim, cfg.model.embedding_dim, cfg.model.attention_dim = 16, 12, 16
+    cfg.data.vocab_threshold = 1
+    vocab = PortVocabulary(cfg)
+    vocab.build_vocabulary(["a man rides a horse"])
+    return save_model_for_inference(init_params_numpy(cfg, len(vocab)), vocab, cfg, tmp_path)
+
+
+def _cards(monkeypatch, count):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: count > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+
+
+def test_serve_data_parallel_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """--data-parallel --device cuda on a host with no card raises, naming
+    the device, instead of serving on the CPU."""
+    from video_captioning_tpu_torch.cli import serve
+
+    pkg = _tiny_port_package(tmp_path)
+    _cards(monkeypatch, 0)
+    served = {}
+    monkeypatch.setattr(serve, "_serve", lambda predictor, args: served.update(p=predictor))
+    with pytest.raises(RuntimeError, match="--device 'cuda': no CUDA device is visible"):
+        serve.main(["--model-path", str(pkg), "--device", "cuda", "--data-parallel"])
+    assert not served
+
+
+def test_serve_data_parallel_on_cpu_ignores_visible_cards(tmp_path, monkeypatch):
+    """--data-parallel --device cpu serves one replica on the CPU even where
+    cards are visible: a (1, 1) mesh of the CPU."""
+    import torch
+
+    from video_captioning_tpu_torch.cli import serve
+
+    pkg = _tiny_port_package(tmp_path)
+    _cards(monkeypatch, 2)
+    served = {}
+    monkeypatch.setattr(serve, "_serve", lambda predictor, args: served.update(p=predictor))
+    serve.main(["--model-path", str(pkg), "--device", "cpu", "--data-parallel"])
+    p = served["p"]
+    assert p.mesh.shape == {"data": 1, "model": 1}
+    assert list(p.mesh.devices.reshape(-1)) == [torch.device("cpu")]
+    assert p.device == torch.device("cpu") and len(p.replicas) == 1
+
+
+@pytest.mark.parametrize("device,count,want", [
+    ("cuda", 2, ["cuda:0", "cuda:1"]), ("cuda:1", 2, ["cuda:1"]), ("cpu", 2, ["cpu"]),
+    ("cpu", 0, ["cpu"]), ("cuda", 0, "no CUDA device is visible"),
+    ("cuda:1", 1, "CUDA device 1 is not visible"), ("mps", 1, "serves on cuda or cpu"),
+])
+def test_data_parallel_devices_follow_the_device_flag(device, count, want, monkeypatch):
+    """The --data-parallel mesh's devices: every visible card for cuda, the
+    named card for cuda:i, the CPU for cpu; a missing card raises."""
+    import torch
+
+    from video_captioning_tpu_torch.cli.serve import data_parallel_devices
+
+    _cards(monkeypatch, count)
+    if isinstance(want, list):
+        assert data_parallel_devices(device) == [torch.device(d) for d in want]
+    else:
+        with pytest.raises((RuntimeError, ValueError), match=want):
+            data_parallel_devices(device)

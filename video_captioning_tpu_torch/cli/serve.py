@@ -8,7 +8,9 @@ Counterpart of video_captioning_tpu/cli/serve.py. It takes the same
 inference packages; ``--compute-dtype bfloat16`` serves bfloat16
 parameters, ``--decode-int8 vocab|full`` W8A8 decode matrices
 (``models/quantize.py``) and ``--data-parallel`` one replica on each
-visible card (an ``(n_devices, 1)`` mesh, ``inference/predictor.py``).
+device that ``--device`` names (an ``(n_devices, 1)`` mesh,
+``inference/predictor.py``: every visible card for ``cuda``, one for
+``cuda:i``, the CPU for ``cpu``).
 ``--model-path`` also takes a ``.vcx`` artifact (``cli/export.py``),
 served by ``ExportedPredictor`` with no model code; the flags such an
 artifact cannot honour (``--data-parallel``, ``--decode-int8``, a
@@ -49,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Opt-in W8A8 decode quantization (models/quantize.py): "
                              "approximate tokens")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="One replica on each visible card, device batches split over them")
+                        help="One replica on each device --device names (cuda: every visible "
+                             "card), device batches split over them")
     parser.add_argument("--compilation-cache-dir", type=str, default=None,
                         help="Accepted for the JAX CLI's flags; PyTorch has no such cache")
     parser.add_argument("--log-level", type=str, default="INFO")
@@ -95,7 +98,7 @@ def main(argv=None) -> None:
         from ..config import Config
         from ..parallel import make_mesh
 
-        kwargs["mesh"] = make_mesh(Config())  # (visible cards, 1)
+        kwargs["mesh"] = make_mesh(Config(), data_parallel_devices(args.device))
         logger.info(f"data-parallel serving over {kwargs['mesh'].shape['data']} devices")
     if args.compilation_cache_dir:
         kwargs["compilation_cache_dir"] = args.compilation_cache_dir
@@ -103,6 +106,29 @@ def main(argv=None) -> None:
                                       compute_dtype=args.compute_dtype,
                                       decode_int8=args.decode_int8, **kwargs)
     _serve(predictor, args)
+
+
+def data_parallel_devices(device: str) -> list:
+    """The devices ``--data-parallel`` serves on, one replica each, from
+    ``--device``: ``cuda`` every visible card, ``cuda:i`` that card, ``cpu``
+    the CPU. A card that is not there raises, naming it."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [dev]
+    if dev.type != "cuda":
+        raise ValueError(f"--device {device!r}: --data-parallel serves on cuda or cpu")
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if dev.index is None:
+        if count == 0:
+            raise RuntimeError(f"--device {device!r}: no CUDA device is visible here; pass "
+                               "--device cpu to serve on the CPU")
+        return [torch.device("cuda", i) for i in range(count)]
+    if dev.index >= count:
+        raise RuntimeError(f"--device {device!r}: CUDA device {dev.index} is not visible "
+                           f"({count} visible)")
+    return [dev]
 
 
 def _serve(predictor, args) -> None:

@@ -34,28 +34,53 @@
 // float32 the heads are summed in order and divided once, as before.
 // anc[b, k, tau] lies in [0, K) for tau <= t.
 //
-// What bounds them on an H100: device-memory reads. The self kernel reads
-// each selected cache row's head slice once per beam that selects it:
-// at B = 128, K = 5, D = 512, t = 19 in float32, 20 rows x 640 x 512 x 4 B
-// x 2 caches = 52 MB, about 16 us at 3.35 TB/s. The cross kernel reads the
-// clip's keys and values once per clip, not once per beam: 2 x 128 x 80 x
-// 512 x 4 B = 42 MB, about 13 us. Their operations (two FMAs a loaded
+// What bounds them on an H100: device-memory reads. The self kernel needs
+// each distinct selected cache row's head slice once: at B = 128, K = 5,
+// D = 512, t = 19 in float32 and a random ancestry, 8,847 of the 12,800
+// rows x 512 x 4 B x 2 caches = 36 MB, about 11 us at 3.35 TB/s (beams
+// that share more of their prefix select fewer); a row that several beams
+// select leaves device memory once and comes from L2 after. The cross
+// kernel reads the clip's keys and values once per clip, not once per
+// beam: 2 x 128 x 80 x 512 x 4 B = 42 MB, about 13 us. Their operations (two FMAs a loaded
 // element per beam) are far below the card's float32 rate.
 //
 // A bfloat16 query (the bfloat16 serving artifact's beam state) halves the
 // query and context bytes and the weights': at the main shape with
 // bfloat16 K/V the cross call moves about 22.4 MB, 6.7 us at 3.35 TB/s.
 //
-// Design: one CTA per (clip, head), one warp per beam (K <= 16 warps).
-// Self: each warp reads its own beam's rows, a lane holding up to four of
-// the head's dh <= 128 columns at stride 32, so a row slice is one
-// coalesced warp load; rows that several beams share come from L2. An
-// online softmax (running max, sum and context per warp) needs no storage
-// for the scores and takes any T; the TPU kernel's one-hot selection over
-// all K slots becomes one index load per position.
+// Self: the first version ran one CTA a (clip, head) and one warp a beam,
+// a lane holding columns l + 32 i; each warp read its beam's rows from
+// device memory position by position, each row address waiting on its
+// ancestry load. Its time followed the instructions issued, not the bytes
+// (halving them with bfloat16 caches took a fifth off): each head and
+// beam ran its own butterfly, softmax and loop, about 50 warp instructions
+// a position. This version keeps every value's floating-point chain of the
+// first one, so it gives the same bits, and changes how work and data
+// move (ops/transformer_attn.py:self_plan picks the ring):
+// - A warp takes a beam and four heads, 8 lanes a head; lane g holds what
+//   lanes g, g + 8, g + 16, g + 24 held and adds their partial sums as the
+//   butterfly's first two levels paired them, so an instruction serves
+//   four heads.
+// - The ancestry is read once, 32 positions a load, and broadcast by
+//   shuffle; the warp streams its rows by 16-byte cp.async copies through
+//   a ring of stages of four positions in shared memory (18 KB in float32
+//   at the main shape, twelve CTAs an SM: one wave).
+// - Tried and measured slower on an NVIDIA H100 (PERF.md): a CTA staging
+//   each distinct row its beams select once, the warps synchronised a
+//   chunk at a time (the syncs and the round trip a chunk cost more than
+//   the bytes saved); a warp a head with that ring or with a ring of its
+//   own; smaller stages with more of them; a deeper ring at fewer CTAs an
+//   SM; the four positions' butterflies and exponentials shared.
+// The chains: the score is fmaf(q_d, k_d, .) over d = l + 32 i in order
+// for each original lane l, then the warp_sum butterfly over lanes
+// (offsets 16, 8, 4, 2, 1), then * scale; the online softmax (running max
+// m, rescale c = exp(m - m_new), p = exp(s - m_new), l = fmaf(l, c, p),
+// acc = fmaf(p, v, acc * c)) goes over tau in order from 0; the context is
+// acc / l, rounded once to q's dtype.
 //
-// Cross: the clip's keys and values are shared by all K warps, so the CTA
-// stages its head's slice of them in shared memory and each element leaves
+// Cross: one CTA per (clip, head), one warp per beam (K <= 16 warps). The
+// clip's keys and values are shared by all K warps, so the CTA stages its
+// head's slice of them in shared memory and each element leaves
 // device memory once; a second small launch averages the heads' weights in
 // a fixed order. The first version staged 32 frames at a time, each chunk
 // loaded by plain loads between two __syncthreads and the next one not
@@ -104,6 +129,12 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kMaskFill = -1e9f;
 constexpr int kMeanThreads = 256;
 constexpr int kSlots = 2;        // the cross kernel's ring slots
+// The self ring (ops/transformer_attn.py:self_plan mirrors these).
+constexpr int kSelfHeads = 4;      // heads a self warp, 8 lanes each
+constexpr int kSelfPad = 8;        // elements after each head's row slice in a self stage
+constexpr int kSelfStage = 4;      // positions a stage (1, 2 or 4)
+constexpr int kSelfMaxStages = 3;  // a ring's stages at most (<= 16)
+constexpr int kSelfBudget = 20480; // a ring's bytes, past two stages
 constexpr int kMaxDevices = 64;  // devices whose kernel attributes are cached
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -126,74 +157,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// Four consecutive elements as float32: one 16-byte (float) or 8-byte
-// (bfloat16) load; p is aligned to that size.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-
-// Grid (B, heads), 32 * K threads: warp k is beam k of clip blockIdx.x.
-// kEpl = ceil(dh / 32) columns a lane. T: the caches' dtype, TQ: q's and
-// the context's.
-template <typename T, typename TQ, int kEpl>
-__global__ void beam_self_attn_kernel(const TQ* __restrict__ q, const T* __restrict__ kc,
-                                      const T* __restrict__ vc, const int* __restrict__ anc,
-                                      TQ* __restrict__ ctx, int K, int D, int dh,
-                                      int T_max, int t, float scale) {
-  const int b = blockIdx.x;
-  const int col0 = blockIdx.y * dh;
-  const int k = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t N = static_cast<size_t>(gridDim.x) * K;
-  const size_t n = static_cast<size_t>(b) * K + k;
-
-  float qr[kEpl], acc[kEpl];
-#pragma unroll
-  for (int i = 0; i < kEpl; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < dh ? to_f32(__ldg(q + n * D + col0 + d)) : 0.0f;
-    acc[i] = 0.0f;
-  }
-  const int* anc_n = anc + n * T_max;
-  float m = -INFINITY;
-  float l = 0.0f;
-#pragma unroll 4
-  for (int tau = 0; tau <= t; ++tau) {
-    const int j = __ldg(anc_n + tau);
-    const size_t row = (static_cast<size_t>(tau) * N + static_cast<size_t>(b) * K + j) * D + col0;
-    float s = 0.0f;
-    float vv[kEpl];
-#pragma unroll
-    for (int i = 0; i < kEpl; ++i) {
-      const int d = lane + 32 * i;
-      vv[i] = 0.0f;
-      if (d < dh) {
-        s = fmaf(qr[i], to_f32(kc[row + d]), s);
-        vv[i] = to_f32(vc[row + d]);
-      }
-    }
-    s = warp_sum(s) * scale;
-    const float m_new = fmaxf(m, s);
-    const float c = expf(m - m_new);  // 0 at the first position (m = -inf)
-    const float p = expf(s - m_new);
-    l = fmaf(l, c, p);
-#pragma unroll
-    for (int i = 0; i < kEpl; ++i) acc[i] = fmaf(p, vv[i], acc[i] * c);
-    m = m_new;
-  }
-#pragma unroll
-  for (int i = 0; i < kEpl; ++i) {
-    const int d = lane + 32 * i;
-    if (d < dh) store_out(ctx + n * D + col0 + d, acc[i] / l);
-  }
 }
 
 // ---------------------------------------------------------------- cross
@@ -446,6 +409,202 @@ __global__ void beam_cross_attn_kernel(const CrossArgs a) {
   }
 }
 
+// ---------------------------------------------------------------- self
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's cp.async groups are in
+// flight (0 <= pending < kSelfMaxStages).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+#define VCT_WAIT(N) \
+  case N: asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); break;
+    VCT_WAIT(0) VCT_WAIT(1) VCT_WAIT(2) VCT_WAIT(3) VCT_WAIT(4) VCT_WAIT(5) VCT_WAIT(6)
+    VCT_WAIT(7) VCT_WAIT(8) VCT_WAIT(9) VCT_WAIT(10) VCT_WAIT(11) VCT_WAIT(12) VCT_WAIT(13)
+    VCT_WAIT(14)
+#undef VCT_WAIT
+    default: asm volatile("cp.async.wait_group 15;\n" ::: "memory"); break;
+  }
+}
+
+// The self launch's operands, shape and plan (ops/transformer_attn.py:
+// self_plan), with the shared-memory layout self_layout fills in.
+struct SelfArgs {
+  const void* q;  // TQ: float or bfloat16, like ctx
+  const void* kc;
+  const void* vc;
+  const int* anc;
+  void* ctx;
+  int K, H, D, dh, T_max, t;
+  float scale;
+  int stages;       // the ring: stages of kSelfStage positions
+  int ldh;          // a head's row slice in a stage: dh + kSelfPad elements
+  int stage_elems;  // elements a stage: [position][key, value][head][ldh]
+  int smem;
+};
+
+// Grid (B * K, ceil(H / kSelfHeads)), one warp a CTA: beam n = blockIdx.x
+// and heads 4 y .. 4 y + 3, 8 lanes a head. Lane g of a head's eight holds
+// what lanes g, g + 8, g + 16 and g + 24 of the first version's warp held
+// (columns g + 8 r + 32 i): its own four partial sums, each over i in that
+// version's order; it adds them as the butterfly's offsets 16 and 8
+// paired them, (P0 + P2) + (P1 + P3), then shuffles over offsets 4, 2, 1.
+// The ancestry is read once, a window of 32 positions at a
+// time (lane l holds anc[n, 32 w + l]; the next window's is loaded
+// ahead), each position's ancestor broadcast by shuffle. The warp streams
+// its beam's rows (the four heads' key and value slices, each padded by
+// kSelfPad elements so that the eight-lane reads of the four heads hit
+// distinct banks) through a ring of a.stages stages of kSelfStage
+// positions, one cp.async group a stage, a.stages - 1 in flight while it
+// reads one. Rows that several beams select come from L2 after the first.
+// kVec: dh * sizeof(T) and D * sizeof(T) multiples of 16 and 16-byte
+// aligned caches: 16-byte cp.async copies; otherwise plain loads.
+// kEpl = ceil(dh / 32); kFull: dh == 32 * kEpl, so every column index
+// below is in range and a slice's pieces are known at compile time.
+template <typename T, typename TQ, int kEpl, bool kVec, bool kFull>
+__global__ void __launch_bounds__(32) beam_self_attn_kernel(const SelfArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ring = reinterpret_cast<T*>(smem);
+  const int K = a.K, D = a.D, t = a.t, S = a.stages, ldh = a.ldh;
+  const int dh = kFull ? 32 * kEpl : a.dh;
+  const size_t N = gridDim.x;
+  const size_t n = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int hq = lane >> 3;  // this lane's head in the warp's four
+  const int g = lane & 7;
+  const int head = blockIdx.y * kSelfHeads + hq;
+  const bool live = head < a.H;
+  const int col0 = head * dh;
+  const int* anc_n = a.anc + n * a.T_max;
+  // Physical row (0, b * K), this lane's head's columns.
+  const size_t base = (n - n % K) * D + col0;
+  const T* kb = static_cast<const T*>(a.kc) + base;
+  const T* vb = static_cast<const T*>(a.vc) + base;
+  const TQ* qg = static_cast<const TQ*>(a.q) + n * D + col0;
+  constexpr int kEpc = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte piece
+  const int pieces = dh / kEpc;                             // a row slice's pieces (kVec)
+  // This lane's slice of a stage's position v: key at kv_off + 2 v R, value R further.
+  const int R = kSelfHeads * ldh;
+  const int kv_off = hq * ldh;
+
+  int cw = 0;  // the window of the stage being read: aw holds it, an the next
+  int aw = lane <= t ? __ldg(anc_n + lane) : 0;
+  int an = 32 + lane <= t ? __ldg(anc_n + 32 + lane) : 0;
+  float qr[4][kEpl], acc[4][kEpl];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int i = 0; i < kEpl; ++i) {
+      const int d = g + 8 * r + 32 * i;
+      qr[r][i] = live && (kFull || d < dh) ? to_f32(__ldg(qg + d)) : 0.0f;
+      acc[r][i] = 0.0f;
+    }
+  }
+  float m = -INFINITY;
+  float l = 0.0f;
+  const int nst = t / kSelfStage + 1;
+  int fill = 0;  // the slot of the next stage to copy
+  int read = 0;  // the slot of the next stage to read
+
+  // Stages -S .. -1 only copy stages 0 .. S - 1; stage s >= 0 is read,
+  // then stage s + S copied into its slot, as one cp.async group (empty
+  // past the prefix; lane g of a head copies its slices' pieces g, g + 8,
+  // ...). The ring holds at most kSelfMaxStages stages, so a stage copied
+  // lies in window cw or the next.
+  for (int s = -S; s < nst; ++s) {
+    if (s >= 0) {
+      if ((s * kSelfStage) >> 5 != cw) {  // the next window: shift, load the one after
+        ++cw;
+        aw = an;
+        an = 32 * (cw + 1) + lane <= t ? __ldg(anc_n + 32 * (cw + 1) + lane) : 0;
+      }
+      cp_async_wait(S - 1);  // stage s has landed: this lane's copies,
+      __syncwarp();          // and the other lanes'
+      const T* st = ring + static_cast<size_t>(read) * a.stage_elems + kv_off;
+      read = read + 1 == S ? 0 : read + 1;
+      const int np = min(kSelfStage, t + 1 - s * kSelfStage);
+#pragma unroll
+      for (int v = 0; v < kSelfStage; ++v) {
+        if (v < np) {
+          const T* kr = st + 2 * v * R;
+          const T* vr = kr + R;
+          float part[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            part[r] = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kEpl; ++i) {
+              const int d = g + 8 * r + 32 * i;
+              if (kFull || d < dh) part[r] = fmaf(qr[r][i], to_f32(kr[d]), part[r]);
+            }
+          }
+          float x = (part[0] + part[2]) + (part[1] + part[3]);
+          x += __shfl_xor_sync(kFullMask, x, 4);
+          x += __shfl_xor_sync(kFullMask, x, 2);
+          x += __shfl_xor_sync(kFullMask, x, 1);
+          const float sc = x * a.scale;
+          const float m_new = fmaxf(m, sc);
+          const float cc = expf(m - m_new);  // 0 at the first position (m = -inf)
+          const float p = expf(sc - m_new);
+          l = fmaf(l, cc, p);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int i = 0; i < kEpl; ++i) {
+              const int d = g + 8 * r + 32 * i;
+              const float vv = kFull || d < dh ? to_f32(vr[d]) : 0.0f;
+              acc[r][i] = fmaf(p, vv, acc[r][i] * cc);
+            }
+          }
+          m = m_new;
+        }
+      }
+      __syncwarp();  // every lane is done with the slot
+    }
+    T* dst = ring + static_cast<size_t>(fill) * a.stage_elems + kv_off;
+    fill = fill + 1 == S ? 0 : fill + 1;
+    const int s1 = s + S;
+#pragma unroll
+    for (int v = 0; v < kSelfStage; ++v) {
+      const int u = s1 * kSelfStage + v;
+      if (u <= t) {
+        const int ja = __shfl_sync(kFullMask, aw, u & 31);
+        const int jn = __shfl_sync(kFullMask, an, u & 31);
+        const size_t row = (static_cast<size_t>(u) * N + ((u >> 5) == cw ? ja : jn)) * D;
+        T* kd = dst + 2 * v * R;
+        if (live && kVec) {
+#pragma unroll
+          for (int c = 0; c < (pieces + 7) / 8; ++c) {  // a fixed count with kFull
+            const int p = g + 8 * c;
+            if (p < pieces) {
+              cp_async16(kd + p * kEpc, kb + row + p * kEpc);
+              cp_async16(kd + R + p * kEpc, vb + row + p * kEpc);
+            }
+          }
+        } else if (live) {
+          for (int d = g; d < dh; d += 8) {
+            kd[d] = kb[row + d];
+            kd[R + d] = vb[row + d];
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  }
+  if (!live) return;
+  TQ* out = static_cast<TQ*>(a.ctx) + n * D + col0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int i = 0; i < kEpl; ++i) {
+      const int d = g + 8 * r + 32 * i;
+      if (kFull || d < dh) store_out(out + d, acc[r][i] / l);
+    }
+  }
+}
+
 // w[n, s] = sum over heads, in head order, of wh[n, h, s], over heads.
 __global__ void __launch_bounds__(kMeanThreads)
     head_mean_kernel(const float* __restrict__ wh, float* __restrict__ w, int NS, int H, int S) {
@@ -480,31 +639,6 @@ __global__ void __launch_bounds__(kMeanThreads)
   w[idx] = __float2bfloat16_rn(out);
 }
 
-template <typename T, typename TQ>
-cudaError_t launch_self(const void* q, const void* kc, const void* vc, const int* anc,
-                        void* ctx, int B, int K, int H, int D, int T_max, int t,
-                        cudaStream_t st) {
-  const int dh = D / H;
-  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
-  const dim3 grid(B, H);
-  const int threads = 32 * K;
-  const TQ* qp = static_cast<const TQ*>(q);
-  TQ* cp = static_cast<TQ*>(ctx);
-  const T* kp = static_cast<const T*>(kc);
-  const T* vp = static_cast<const T*>(vc);
-#define VCT_SELF(EPL)                                                                   \
-  beam_self_attn_kernel<T, TQ, EPL>                                                     \
-      <<<grid, threads, 0, st>>>(qp, kp, vp, anc, cp, K, D, dh, T_max, t, scale)
-  switch ((dh + 31) / 32) {
-    case 1: VCT_SELF(1); break;
-    case 2: VCT_SELF(2); break;
-    case 3: VCT_SELF(3); break;
-    default: VCT_SELF(4); break;
-  }
-#undef VCT_SELF
-  return cudaGetLastError();
-}
-
 int round16(long x) { return static_cast<int>((x + 15) / 16 * 16); }
 
 // The shared-memory layout of a plan (ops/transformer_attn.py:cross_smem
@@ -526,21 +660,20 @@ bool cross_layout(CrossArgs& a, bool vec, int esz) {
   return a.smem <= 232448;
 }
 
-template <typename T, typename TQ, int kEpl, bool kVec>
-cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t st) {
-  auto kernel = beam_cross_attn_kernel<T, TQ, kEpl, kVec>;
-  // The kernel's shared-memory attributes are two driver calls: set once a
-  // device, and again only for a larger size (the largest so far stays).
-  // The carveout asks for as many CTAs an SM as shared memory allows.
-  static std::atomic<int> allowed[kMaxDevices];
-  static std::mutex setting;
+// A kernel's shared-memory attributes are two driver calls: set once a
+// device, and again only for a larger size (the largest so far stays, in
+// the caller's allowed, one entry a device). The carveout asks for as many
+// CTAs an SM as shared memory allows.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, std::atomic<int> (&allowed)[kMaxDevices],
+                       std::mutex& setting) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool cached = dev < kMaxDevices;
-  if (!cached || a.smem > allowed[dev].load(std::memory_order_acquire)) {
+  if (!cached || smem > allowed[dev].load(std::memory_order_acquire)) {
     std::lock_guard<std::mutex> hold(setting);
-    const int bytes = cached ? std::max(a.smem, allowed[dev].load()) : a.smem;
+    const int bytes = cached ? std::max(smem, allowed[dev].load()) : smem;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -548,6 +681,16 @@ cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t s
     if (err != cudaSuccess) return err;
     if (cached) allowed[dev].store(bytes, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <typename T, typename TQ, int kEpl, bool kVec>
+cudaError_t launch_cross_kernel(const CrossArgs& a, int B, int H, cudaStream_t st) {
+  auto kernel = beam_cross_attn_kernel<T, TQ, kEpl, kVec>;
+  static std::atomic<int> allowed[kMaxDevices];
+  static std::mutex setting;
+  const cudaError_t err = allow_smem(kernel, a.smem, allowed, setting);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(B, H), 32 * a.K, a.smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -568,6 +711,54 @@ cudaError_t launch_cross(const CrossArgs& a, int B, int H, bool vec, cudaStream_
   }
 }
 
+// The self plan and its shared-memory layout (ops/transformer_attn.py:
+// self_plan computes the same): the ring holds the fewer of the prefix's
+// stages and the most, up to kSelfMaxStages, that take at most
+// kSelfBudget bytes (at least 2). False when it does not fit a CTA.
+bool self_layout(SelfArgs& a, int esz) {
+  const int nst = a.t / kSelfStage + 1;
+  a.ldh = a.dh + kSelfPad;
+  a.stage_elems = kSelfStage * 2 * kSelfHeads * a.ldh;
+  const long stage = static_cast<long>(a.stage_elems) * esz;
+  int S = 2;
+  while (S < kSelfMaxStages && S < nst && (S + 1) * stage <= kSelfBudget) ++S;
+  a.stages = std::min(S, nst);
+  a.smem = static_cast<int>(a.stages * stage);
+  return a.smem <= 232448;
+}
+
+template <typename T, typename TQ, int kEpl, bool kVec, bool kFull>
+cudaError_t launch_self_kernel(const SelfArgs& a, int B, int H, cudaStream_t st) {
+  auto kernel = beam_self_attn_kernel<T, TQ, kEpl, kVec, kFull>;
+  static std::atomic<int> allowed[kMaxDevices];
+  static std::mutex setting;
+  const cudaError_t err = allow_smem(kernel, a.smem, allowed, setting);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * a.K, (H + kSelfHeads - 1) / kSelfHeads), 32, a.smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TQ, int kEpl>
+cudaError_t launch_self_epl(const SelfArgs& a, int B, int H, bool vec, cudaStream_t st) {
+  const bool full = a.dh == 32 * kEpl;
+  if (vec) {
+    return full ? launch_self_kernel<T, TQ, kEpl, true, true>(a, B, H, st)
+                : launch_self_kernel<T, TQ, kEpl, true, false>(a, B, H, st);
+  }
+  return full ? launch_self_kernel<T, TQ, kEpl, false, true>(a, B, H, st)
+              : launch_self_kernel<T, TQ, kEpl, false, false>(a, B, H, st);
+}
+
+template <typename T, typename TQ>
+cudaError_t launch_self(const SelfArgs& a, int B, int H, bool vec, cudaStream_t st) {
+  switch ((a.dh + 31) / 32) {
+    case 1: return launch_self_epl<T, TQ, 1>(a, B, H, vec, st);
+    case 2: return launch_self_epl<T, TQ, 2>(a, B, H, vec, st);
+    case 3: return launch_self_epl<T, TQ, 3>(a, B, H, vec, st);
+    default: return launch_self_epl<T, TQ, 4>(a, B, H, vec, st);
+  }
+}
+
 bool bad_shape(int B, int K, int H, int D) {
   return B <= 0 || K <= 0 || K > 16 || H <= 0 || D <= 0 || D % H != 0 || D / H > 128;
 }
@@ -580,23 +771,57 @@ extern "C" const char* vct_error_string(int code) {
 
 // Returns a cudaError_t: 0 when the launch was accepted. q, ctx (B*K, D)
 // float32 or (q_bf16) bfloat16; kc, vc (T, B*K, D) float32 or
-// (cache_bf16) bfloat16; anc (B, K, T) int32.
+// (cache_bf16) bfloat16; anc (B, K, T) int32. The plan is self_layout's.
 extern "C" int vct_beam_self_attention(const void* q, const void* kc, const void* vc,
                                        const int* anc, void* ctx, int cache_bf16, int q_bf16,
                                        int B, int K, int H, int D, int T_max, int t,
                                        void* stream) {
   if (bad_shape(B, K, H, D) || t < 0 || t >= T_max) return static_cast<int>(cudaErrorInvalidValue);
+  const int esz = cache_bf16 ? 2 : 4;
+  SelfArgs a = {};
+  a.q = q;
+  a.kc = kc;
+  a.vc = vc;
+  a.anc = anc;
+  a.ctx = ctx;
+  a.K = K;
+  a.H = H;
+  a.D = D;
+  a.dh = D / H;
+  a.T_max = T_max;
+  a.t = t;
+  a.scale = 1.0f / sqrtf(static_cast<float>(a.dh));
+  if (!self_layout(a, esz)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = (a.dh * esz) % 16 == 0 && (D * esz) % 16 == 0 &&
+                   reinterpret_cast<size_t>(kc) % 16 == 0 && reinterpret_cast<size_t>(vc) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t err;
   if (cache_bf16) {
-    err = q_bf16 ? launch_self<bf16, bf16>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st)
-                 : launch_self<bf16, float>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st);
+    err = q_bf16 ? launch_self<bf16, bf16>(a, B, H, vec, st)
+                 : launch_self<bf16, float>(a, B, H, vec, st);
   } else {
-    err = q_bf16 ? launch_self<float, bf16>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st)
-                 : launch_self<float, float>(q, kc, vc, anc, ctx, B, K, H, D, T_max, t, st);
+    err = q_bf16 ? launch_self<float, bf16>(a, B, H, vec, st)
+                 : launch_self<float, float>(a, B, H, vec, st);
   }
   return static_cast<int>(err);
+}
+
+// The self launch's plan at a shape, as vct_beam_self_attention takes it:
+// out[0] stages a warp's ring, out[1] shared-memory bytes a CTA. Returns a
+// cudaError_t (invalid outside the kernel's domain).
+extern "C" int vct_beam_self_plan(int K, int dh, int t, int cache_bf16, int* out) {
+  if (K <= 0 || K > 16 || dh <= 0 || dh > 128 || t < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SelfArgs a = {};
+  a.K = K;
+  a.dh = dh;
+  a.t = t;
+  if (!self_layout(a, cache_bf16 ? 2 : 4)) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = a.stages;
+  out[1] = a.smem;
+  return 0;
 }
 
 // Returns a cudaError_t: 0 when both launches were accepted. q, ctx

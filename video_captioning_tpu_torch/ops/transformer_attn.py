@@ -89,6 +89,51 @@ def cross_plan(K: int, H: int, D: int, S: int, kv_bytes: int, vec: bool) -> dict
     return dict(FC=FC, nch=nch, smem=cross_smem(K, H, D, S, kv_bytes, vec, FC))
 
 
+# The self kernel's plan (csrc/transformer_attn.cu: self_layout).
+SELF_HEADS = 4           # heads a warp (a CTA), 8 lanes each
+SELF_PAD = 8             # elements after each head's row slice in a stage
+SELF_STAGE = 4           # positions a stage of the ring
+SELF_MAX_STAGES = 3      # stages a ring at most
+SELF_BUDGET = 20480      # a ring's bytes at most, past two stages
+
+
+@functools.lru_cache(maxsize=256)
+def self_plan(K: int, dh: int, t: int, cache_bytes: int) -> dict:
+    """The self kernel's plan for one shape. One warp a CTA for each beam
+    and SELF_HEADS heads (8 lanes a head); it streams its beam's rows (the
+    heads' key and value slices, each padded by SELF_PAD elements) for
+    positions 0..t through a ring of ``stages`` stages of SELF_STAGE
+    positions: the fewer of the prefix's stages and the most, up to
+    SELF_MAX_STAGES, that take at most SELF_BUDGET bytes (at least 2). At
+    the main shape (K = 5, dh = 64, t = 19) two stages in float32 (18 KB a
+    CTA) and three in bfloat16 (13.5 KB): twelve CTAs an SM or more, where
+    the 1280 CTAs need ten for one wave of the H100's 132 SMs. ``smem``:
+    the ring."""
+    if not (1 <= K <= MAX_BEAMS and 1 <= dh <= MAX_HEAD_DIM and t >= 0
+            and cache_bytes in (2, 4)):
+        raise ValueError(f"self_plan: K = {K}, dh = {dh}, t = {t}, {cache_bytes}-byte caches "
+                         f"outside the kernel's domain (K <= {MAX_BEAMS}, dh <= "
+                         f"{MAX_HEAD_DIM}, t >= 0, float32 or bfloat16)")
+    nst = t // SELF_STAGE + 1
+    stage = SELF_STAGE * 2 * SELF_HEADS * (dh + SELF_PAD) * cache_bytes
+    S = 2
+    while S < SELF_MAX_STAGES and S < nst and (S + 1) * stage <= SELF_BUDGET:
+        S += 1
+    stages = min(S, nst)
+    return dict(stages=stages, smem=stages * stage)
+
+
+def kernel_self_plan(K: int, dh: int, t: int, cache_bytes: int) -> dict:
+    """The plan the card's launcher takes at a shape
+    (``vct_beam_self_plan``), to hold against ``self_plan``. Needs the
+    built library (nvcc)."""
+    out = (ctypes.c_int * 2)()
+    rc = _kernel_lib().vct_beam_self_plan(K, dh, t, int(cache_bytes == 2), out)
+    if rc != 0:
+        raise ValueError(f"vct_beam_self_plan refused K = {K}, dh = {dh}, t = {t} ({rc})")
+    return dict(stages=out[0], smem=out[1])
+
+
 def cross_vec(ck: Tensor, cv: Tensor, num_heads: int) -> bool:
     """Whether the cross kernel copies and reads 16 bytes at a time: a
     head's dh elements and a frame's D elements multiples of 16 bytes, and
@@ -222,6 +267,7 @@ def _check_cross(q, ck, cv, mask, num_heads, num_beams) -> None:
                          f"{mask.dtype} {tuple(mask.shape)}")
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("transformer_attn")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -229,6 +275,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.vct_beam_self_attention.restype = i32
     lib.vct_beam_cross_attention.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     lib.vct_beam_cross_attention.restype = i32
+    lib.vct_beam_self_plan.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.vct_beam_self_plan.restype = i32
     return lib
 
 
@@ -242,8 +290,9 @@ def _on_card(what: str, q: Tensor) -> bool:
 
 def beam_self_attention(q: Tensor, k_lyr: Tensor, v_lyr: Tensor, anc: Tensor, t: int,
                         num_heads: int, num_beams: int) -> Tensor:
-    """Context (B*K, D). CUDA: the kernel, on the current stream, no sync.
-    CPU: the plain version."""
+    """Context (B*K, D). CUDA: the kernel (its staging from ``self_plan``,
+    which the launcher computes), on the current stream, no sync. CPU: the
+    plain version."""
     if tracing():
         return torch.ops.vct.beam_self_attention(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)
     _check_self(q, k_lyr, v_lyr, anc, t, num_heads, num_beams)

@@ -79,8 +79,9 @@ class Mesh:
 def make_mesh(config: Config, devices: Optional[Sequence] = None) -> Mesh:
     """Build the (data, model) mesh: over the ``torch.distributed`` ranks
     when a process group is up (every rank must be on the mesh), else over
-    ``devices`` (default: the visible CUDA devices, or the CPU; a string is
-    a device name).
+    ``devices`` (default: the visible CUDA devices; with none visible it
+    raises, so a CPU mesh is asked for by name, ``["cpu"]``; a string is a
+    device name).
     ``parallel.data_axis == -1`` means all devices the model axis leaves."""
     if devices is None:
         if distributed():
@@ -88,7 +89,8 @@ def make_mesh(config: Config, devices: Optional[Sequence] = None) -> Mesh:
         elif torch.cuda.is_available():
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         else:
-            devices = [torch.device("cpu")]
+            raise RuntimeError("make_mesh: no CUDA device is visible and no torch.distributed "
+                               "process group is up; pass devices=['cpu'] for a CPU mesh")
     devices = [torch.device(d) if isinstance(d, str) else d for d in devices]
     n = len(devices)
     model = max(1, config.parallel.model_axis)
