@@ -26,8 +26,9 @@ exits non-zero without printing the final result line:
    the wide form (600 < H <= 1024) beside cuDNN's LSTM of width 1024
    (each form's ptxas registers and spilled bytes printed beside its step
    time; for ``lstm_seq_train``'s backward also the sweep's and the dW_hh
-   launches' profiler times, the dW_hh split, the sweep's registers and
-   spills and the wide sweep's plan), then ``lstm_seq`` (both xproj types)
+   launch's profiler times, the dW_hh launch's parts (its plan,
+   ``ops/lstm_seq_train.py:dw_plan``) and registers, the sweep's registers
+   and spills and the wide sweep's plan), then ``lstm_seq`` (both xproj types)
    and both ``lstm_seq_train`` launches at 30 small odd shapes (T in
    (1, 5), B in (1, 3, 37), H in (40, 600, 608, 1000, 1024), a length-1
    row), every LSTM
@@ -86,7 +87,7 @@ exits non-zero without printing the final result line:
    the wide forms, (80, 2, 32, 4096), each
    launched twice and required bitwise equal, with CUDA-event and
    graph-replay times, T = 1 against T = 80, and the backward's sweep and
-   dW_hh launches timed apart by the profiler, the dW_hh product also as
+   dW_hh launch timed apart by the profiler, the dW_hh product also as
    one bf16 ``bmm`` with float32 output;
 6. the training slice at full width (``Config()``, batch 32, label
    smoothing 0.1, Adam, clip 5): 96 synthetic clips and a CSV with a
@@ -296,9 +297,9 @@ from video_captioning_tpu_torch.ops.lstm_seq import (
     lstm_seq,
     lstm_seq_reference,
 )
-from video_captioning_tpu_torch.ops.lstm_seq_train import _kernel_lib as train_kernel_lib
 from video_captioning_tpu_torch.ops.lstm_seq_train import (
     bwd_wide_plan,
+    dw_plan,
     lstm_seq_train_bwd,
     lstm_seq_train_bwd_reference,
     lstm_seq_train_fwd,
@@ -702,7 +703,7 @@ def check_lstm(device: str, card: str, H: int = 512) -> dict:
                 return lambda: lstm_seq(x_n, w, m_n)
 
             steps = graph_step_ms(seq_call)
-            ptxas = fwd_resources("lstm_seq", H)
+            ptxas = fwd_resources("lstm_seq")
             result["main"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   graph_ms=dev_ms, **steps, **lim, **ptxas)
             print(f"[kernels] lstm_seq H={H}: bound {result['main']['bound_ms']:.4f} ms "
@@ -713,11 +714,11 @@ def check_lstm(device: str, card: str, H: int = 512) -> dict:
     return result["main"]
 
 
-def fwd_resources(source: str, H: int) -> dict:
+def fwd_resources(source: str) -> dict:
     """The most registers and spill-store bytes ptxas reported for the
-    forward kernel's instantiations of csrc/<source>.cu at this H: the
-    narrow form's (8 units a CTA) or the wide form's (16)."""
-    res = kernel_resources(source, "FwdTileILi16E" if H > NARROW_MAX_HIDDEN else "FwdTileILi8E")
+    forward kernel's instantiations of csrc/<source>.cu (one tile for
+    every H)."""
+    res = kernel_resources(source, "lstm_seq_fwd_kernel")
     return {"registers": max((r.get("registers", 0) for r in res.values()), default=None),
             "spill_bytes": max((r.get("spill_stores", 0) for r in res.values()), default=None)}
 
@@ -812,7 +813,7 @@ def cudnn_lstm(B: int, device: str, T=80, H=512, dtype=torch.float32):
 
 
 def dw_library_call(h_keep: torch.Tensor, dxproj: torch.Tensor):
-    """The dW_hh launches' function as one PyTorch call, for timing beside
+    """The dW_hh launch's function as one PyTorch call, for timing beside
     them: the batched product of bf16 h_keep[t - 1]^T and bf16 dxproj[t]
     over t >= 1 and the rows, float32 out (``aten::bmm.dtype``), on
     operands cast and laid out beforehand."""
@@ -878,7 +879,7 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
     out["fwd"]["ms"] = time_ms(fwd, calls=5)
     out["fwd"]["graph_ms"] = graph_ms(fwd)
     out["fwd"].update(graph_step_ms(fwd_call))
-    out["fwd"].update(fwd_resources("lstm_seq_train", H))
+    out["fwd"].update(fwd_resources("lstm_seq_train"))
     out["fwd"]["plain_ms"] = time_ms(lambda: lstm_seq_train_fwd_reference(xproj, w, mask),
                                      calls=1, runs=3)
     out["bwd"]["ms"] = time_ms(bwd, calls=5)
@@ -887,9 +888,13 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
     out["bwd"]["sweep_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_bwd",))
     out["bwd"]["dw_device_ms"] = device_ms(bwd, calls=5, keys=("lstm_seq_dw",))
     out["bwd"].update(bwd_resources(H))
-    # Printed, not measured: the split the C launcher returns, and the wide
-    # sweep's plan as ops/lstm_seq_train.py:bwd_wide_plan mirrors it.
-    dw_splits = train_kernel_lib().vct_lstm_seq_train_dw_splits(T, ND, B, H)
+    # Printed, not measured: the dW_hh launch's parts (its plan's) and
+    # registers, and the wide sweep's plan as ops/lstm_seq_train.py:
+    # bwd_wide_plan mirrors it.
+    dw_parts = dw_plan(T, B, H, ND, torch.cuda.get_device_properties(0).multi_processor_count)[
+        "parts"]
+    dw_regs = max((r.get("registers", 0) for r in kernel_resources(
+        "lstm_seq_train", "lstm_seq_dw_kernel").values()), default=None)
     plan = "narrow"
     if H > NARROW_MAX_HIDDEN:
         plan = {k: v for k, v in bwd_wide_plan(H, B, ND).items()
@@ -933,7 +938,8 @@ def check_lstm_train(device: str, card: str, B: int, H: int = 512) -> dict:
           f"{b_['sweep_device_ms']:.4f} ms, dW_hh {b_['dw_device_ms']:.4f} ms against its bound "
           f"{b_['dw_bound_ms']:.4f} ms; one bf16 bmm of the same product, float32 out, "
           f"{b_['dw_library_ms']:.4f} ms by graph replay, {dw_lib_rel:.3g} from the kernels' "
-          f"dW_hh relative to its largest value; dW_hh split in {dw_splits} parts), "
+          f"dW_hh relative to its largest value; dW_hh rows in {dw_parts} parts of a cluster, "
+          f"ptxas {dw_regs} registers), "
           f"plain {b_['plain_ms']:.4f} ms, bound {b_['bound_ms']:.4f} ms, cuDNN LSTM bwd "
           f"{b_['library_ms']:.4f} ms; sweep ptxas {b_['bwd_registers']} registers, "
           f"{b_['bwd_spill_bytes']} bytes spilled; sweep plan (mirror) {plan} "
@@ -3559,10 +3565,11 @@ def run_bf16_export(card: str, clips: np.ndarray, device: str = "cuda",
     bfloat16 features in, 40 launches of each beam-attention kernel and 20
     of ``topk2d_lse`` a call, the kernels' calls at the last step (every
     layer) and the last cross call taking a bfloat16 query and within
-    BF16_ULP_TOL of the plain versions on the same inputs, and the card's
-    tokens beside the CPU port's on the same bfloat16 features for the
-    first ``cpu_clips`` clips (beam agreement recorded: bfloat16 beams part
-    on near ties)."""
+    BF16_ULP_TOL of the plain versions on the same inputs, the live model's
+    tokens on the same card and bfloat16 features (ROADMAP C.10), and the
+    card's tokens beside the CPU port's on the same bfloat16 features for
+    the first ``cpu_clips`` clips (beam agreement recorded: bfloat16 beams
+    part on near ties)."""
     from video_captioning_tpu_torch.cli import export as cli_export
     from video_captioning_tpu_torch.inference.export import ExportedPredictor
 
@@ -3619,13 +3626,28 @@ def run_bf16_export(card: str, clips: np.ndarray, device: str = "cuda",
                         or max(ulps["self"], ulps["cross"]) > BF16_ULP_TOL):
                     raise AssertionError(f"bf16 exported {label}: kernels against the plain "
                                          f"versions on their recorded inputs {ulps}")
+            # The program against the live bf16 model on the same card and
+            # the same bfloat16 features (ROADMAP C.10), as the LSTM arm.
+            live = VideoCaptionPredictor(pkg, config=config, device=device,
+                                         compute_dtype="bfloat16")
+            live_tokens = decode_features(live, batch, torch.bfloat16, method, steps)
+            same_live = [r["tokens"] == t for r, t in zip(got, live_tokens)]
+            out["agreement"][f"{label} vs live"] = sum(same_live) / len(same_live)
+            if not all(same_live):
+                diverge = first_divergence(got, [{"tokens": t} for t in live_tokens])
+                raise AssertionError(f"bf16 exported {label}: tokens differ from the live "
+                                     f"model's on the same bfloat16 features on "
+                                     f"{len(diverge)} of {len(same_live)} clips, first at "
+                                     f"{diverge}")
             cpu = VideoCaptionPredictor(pkg, config=interpret_config(config), device="cpu",
                                         compute_dtype="bfloat16")
             cpu_tokens = decode_features(cpu, batch[:cpu_clips], torch.bfloat16, method, steps)
             same = [r["tokens"] == t for r, t in zip(got, cpu_tokens)]
             out["agreement"][label] = sum(same) / len(same)
             out["kernels_bf16_ulps"] = ulps
-            print(f"[bf16 export] {label} beam-5: the program was handed {dtypes}; launches "
+            print(f"[bf16 export] {label} beam-5: the program was handed {dtypes}; tokens "
+                  f"equal to the live bf16 model's on the same bfloat16 features for all "
+                  f"{len(batch)} clips; launches "
                   f"{ {k: n[k] for k in want} }; its beam_self_attention calls at t = "
                   f"{steps - 1} and last beam_cross_attention call took a {ulps['query_dtypes']} "
                   f"query and lie within {max(ulps['self'], ulps['cross']):g} bf16 ulp (beyond "

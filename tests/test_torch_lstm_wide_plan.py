@@ -1,10 +1,11 @@
-"""The wide recurrence forward's launch plan (``ops/lstm_seq.py:
+"""The recurrence forward's launch plan (``ops/lstm_seq.py:
 fwd_wide_plan``) and the wide backward sweep's (``ops/lstm_seq_train.py:
-bwd_wide_plan``) on the CPU, for every H the wide forms take (600 < H <=
-1024) and B = 1 .. 128, on one and two directions.
+bwd_wide_plan``) on the CPU, for every H the wide sweep takes (600 < H <=
+1024; the forward's plan below it too) and B = 1 .. 128, on one and two
+directions.
 
-The wide forward (csrc/lstm_seq_fwd.cuh, FwdWide) runs one CTA of 512
-threads an SM, 16 hidden units each, all of a direction's row group
+The forward (csrc/lstm_seq_fwd.cuh, Fwd: one tile for every H) runs one
+CTA of 512 threads an SM, 16 hidden units each, all of a direction's row group
 co-resident; each step it brings the direction's bf16 h in 32-row chunks
 through a ring of shared memory slots by 16-byte copies whose completion
 each slot's mbarrier counts. The plan mirrors the launcher's choice of row
@@ -100,8 +101,18 @@ def test_fwd_wide_plan_slices_large_batches(B):
     assert plan["slice"] == slice_rows
 
 
-def test_narrow_forms_take_no_ring():
-    assert fwd_ring(512, 128, 2) == fwd_ring(600, 37, 1) == 0
+def test_narrow_widths_take_the_plan_ring():
+    """The forward runs one tile for every H, so H <= 600 takes the same
+    plan's ring: every chunk of a step at the main path's shapes (two at
+    B = 128, one at B = 32), and at H = 600, B = 128 the three that fit of
+    four."""
+    assert fwd_ring(512, 128, 2) == fwd_wide_plan(512, 128, 2)["chunks"] == 2
+    assert fwd_ring(512, 32, 2) == 1
+    assert fwd_ring(600, 37, 1) == fwd_wide_plan(600, 37, 1)["ring"] >= 1
+    assert fwd_ring(600, 128, 2) == 3
+    for H in (8, 40, 512, 600):
+        for B in (1, 32, 37, 128):
+            _check(H, B, 2)
 
 
 # The wide backward sweep (csrc/lstm_seq_train.cu, lstm_seq_bwd_wide_kernel):

@@ -11,7 +11,7 @@
 // float32; a padded step (mask <= 0) carries the state and emits 0; the
 // final (h, c) is the state at each row's last valid step. Outputs are in
 // xproj's type (float32 or bfloat16). Any B >= 1, H a multiple of 8 up to
-// 1024: the narrow form up to 600, the wide form above (lstm_seq_fwd.cuh).
+// 1024, one tile for every H (lstm_seq_fwd.cuh).
 //
 // What bounds it on an H100, and the design: see lstm_seq_fwd.cuh (this
 // is its kernel without the residual writes). The recurrent product runs
@@ -20,8 +20,9 @@
 // float32 sums. The first version (float32 FMAs on CUDA cores over
 // widened operands, one grid-wide barrier a step) was bound by
 // shared-memory reads: 3.07 ms at (80, 2, 128, 2048) f32, about 38 us a
-// step, against about 0.95 ms and 12 us a step for this one
-// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// step; the first tensor-core design about 0.90 ms and 11.4 us a step, and
+// this one, a CTA of 16 units an SM, 0.68 ms and 8.5 us a step
+// (chip_smoke.py, compare_lstm.py; NVIDIA H100 80GB HBM3, 700 W).
 
 #include "lstm_seq_fwd.cuh"
 
@@ -29,15 +30,12 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H the kernel takes, and the largest its narrow form takes (the
-// wide form runs above it).
+// Largest H the kernel takes.
 extern "C" int vct_lstm_seq_max_hidden() { return vct::kMaxWideHidden; }
-extern "C" int vct_lstm_seq_narrow_max_hidden() { return vct::kMaxHidden; }
 
 // Returns a cudaError_t: 0 when the launches were accepted. hbuf is
 // (2, ND, B, H) bf16 and sync (ND, B) unsigned scratch, both uninitialised;
-// ring: the wide form's h chunk slots (ops/lstm_seq.py:fwd_wide_plan),
-// ignored by the narrow form.
+// ring: the h chunk slots of the plan (ops/lstm_seq.py:fwd_wide_plan).
 extern "C" int vct_lstm_seq(const void* xproj, int xproj_is_bf16,
                             const void* w_hh, const float* mask, void* outs,
                             void* h_last, void* c_last, void* hbuf, void* sync,

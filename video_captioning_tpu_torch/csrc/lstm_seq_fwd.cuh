@@ -10,65 +10,57 @@
 // What bounds it on an H100: the 80 sequential steps, each of which needs
 // the whole previous h of its direction. The work of a step is small
 // (2 x 128 x 512 x 2048 bf16 multiply-adds at the encoder's shape: about
-// 1 us of tensor-core time spread over the card), so a step costs what its
-// exchange costs: publishing h, meeting the other CTAs of the direction,
-// and reading B x H bf16 of h back through L2 (16 MB a step over all CTAs at
-// B = 128, about 3 us at L2 rates).
+// 1 us of tensor-core time spread over the card), so a step costs its
+// exchange: publishing h, meeting the other CTAs of the direction, reading
+// B x H bf16 of h back through L2, and the gate math on inputs read from
+// device memory. Variants of the first narrow design (probe_lstm.py,
+// NVIDIA H100 80GB HBM3, 700 W; 11.4 us a step at (80, 2, 128, 2048)):
+// without products a step took 10.4 us, products on stale h with no
+// copies, wait or publish 6.9, the counter wait with the gate math alone
+// 7.2; so the products are about 1 us, and the copies of h, which both of
+// an SM's CTAs of 8 units made, the rest beside the wait.
 //
-// Design: CTA (d, j0) owns hidden units j0..j0+7 of direction d with all
-// four gates (32 gate columns), for a slice of up to nb batch rows, for all
-// T steps. Its W_hh columns are bf16 mma.sync B fragments held in
-// registers for the whole launch: warp w owns k-tiles w, w + 8, ... of H
-// (split K), so every warp works at every B, B = 1 included. Each step it
-// stages the direction's bf16 h rows (32 rows a chunk, two chunks in
-// flight) with cp.async through L2 only, runs m16n8k16 bf16 products with
-// float32 accumulators (A fragments by ldmatrix), sums the eight warps'
-// partials through shared memory and applies the gate math in float32. The
-// float32 h and c of the CTA's (rows, units) stay in shared memory for all
-// T steps. It publishes bf16 h to a two-slot exchange buffer and meets only
-// the CTAs that share its rows (its direction and row group), at a counter
-// in device memory (release add, acquire spin): the directions and row
-// groups never wait for each other. The rows are split into as many row
-// groups as stay co-resident (two CTAs an SM at H = 512), so that two CTAs
-// of an SM hide each other's latencies. Step 0 reads no h (it is zero). The
-// launch is cooperative only so that the CTAs that meet are co-resident;
-// rows beyond what fits run as further launches (rows are independent).
+// Design: CTA (d, j0) owns hidden units j0..j0+15 of direction d with all
+// four gates (64 gate columns), for a slice of up to nb batch rows, for all
+// T steps, one CTA an SM (FwdTile, one instantiation, Fwd, for every H).
+// Its W_hh slice (H x 64 bf16) stays in registers as mma.sync B fragments,
+// spread over 16 warps (512 threads): 8 along K times 2 along the columns
+// (warp (kw, nw) owns k-tiles kw, kw + 8, ... for 4 n-tiles), so every
+// warp works at every B, B = 1 included. Each step, once the direction's
+// counter says h is published, every thread issues its 16-byte cp.async
+// share of the step's 32-row h chunks (through L2 only) into a ring of the
+// plan's slots (ops/lstm_seq.py:fwd_wide_plan), each slot completing on an
+// mbarrier that counts every thread's copies, a freed slot refilled at
+// once; m16n8k16 bf16 products with float32 accumulators (A fragments by
+// ldmatrix); the 8 K-slices' partial sums meet in shared memory (rows
+// padded to 72 floats: the float2 stores hit distinct banks) and are added
+// in warp order; the gate math runs in float32, one (row, unit) a thread.
+// The float32 h and c of the CTA's (rows, units) stay in shared memory for
+// all T steps. It publishes bf16 h to a two-slot exchange buffer and meets
+// only the CTAs that share its rows (its direction and row group), at a
+// counter in device memory (release add, acquire spin): the directions and
+// row groups never wait for each other. The rows are split into as many
+// row groups as stay co-resident (2 x 2 x 32 CTAs at H = 512). Units past
+// H are masked. Step 0 reads no h (it is zero). The launch is cooperative
+// only so that the CTAs that meet are co-resident; rows beyond what fits
+// run as further launches (rows are independent).
 //
-// The wide form (600 < H <= 1024, FwdWide): at 8 units a CTA a direction
-// would need H / 8 = 128 CTAs, both 256, and at H = 1024 only one fits an
-// SM (two 32-row h chunks are 132 KB), so the grid cannot be co-resident.
-// So a CTA owns 16 units (64 gate columns): 2 x 64 CTAs at H = 1024, one
-// an SM, within the H100's 132. Its W_hh slice (H x 64 bf16, 128 KB) stays
-// in registers, spread over 16 warps (512 threads): 8 along K times 2
-// along the columns, 8 k-tiles x 4 n-tiles a warp (64 registers a thread),
-// which keeps shared memory for the staged h (32-row chunks, 66 KB each at
-// H = 1024, through a ring of the plan's slots: two at B = 128) and the 8
-// K-slices' partial sums (rows padded to 72 floats: the float2 stores hit
-// distinct banks). Each step, once the direction's counter says h is
-// published, every thread issues its 16-byte cp.async share of the ring's
-// chunks, each slot completing on an mbarrier that counts every thread's
-// copies; a freed slot is refilled at once. Units past H (H = 1000 is not
-// a multiple of 16) are masked. The counters, the two-slot exchange and
-// launch_recurrence are the narrow form's.
+// The first narrow design (8 units and 8 warps a CTA, two CTAs an SM, two
+// chunks in flight by cp.async groups) read each h row twice an SM; this
+// one keeps its bits (the same k-tiles a warp, the same order of the
+// partial sums) and took 0.69 ms against 0.89 at (80, 2, 128, 2048) and
+// 0.33 against 0.40 at B = 32 (compare_lstm.py, NVIDIA H100 80GB HBM3,
+// 700 W). Staging the next step's xproj in shared memory by cp.async
+// moved nothing measurable and was dropped. The first wide form (8 warps
+// of 128 registers of W_hh, spills, two 16-row chunks in flight) was
+// slower too (PERF.md).
 //
-// The first wide form (8 warps of 8 k-tiles x 8 n-tiles, 128 registers of
-// W_hh a thread, 255 in all with spills; 16-row chunks, two in flight;
-// partials at stride 65, 4-way bank conflicts on their stores) spent a
-// chunk's time in the products and the gate math in turn, with one CTA of
-// 8 warps an SM to hide their latencies; probe builds (PERF.md) found that
-// a deeper ring of h alone did not help (h arrives in time), that copies
-// issued by one thread sat on the critical path, and that two CTAs an SM
-// at 8 units each, which read h twice from L2, were slower.
-//
-// Why this design and not one thread-block cluster per direction with h
-// exchanged through distributed shared memory: W_hh of one direction is
-// 2 MB in bf16 at H = 512 (2.9 MB at H = 600), so a cluster would need 16
-// CTAs (non-portable, one GPC each, and at H = 600 more shared memory than
-// an SM has beside the staged h), and it would put a direction's whole
-// step on 16 SMs. The counters keep the whole card at work, take every H
-// up to 1024, and the L2 exchange costs a few us a step: on an NVIDIA H100
-// 80GB HBM3 (700 W), about 12 us a step at (80, 2, 128, 2048) and 5.6 us
-// at B = 32, against a fixed cost of about 12 us a launch.
+// Why not one thread-block cluster per direction with h exchanged through
+// distributed shared memory: W_hh of one direction is 2 MB in bf16 at
+// H = 512 (2.9 MB at H = 600), so a cluster would need 16 CTAs
+// (non-portable, one GPC each), and it would put a direction's whole step
+// on 16 SMs. The counters keep the whole card at work and take every H up
+// to 1024.
 
 #pragma once
 
@@ -82,8 +74,8 @@ namespace vct {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHidden = 600;        // the narrow form's largest H
-constexpr int kMaxWideHidden = 1024;   // the wide form's: the kernels' limit
+constexpr int kMaxHidden = 600;        // the narrow backward sweep's largest H
+constexpr int kMaxWideHidden = 1024;   // the kernels' limit
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on Hopper
 
 // ---------------------------------------------------------------- primitives
@@ -303,46 +295,40 @@ int launch_recurrence(K* kernel_fn, P p, int unit_groups, int min_rows, SmemOf s
 
 // ------------------------------------------------------------------ forward
 
-constexpr int kUnits = 8;             // hidden units per CTA, all four gates
-constexpr int kCols = 4 * kUnits;     // gate columns per CTA: 4 n-tiles of 8
+constexpr int kUnits = 8;             // the kernels take H a multiple of this
 constexpr int kFwdRows = 32;          // batch rows of h staged per chunk
-constexpr int kPartStride = kCols + 1;
-// k-tiles of 16 per warp: ceil(ceil(600 / 16) / 8) = 5.
-constexpr int kFwdKt = ((kMaxHidden + 15) / 16 + kWarps - 1) / kWarps;
 
 // The forward's tiling: Units hidden units a CTA (4 x Units gate columns),
 // Rows batch rows of h a staged chunk (Units x Rows = Threads: one epilogue
 // item a thread), Threads / 32 warps: Nw along the gate columns (4 Units /
 // 8 / Nw n-tiles a warp) times Kw = Threads / 32 / Nw along K (Kt k-tiles of
 // W_hh a warp, held in registers; the Kw partial sums meet in shared
-// memory, rows PartPad floats longer than the columns: 1, or 8 with
-// conflict-free float2 stores), MinBlocks CTAs an SM. Ring: h arrives
-// through the plan's ring of chunk slots, each completing on an mbarrier;
-// otherwise two chunks in flight tracked by cp.async groups.
-template <int Units, int Rows, int Kt, int MinBlocks, bool Ring, int PartPad, int Threads,
-          int Nw>
+// memory, rows PartPad floats longer than the columns, so that their float2
+// stores hit distinct banks), MinBlocks CTAs an SM. h arrives through the
+// plan's ring of chunk slots, each completing on an mbarrier.
+template <int Units, int Rows, int Kt, int MinBlocks, int PartPad, int Threads, int Nw>
 struct FwdTile {
   static constexpr int kUnits = Units;
   static constexpr int kRows = Rows;
   static constexpr int kKt = Kt;
   static constexpr int kMinBlocks = MinBlocks;
-  static constexpr bool kRing = Ring;
   static constexpr int kThreads = Threads;
   static constexpr int kKw = Threads / 32 / Nw;
   static constexpr int kNt = 4 * Units / 8 / Nw;
   static constexpr int kMt = Rows / 16;
   static constexpr int kPartStride = 4 * Units + PartPad;
   static_assert(Units * Rows == Threads, "one epilogue item a thread");
+  static_assert(PartPad % 2 == 0, "float2 partial stores");
 };
-// H <= 600: 8 units a CTA, two CTAs an SM (W_hh slice 40 registers a thread).
-using FwdNarrow = FwdTile<kUnits, kFwdRows, kFwdKt, 2, false, 1, kThreads, 1>;
-// 600 < H <= 1024: 16 units a CTA (64 gate columns, so 2 x 64 CTAs at
-// H = 1024 are co-resident one an SM on 132 SMs), 16 warps: 8 along K
-// times 2 along the columns, so the CTA's W_hh slice (H x 64 bf16) is 8
-// k-tiles x 4 n-tiles of B fragments a warp, 64 registers a thread; h
-// staged 32 rows a chunk (66 KB at H = 1024) through a ring of up to
-// kMaxRing chunk slots (ops/lstm_seq.py:fwd_wide_plan).
-using FwdWide = FwdTile<16, 32, (kMaxWideHidden / 16) / 8, 1, true, 8, 512, 2>;
+// 16 units a CTA (64 gate columns, so 2 x 64 CTAs at H = 1024 are
+// co-resident one an SM on 132 SMs), 16 warps: 8 along K times 2 along the
+// columns, so the CTA's W_hh slice (H x 64 bf16) is Kt k-tiles x 4 n-tiles
+// of B fragments a warp; h staged 32 rows a chunk through a ring of up to
+// kMaxRing chunk slots (ops/lstm_seq.py:fwd_wide_plan). 8 k-tiles a warp
+// (64 registers a thread) cover H = 1024; below it a warp's k-tiles past H
+// are skipped, so the k-tiles a warp and the order of the partial sums
+// are the same at every H.
+using Fwd = FwdTile<16, kFwdRows, (kMaxWideHidden / 16) / 8, 1, 8, 512, 2>;
 constexpr int kMaxRing = 16;
 
 struct FwdParams {
@@ -361,20 +347,19 @@ struct FwdParams {
   int T, ND, B, H;
   int b0, slice_rows;          // this launch's batch rows
   int nb, row_groups;          // rows a CTA (at most), row groups a direction
-  int ring;                    // the wide form's h chunk slots (its plan's); 0 narrow
+  int ring;                    // h chunk slots (the plan's)
 };
 
 __host__ __device__ inline int fwd_kpad(int H) { return (H + 15) / 16 * 16; }
 
-// The ring's mbarriers (Ring), the h chunk slots (two, or the ring's; row
-// stride kpad + 8 bf16: ldmatrix rows in distinct banks), the Kw partial
-// sums, and the float32 h and c of nb rows.
+// The ring's mbarriers, the h chunk slots (row stride kpad + 8 bf16:
+// ldmatrix rows in distinct banks), the Kw partial sums and the float32 h
+// and c of nb rows. ops/lstm_seq.py:fwd_wide_smem mirrors it.
 __host__ __device__ inline int fwd_bar_bytes(int ring) { return (8 * ring + 15) / 16 * 16; }
 template <typename Tile>
 inline size_t fwd_smem_bytes(int H, int nb, int ring) {
-  const int slots = Tile::kRing ? ring : 2;
-  return static_cast<size_t>(Tile::kRing ? fwd_bar_bytes(ring) : 0) +
-         static_cast<size_t>(slots * Tile::kRows) * (fwd_kpad(H) + 8) * 2 +
+  return static_cast<size_t>(fwd_bar_bytes(ring)) +
+         static_cast<size_t>(ring * Tile::kRows) * (fwd_kpad(H) + 8) * 2 +
          static_cast<size_t>(Tile::kKw) * Tile::kRows * Tile::kPartStride * 4 +
          static_cast<size_t>(nb) * Tile::kUnits * 8;
 }
@@ -393,11 +378,10 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
   const int kpad = fwd_kpad(H);
   const int hstride = kpad + 8;
   const int KT = kpad / 16;
-  const int slots = Tile::kRing ? p.ring : 2;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [ring] (Ring)
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(
-      smem + (Tile::kRing ? fwd_bar_bytes(p.ring) : 0));  // [slots][R][hstride]
-  float* part = reinterpret_cast<float*>(hs + slots * R * hstride);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [ring]
+  __nv_bfloat16* hs =
+      reinterpret_cast<__nv_bfloat16*>(smem + fwd_bar_bytes(p.ring));  // [ring][R][hstride]
+  float* part = reinterpret_cast<float*>(hs + p.ring * R * hstride);
   float* st_h = part + kKw * R * PS;  // [nb][U]
   float* st_c = st_h + p.nb * U;
 
@@ -440,14 +424,14 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
   }
   // Zero k columns past H (never copied into) and the carried state.
   const int kx = kpad - H;
-  for (int e = tid; e < slots * R * kx; e += kThreads) {
+  for (int e = tid; e < p.ring * R * kx; e += kThreads) {
     hs[(e / kx) * hstride + H + e % kx] = zero;
   }
   for (int e = tid; e < rr.n * U; e += kThreads) {
     st_h[e] = 0.0f;
     st_c[e] = 0.0f;
   }
-  if (Tile::kRing && tid == 0) {
+  if (tid == 0) {
     for (int i = 0; i < p.ring; ++i) mbar_init(&bars[i], kThreads);
   }
   __syncthreads();
@@ -475,19 +459,17 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
     // accumulators), their latency behind the partial sums' barrier.
     auto load_x = [&](int c, T (&x)[4], float& m) {
       const int bl = c * R + er;
-      if (c >= n_chunks || bl >= rr.n || !unit_in) return;
+      if (bl >= rr.n || !unit_in) return;
       const T* xr = xproj + (step_row + bl) * H4 + j;
 #pragma unroll
       for (int q = 0; q < 4; ++q) x[q] = xr[q * H];
       m = p.mask == nullptr ? 1.0f : p.mask[static_cast<size_t>(rr.b0 + bl) * p.T + t];
     };
-    // Chunk c's rows of h into a slot by 16-byte cp.async from every
-    // thread: slot c & 1 (two in flight, cp.async groups), or with Ring,
-    // slot (gbase + c) % ring, each thread's arrival on the slot's mbarrier
+    // Chunk c's rows of h into slot (gbase + c) % ring by 16-byte cp.async
+    // from every thread, each thread's arrival on the slot's mbarrier
     // following its copies.
     auto stage = [&](int c) {
-      const unsigned gc = gbase + c;
-      const int slot = Tile::kRing ? static_cast<int>(gc % p.ring) : (c & 1);
+      const int slot = static_cast<int>((gbase + c) % p.ring);
       __nv_bfloat16* dst = hs + slot * R * hstride;
       const int r0 = c * R;
       const int rows = min(R, rr.n - r0);
@@ -497,10 +479,9 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
         cp_async16(dst + r * hstride + v * 8,
                    hcur + static_cast<size_t>(rr.b0 + r0 + r) * H + v * 8);
       }
-      if (Tile::kRing) mbar_arrive_on_copies(&bars[slot]);
+      mbar_arrive_on_copies(&bars[slot]);
     };
-    // Next step's gate inputs into L2 while this step runs.
-    if (t + 1 < p.T) {
+    if (t + 1 < p.T) {  // next step's gate inputs into L2
       const size_t next = step_row + static_cast<size_t>(p.ND) * p.B;
       for (int e = tid; e < rr.n * 4; e += kThreads)
         prefetch_l2(xproj + (next + e / 4) * H4 + (e % 4) * H + j0);
@@ -508,14 +489,7 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
     if (t > 0) {  // step 0's h is zero: no product
       if (tid == 0) dir_wait(counter, static_cast<unsigned>(t * unit_groups));
       __syncthreads();
-      if (Tile::kRing) {  // a ring's worth of chunks in flight
-        for (int c = 0; c < min(p.ring, n_chunks); ++c) stage(c);
-      } else {
-        stage(0);
-        cp_async_commit();
-        if (n_chunks > 1) stage(1);
-        cp_async_commit();
-      }
+      for (int c = 0; c < min(p.ring, n_chunks); ++c) stage(c);  // a ring's worth in flight
     }
 
     for (int c = 0; c < n_chunks; ++c) {
@@ -524,17 +498,12 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
       float mv = 0.0f;
       if (t == 0) load_x(c, xv, mv);
       if (t > 0) {
-        if (Tile::kRing) {
-          const unsigned gc = gbase + c;
-          mbar_wait(&bars[gc % p.ring], (gc / p.ring) & 1);  // chunk c has landed
-        } else {
-          cp_async_wait_one();  // chunk c has landed
-        }
+        const unsigned gc = gbase + c;
+        mbar_wait(&bars[gc % p.ring], (gc / p.ring) & 1);  // chunk c has landed
         __syncthreads();  // for every thread; the last epilogue is done
         // This warp's k-tiles of each m-tile of the chunk, then its partial
         // sums (m-tile by m-tile: 4 kNt accumulators live at a time).
-        const __nv_bfloat16* hb =
-            hs + (Tile::kRing ? static_cast<int>((gbase + c) % p.ring) : (c & 1)) * R * hstride;
+        const __nv_bfloat16* hb = hs + static_cast<int>(gc % p.ring) * R * hstride;
         float* pw = part + kw * R * PS + nw * Tile::kNt * 8;
 #pragma unroll
         for (int mi = 0; mi < Tile::kMt; ++mi) {
@@ -558,26 +527,15 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
           // Accumulator q of an m16n8 tile: row g + 8 (q / 2), column 2 tq + q % 2.
 #pragma unroll
           for (int nt = 0; nt < Tile::kNt; ++nt) {
-            if (PS % 2 == 0) {
 #pragma unroll
-              for (int h2 = 0; h2 < 2; ++h2)
-                *reinterpret_cast<float2*>(pw + (mi * 16 + g + h2 * 8) * PS + nt * 8 + 2 * tq) =
-                    make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
-            } else {
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                pw[(mi * 16 + g + (q >> 1) * 8) * PS + nt * 8 + 2 * tq + (q & 1)] = acc[nt][q];
-            }
+            for (int h2 = 0; h2 < 2; ++h2)
+              *reinterpret_cast<float2*>(pw + (mi * 16 + g + h2 * 8) * PS + nt * 8 + 2 * tq) =
+                  make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
           }
         }
         load_x(c, xv, mv);
-        __syncthreads();  // partials written; chunk c's buffer is free
-        if (Tile::kRing) {
-          if (c + p.ring < n_chunks) stage(c + p.ring);
-        } else {
-          if (c + 2 < n_chunks) stage(c + 2);
-          cp_async_commit();  // possibly empty: keeps the group count in step
-        }
+        __syncthreads();  // partials written; chunk c's slot is free
+        if (c + p.ring < n_chunks) stage(c + p.ring);
       }
 
       if (er < rows && unit_in) {
@@ -639,22 +597,17 @@ __global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
   }
 }
 
-// The narrow form up to kMaxHidden, the wide one above it (with the ring
-// of its plan, 1 <= p.ring <= kMaxRing).
+// Every H up to kMaxWideHidden, with the ring of its plan
+// (1 <= p.ring <= kMaxRing).
 template <typename T, bool kResiduals>
 int launch_fwd(const FwdParams& p, cudaStream_t stream) {
   const int H = p.H;
-  if (H <= kMaxHidden) {
-    return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdNarrow>, p,
-                             H / FwdNarrow::kUnits, 16,
-                             [H](int nb) { return fwd_smem_bytes<FwdNarrow>(H, nb, 0); }, stream);
-  }
   if (p.ring < 1 || p.ring > kMaxRing) return static_cast<int>(cudaErrorInvalidValue);
   const int ring = p.ring;
-  return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, FwdWide>, p,
-                           (H + FwdWide::kUnits - 1) / FwdWide::kUnits, 16,
-                           [H, ring](int nb) { return fwd_smem_bytes<FwdWide>(H, nb, ring); },
-                           stream, FwdWide::kThreads);
+  return launch_recurrence(&lstm_seq_fwd_kernel<T, kResiduals, Fwd>, p,
+                           (H + Fwd::kUnits - 1) / Fwd::kUnits, 16,
+                           [H, ring](int nb) { return fwd_smem_bytes<Fwd>(H, nb, ring); },
+                           stream, Fwd::kThreads);
 }
 
 }  // namespace vct

@@ -22,8 +22,8 @@
 //   DH    <- bf16(dgates) . bf16(W_hh)^T + (1 - m) DH
 //   dW_hh += bf16(h_prev)^T . bf16(dgates)        (float32 sums)
 //   dxproj[t] = dgates in float32, cast to xproj's type.
-// Any B >= 1, H a multiple of 8 up to 1024: the narrow form up to 600, the
-// wide form above.
+// Any B >= 1, H a multiple of 8 up to 1024: one forward tile for every H;
+// the backward sweep's narrow form up to 600, its wide form above.
 //
 // What bounds it on an H100: the sweep is sequential in T, and each step's
 // dh product needs all 4H dgates of every row of its direction, so a step
@@ -41,12 +41,12 @@
 //   Its 16 rows of W_hh[d] are bf16 mma.sync B fragments in registers (warp
 //   w owns k-tiles w, w + 8, ... of 4H). Each step: phase A computes the
 //   CTA's 64 dgates columns elementwise, writes dxproj and publishes
-//   bf16(dgates) to a two-slot (2, ND, B, 4H) exchange buffer; the CTAs
-//   that share its rows meet at their counter; phase B stages 16 rows of bf16
-//   dgates at a time with cp.async (two chunks in flight), runs m16n8k16
-//   products with float32 accumulators and sums the warps' partials into
-//   DH. The exchange stays bf16 from writer to mma; 16 units a CTA halve
-//   what 8 would read.
+//   bf16(dgates) to the exchange buffer (T, ND, B, 4H), a slot a step, which
+//   the dW_hh launch then reads; the CTAs that share its rows meet at their
+//   counter; phase B stages 16 rows of bf16 dgates at a time with cp.async
+//   (two chunks in flight), runs m16n8k16 products with float32
+//   accumulators and sums the warps' partials into DH. The exchange stays
+//   bf16 from writer to mma; 16 units a CTA halve what 8 would read.
 // - Backward sweep, wide form (600 < H <= 1024): CTAs of 16 units, one an
 //   SM (2 x 64 at H = 1024), paired in thread block clusters that split K:
 //   each CTA multiplies half of the 4H dgates columns by W_hh of the pair's
@@ -57,20 +57,29 @@
 //   of W_hh, 244-246 registers a thread; all 4H columns a CTA, two stages
 //   in flight, each behind a cp.async wait and two barriers) took 1.458 ms
 //   for the backward at (80, 2, 32, 4096), 0.909 ms of it the sweep.
-// - dW_hh: ordinary launches after the sweep, a bf16 tensor-core GEMM
-//   over K = (T - 1) B rows of (h_keep[t - 1], dxproj[t]): 128 x 256 output
-//   tiles, 32 rows a stage in two shared-memory stages, the next stage's
-//   loads held raw in registers during the current stage's products and
-//   rounded to bf16 as they are stored (bf16 dxproj is already the
-//   contract's bf16(dgates)), fragments by ldmatrix.trans, float32
-//   accumulators in registers. K is split into parts so that the card
-//   holds about two CTAs an SM; a second launch sums the parts in a fixed
-//   order, so the result is the same every launch.
+// - dW_hh: one launch after the sweep, a bf16 wgmma GEMM over the (T - 1) B
+//   rows of (h_keep[t - 1], bf16 dgates[t]) fed by the TMA, its rows split
+//   over the CTAs of a cluster and summed in rank order through distributed
+//   shared memory (lstm_seq_dw_kernel; see the comment above it). Its
+//   first design (mma.sync from two shared-memory stages, float32 h_keep
+//   and dxproj loaded through registers and rounded as stored, the rows
+//   split into 2-5 parts whose float32 partials a second launch summed)
+//   took 0.095 / 0.360 ms at B = 32 / 128 and 0.333 ms at H = 1024, B =
+//   32, against 0.017 / 0.057 / 0.060 for one bf16 bmm on operands cast
+//   beforehand (probe_lstm.py). Variants of it (probe_lstm.py) found it bound by getting
+//   its operands in: its loads without products took 0.6 of it. Copying
+//   the same tiles by 16-byte cp.async from every thread spent the threads'
+//   issue slots on the copies and was slower than the TMA; stages of 32
+//   rows (a ring of 6) are slower than 64 (a ring of 3) by the stages'
+//   fixed cost (probe_lstm.py; PERF.md). This design took 0.029 / 0.085 /
+//   0.090 ms against the first's 0.095 / 0.363 / 0.331 in one
+//   compare_lstm.py call, the whole backward at B = 32 0.508 against 0.564
+//   (NVIDIA H100 80GB HBM3, 700 W).
 // The first version (float32 FMAs on CUDA cores, dgates widened to float32
 // in shared memory, one grid-wide barrier a step, a float32 SIMT dW_hh)
-// took 11.46 ms for the backward at B = 128; this one about 1.7 ms, with
-// dW_hh about 0.36 ms of it, still bound by its loads' latency
-// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// took 11.46 ms for the backward at B = 128.
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is looked up at run time)
 
 #include "lstm_seq_fwd.cuh"
 
@@ -101,7 +110,7 @@ struct BwdParams {
   const void* douts;           // (T, ND, B, H), xproj's type; nullptr = 0
   const float* dh_last;        // (ND, B, H) or nullptr = 0
   const float* dc_last;        // (ND, B, H) or nullptr = 0
-  __nv_bfloat16* gbuf;         // (2, ND, B, 4H) exchange of bf16(dgates)
+  __nv_bfloat16* gbuf;         // (T, ND, B, 4H) exchange of bf16(dgates), a slot a step
   void* dxproj;                // (T, ND, B, 4H), xproj's type
   unsigned* sync;              // (ND, B) counters; ND x row_groups used
   int T, ND, B, H;
@@ -174,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
 
   for (int s = 0; s < p.T; ++s) {
     const int t = p.T - 1 - s;
-    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H4;
+    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t) * p.ND + d) * p.B * H4;
     const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
 
     // Phase A: the CTA's dgates columns for its rows. Each thread loads the
@@ -354,7 +363,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_seq_bwd_kernel(BwdParams p) 
 //   the mask), which do not depend on the recurrence, are staged into
 //   shared memory by cp.async during phase B, on an mbarrier of their own,
 //   so phase A reads no device memory on the critical path.
-// The counters and the two-slot exchange are the narrow form's; the launch
+// The counters and the exchange buffer are the narrow form's; the launch
 // is launch_recurrence's with clusters of 2.
 constexpr int kBwdWideThreads = 512;
 constexpr int kBwdWideWarps = kBwdWideThreads / 32;
@@ -567,7 +576,7 @@ __global__ void __launch_bounds__(kBwdWideThreads, 1) lstm_seq_bwd_wide_kernel(B
   stage_inputs(p.T - 1);
   for (int s = 0; s < p.T; ++s) {
     const int t = p.T - 1 - s;
-    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t & 1) * p.ND + d) * p.B * H4;
+    __nv_bfloat16* gnow = p.gbuf + (static_cast<size_t>(t) * p.ND + d) * p.B * H4;
     const size_t step_row = (static_cast<size_t>(t) * p.ND + d) * p.B + rr.b0;
 
     // Phase A: the CTA's dgates columns for its rows, from the staged inputs.
@@ -702,190 +711,310 @@ __global__ void __launch_bounds__(kBwdWideThreads, 1) lstm_seq_bwd_wide_kernel(B
   cluster_sync();  // the peer may still write into this CTA's partials
 }
 
-// dW_hh tiles: 128 k (of H) x 256 columns (of 4H), 32 rows of the
-// reduction a stage; 16 warps as 4 x 4 blocks of 32 x 64. Large tiles
-// because the product reads its operands from L2 once per tile row or
-// column: at 64 x 128 the re-reads (2 GB at B = 128) bounded it.
+// dW_hh: an ordinary launch after the sweep, a Hopper GEMM. CTA tiles of
+// 128 k (of H) x 256 columns (of 4H), two warpgroups of 64 k each running
+// wgmma m64n256k16 with float32 accumulators (128 a thread): A = h^T from
+// registers, B = the dgates N-major from shared memory. The reduction's
+// rows q = (t - 1) B + b, t >= 1, arrive by the TMA in stages of up to
+// kDwK rows (tbox steps x bbox rows) through a ring of kDwRing
+// stages on mbarriers: bf16(dgates) from the sweep's exchange buffer,
+// which keeps every step's slot (T, ND, B, 4H), so no rounding and half the
+// bytes of float32 dxproj, 128-byte swizzled as wgmma reads it; float32
+// h_keep, 128-byte swizzled in boxes of 32 k, which each thread reads into
+// its A fragments and rounds to bf16 once. The CTAs of a thread block
+// cluster (blockIdx.x % parts) split the stages into parts; each
+// sends the rows of its tile that another rank owns into that rank's
+// shared memory, and each rank adds its rows' parts in rank order and
+// stores them, so the result is the same every launch and no partial
+// leaves the SMs. The parts and the boxes are the plan's
+// (ops/lstm_seq_train.py:dw_plan), which the C entry validates.
 constexpr int kDwM = 128;
 constexpr int kDwN = 256;
-constexpr int kDwK = 32;
-constexpr int kDwThreads = 512;
-constexpr int kDwAStride = kDwM + 8;  // bf16; ldmatrix rows in distinct banks
-constexpr int kDwBStride = kDwN + 8;
-constexpr size_t kDwSmem = 2 * kDwK * (kDwAStride + kDwBStride) * 2;
+constexpr int kDwK = 64;
+constexpr int kDwThreads = 256;    // two warpgroups
+constexpr int kDwRing = 3;         // stages in flight
+constexpr int kDwMaxParts = 8;     // CTAs of a cluster that split the rows
+constexpr int kDwRecvStride = kDwN + 8;  // floats a row of the parts' exchange
+// A stage: the dgates (4 boxes of 64 columns, each kDwK rows of 128 bytes),
+// then h (4 boxes of 32 k, the same), all 128-byte swizzled; the ring's
+// mbarriers after the stages.
+constexpr size_t kDwBoxBytes = static_cast<size_t>(kDwK) * 128;
+constexpr size_t kDwStageBytes = 8 * kDwBoxBytes;
+constexpr size_t kDwRecvBytes = static_cast<size_t>(kDwM) * kDwRecvStride * 4;
+constexpr size_t kDwRegion =
+    kDwRing * kDwStageBytes > kDwRecvBytes ? kDwRing * kDwStageBytes : kDwRecvBytes;
+constexpr size_t kDwSmem = kDwRegion + 8 * kDwRing + 1024;
 
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return pack2(__float2bfloat16(lo), __float2bfloat16(hi));  // nearest even
 }
+// v0, v1 at p in the shared memory of cluster CTA `rank`.
+__device__ __forceinline__ void st_cluster_f32x2(float* p, uint32_t rank, float v0, float v1) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)),
+               "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(v0), "f"(v1)
+               : "memory");
+}
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
 
-// Eight consecutive values of a dW_hh operand row, held as loaded until
-// they are stored to shared memory as bf16, so that the loads of the next
-// stage stay in flight during the current stage's products.
-template <typename T>
-struct Raw8;
-template <>
-struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* src) {
-    a = __ldg(reinterpret_cast<const float4*>(src));
-    b = __ldg(reinterpret_cast<const float4*>(src) + 1);
-  }
-  __device__ __forceinline__ void zero() { a = b = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ __forceinline__ uint4 bf16() const {
-    return make_uint4(bf16_pair(a.x, a.y), bf16_pair(a.z, a.w), bf16_pair(b.x, b.y),
-                      bf16_pair(b.z, b.w));
-  }
-};
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 v;
-  __device__ __forceinline__ void load(const __nv_bfloat16* src) {
-    v = __ldg(reinterpret_cast<const uint4*>(src));
-  }
-  __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ uint4 bf16() const { return v; }
-};
+// The box of a 4-D tensor map at coordinates c into shared memory by the
+// TMA, counted on bar's transaction count; parts outside the tensor are
+// zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+#define VCT_ACC8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d += A . B for a 64 x 256 x 16 step of the warpgroup: A (bf16) in
+// registers, mma.sync's m16k16 fragments a warp (warp w of the group holds
+// rows 16 w .. 16 w + 15), B (bf16) N-major in shared memory (descriptor
+// db); float32 accumulators, 128 a thread: d[4 i + e] is row g + 8 (e / 2),
+// column 8 i + 2 tq + e % 2 of the warp's rows.
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : VCT_ACC8(0), VCT_ACC8(8), VCT_ACC8(16), VCT_ACC8(24), VCT_ACC8(32), VCT_ACC8(40),
+        VCT_ACC8(48), VCT_ACC8(56), VCT_ACC8(64), VCT_ACC8(72), VCT_ACC8(80), VCT_ACC8(88),
+        VCT_ACC8(96), VCT_ACC8(104), VCT_ACC8(112), VCT_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef VCT_ACC8
 
 // dw[d][k][c] = sum over t >= 1 and b of
-//   bf16(h_keep[t - 1][d][b][k]) * bf16(dxproj[t][d][b][c]),
-// the reduction split in blockIdx.z / ND parts of `split_steps` stages
-// each: part 0 goes to dw, part s > 0 to part[s - 1] (ND, H, 4H), summed
-// into dw in order by lstm_seq_dw_sum_kernel.
-template <typename T>
+//   bf16(h_keep[t - 1][d][b][k]) * dg[t][d][b][c]   (dg: bf16 dgates),
+// part `rank` of `parts` taking stages [rank part_steps, (rank + 1)
+// part_steps). map_h is h_keep as (H, B, ND, T) float32 in boxes of
+// (32, bbox, 1, tbox), map_g dg as (4H, B, ND, T) bf16 in boxes of (64,
+// bbox, 1, tbox); stage s holds steps t0 .. t0 + tbox - 1 (t0 = 1 + s / nbc
+// tbox) and rows b0 .. b0 + bbox - 1 (b0 = s % nbc bbox), nbc = ceil(B /
+// bbox).
 __global__ void __launch_bounds__(kDwThreads, 1) lstm_seq_dw_kernel(
-    const float* __restrict__ h_keep, const T* __restrict__ dxproj, float* __restrict__ dw,
-    float* __restrict__ part, int split_steps, int Tn, int ND, int B, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto as = reinterpret_cast<__nv_bfloat16(*)[kDwK][kDwAStride]>(smem);  // [2][q][k]
-  auto bs = reinterpret_cast<__nv_bfloat16(*)[kDwK][kDwBStride]>(
-      smem + 2 * kDwK * kDwAStride * 2);  // [2][q][c]
+    const __grid_constant__ CUtensorMap map_h, const __grid_constant__ CUtensorMap map_g,
+    float* __restrict__ dw, int parts, int part_steps, int steps, int nbc, int bbox, int tbox,
+    int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDwRegion);  // [kDwRing]
   const int H4 = 4 * H;
-  const int n0 = blockIdx.x * kDwN;
-  const int m0 = blockIdx.y * kDwM;
-  const int d = blockIdx.z % ND;
-  const int split = blockIdx.z / ND;
+  const int n_tiles = (H4 + kDwN - 1) / kDwN;
+  const int m_tiles = (H + kDwM - 1) / kDwM;
+  const int tile = blockIdx.x / parts;
+  const int rank = parts > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int n0 = (tile % n_tiles) * kDwN;
+  const int m0 = (tile / n_tiles % m_tiles) * kDwM;
+  const int d = tile / (n_tiles * m_tiles);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int q_begin = split * split_steps * kDwK;
-  const int q_end = min((Tn - 1) * B, q_begin + split_steps * kDwK);
-  // Staging: eight k of one h row and sixteen columns of one dxproj row a
-  // thread (H and 4H are multiples of 8: a group is all in range or none).
-  const int lq = tid / 16;
-  const int la = (tid % 16) * 8;
-  const int lb = (tid % 16) * 16;
-  Raw8<float> va;
-  Raw8<T> vb0, vb1;
-  auto fetch = [&](int q0) {
-    const int q = q0 + lq;
-    va.zero();
-    vb0.zero();
-    vb1.zero();
-    if (q < q_end) {
-      const int t = q / B + 1;
-      const int b = q % B;
-      if (m0 + la < H)
-        va.load(h_keep + ((static_cast<size_t>(t - 1) * ND + d) * B + b) * H + m0 + la);
-      if (n0 + lb < H4) {
-        const T* src = dxproj + ((static_cast<size_t>(t) * ND + d) * B + b) * H4 + n0 + lb;
-        vb0.load(src);
-        vb1.load(src + 8);
-      }
-    }
-  };
-  float acc[2][8][4] = {};
-  fetch(q_begin);
-  const int k_steps = (q_end - q_begin + kDwK - 1) / kDwK;
-  for (int s = 0; s < k_steps; ++s) {
-    const int st = s & 1;
-    *reinterpret_cast<uint4*>(&as[st][lq][la]) = va.bf16();
-    *reinterpret_cast<uint4*>(&bs[st][lq][lb]) = vb0.bf16();
-    *reinterpret_cast<uint4*>(&bs[st][lq][lb + 8]) = vb1.bf16();
-    __syncthreads();
-    if (s + 1 < k_steps) fetch(q_begin + (s + 1) * kDwK);  // in flight during the products
-#pragma unroll
-    for (int ks = 0; ks < kDwK; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // A = h^T: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
-        // (m 8-15, k 8-15) of the [q][k] tile, each transposed.
-        ldmatrix_x4_trans(a[mi], &as[st][ks + (lane & 7) + (lane >> 4) * 8]
-                                    [wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8]);
-      }
-#pragma unroll
-      for (int pair = 0; pair < 4; ++pair) {
-        uint32_t bf[4];  // b0, b1 of n-tiles 2 pair and 2 pair + 1
-        ldmatrix_x4_trans(bf, &bs[st][ks + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                 [wn * 64 + pair * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * pair], a[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * pair + 1], a[mi], bf[2], bf[3]);
-        }
-      }
-    }
-    // The next iteration writes the other stage; the one after that
-    // rewrites this one only after the next iteration's barrier.
+  const int mrow = (warp / 4) * 64 + (warp % 4) * 16 + g;  // this thread's first tile row
+  const int s_begin = min(steps, rank * part_steps);
+  const int k_steps = min(steps, s_begin + part_steps) - s_begin;
+  const int rows = bbox * tbox;  // of a stage; the rest of its kDwK stay zero
+  const uint32_t stage_tx = static_cast<uint32_t>(8 * rows * 128);
+  // Rows past a stage's boxes are never written: zero them in every slot.
+  for (int e = tid; e < kDwRing * 8 * (kDwK - rows) * 8; e += kDwThreads) {
+    const int r = rows + (e / 8) % (kDwK - rows);
+    const int box = e / 8 / (kDwK - rows);  // slot * 8 + box of the slot
+    *reinterpret_cast<uint4*>(smem + box * kDwBoxBytes + r * 128 + (e % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
-  float* out = split == 0 ? dw : part + static_cast<size_t>(split - 1) * ND * H * H4;
+  if (tid == 0) {
+    for (int i = 0; i < kDwRing; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros, for the TMA and wgmma
+  __syncthreads();
+  // Stage s (of the part) into slot s % kDwRing by thread 0: 4 boxes of
+  // dgates, then 4 of h.
+  auto issue = [&](int s) {
+    unsigned char* st = smem + static_cast<size_t>(s % kDwRing) * kDwStageBytes;
+    uint64_t* bar = &full[s % kDwRing];
+    const int gs = s_begin + s;
+    const int t0 = 1 + gs / nbc * tbox;
+    const int b0 = gs % nbc * bbox;
+    mbar_expect_tx(bar, stage_tx);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int j = 0; j < 4; ++j)
+      tma_load_4d(st + j * kDwBoxBytes, &map_g, n0 + 64 * j, b0, d, t0, bar);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      tma_load_4d(st + (4 + j) * kDwBoxBytes, &map_h, m0 + 32 * j, b0, d, t0 - 1, bar);
+  };
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < kDwRing - 1 && s < k_steps; ++s) issue(s);
+  }
+  // h of tile row m at stage row q: box m / 32, 16-byte chunk (m % 32) / 4
+  // swizzled by q % 8.
+  auto h_at = [&](const unsigned char* hst, int q, int m) {
+    return *reinterpret_cast<const float*>(hst + (m >> 5) * kDwBoxBytes + q * 128 +
+                                           ((((m & 31) >> 2) ^ (q & 7)) << 4) + (m & 3) * 4);
+  };
+  for (int s = 0; s < k_steps; ++s) {
+    __syncthreads();  // every warpgroup is done with stage s - 1: its slot is free
+    if (tid == 0 && s + kDwRing - 1 < k_steps) issue(s + kDwRing - 1);
+    mbar_wait(&full[s % kDwRing], (s / kDwRing) & 1);  // stage s has landed
+    const unsigned char* st = smem + static_cast<size_t>(s % kDwRing) * kDwStageBytes;
+    const unsigned char* hst = st + 4 * kDwBoxBytes;
+    // A[k][q] = h[q][k] of each k-step: rows mrow, mrow + 8; q 2 tq,
+    // 2 tq + 1, and + 8; all written before the fence that wgmma needs.
+    uint32_t a[kDwK / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kDwK / 16; ++ks) {
+      const int q = ks * 16 + 2 * tq;
+      a[ks][0] = bf16_pair(h_at(hst, q, mrow), h_at(hst, q + 1, mrow));
+      a[ks][1] = bf16_pair(h_at(hst, q, mrow + 8), h_at(hst, q + 1, mrow + 8));
+      a[ks][2] = bf16_pair(h_at(hst, q + 8, mrow), h_at(hst, q + 9, mrow));
+      a[ks][3] = bf16_pair(h_at(hst, q + 8, mrow + 8), h_at(hst, q + 9, mrow + 8));
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kDwK / 16; ++ks) {
+      // B: rows ks * 16 .. + 15 of the stage's dgates, 8-row groups 1024
+      // bytes apart, boxes of 64 columns kDwBoxBytes apart.
+      wgmma_m64n256k16_rs(acc, a[ks], wgmma_desc(smem_addr(st) + ks * 2048, kDwBoxBytes, 1024));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    // The accumulators stay where the products left them until now.
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+  }
+  // Accumulator 4 i + e: tile row mrow + 8 (e / 2), column 8 i + 2 tq + e % 2.
+  if (parts == 1) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int k = m0 + wm * 32 + mi * 16 + g + half * 8;
+      const int k = m0 + mrow + half * 8;
       if (k >= H) continue;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = n0 + wn * 64 + nt * 8 + 2 * tq;
+      for (int i = 0; i < 32; ++i) {
+        const int c = n0 + i * 8 + 2 * tq;
         if (c < H4) {
-          *reinterpret_cast<float2*>(out + (static_cast<size_t>(d) * H + k) * H4 + c) =
-              make_float2(acc[mi][nt][2 * half], acc[mi][nt][2 * half + 1]);
+          *reinterpret_cast<float2*>(dw + (static_cast<size_t>(d) * H + k) * H4 + c) =
+              make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
         }
       }
     }
+    return;
   }
-}
-
-// dw += part[0] + part[1] + ... in that order: the split sum is the same
-// from launch to launch.
-__global__ void __launch_bounds__(kThreads) lstm_seq_dw_sum_kernel(
-    float4* __restrict__ dw, const float4* __restrict__ part, int splits, size_t n4) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; i < n4;
-       i += static_cast<size_t>(gridDim.x) * kThreads) {
-    float4 v = dw[i];
-    for (int s = 1; s < splits; ++s) {
-      const float4 w = part[(s - 1) * n4 + i];
+  // Rank r owns the tile's rows [r own, (r + 1) own); recv[p][row] holds
+  // part p's sums of this rank's rows (it aliases the ring).
+  const int own = kDwM / parts;
+  float* recv = reinterpret_cast<float*>(smem);
+  cluster_sync();  // every CTA of the cluster is done with its ring
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = mrow + half * 8;
+    const int owner = row / own;
+    float* dst = recv + static_cast<size_t>(rank * own + row - owner * own) * kDwRecvStride;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      st_cluster_f32x2(dst + i * 8 + 2 * tq, static_cast<uint32_t>(owner),
+                       acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+    }
+  }
+  cluster_sync();  // every part of this rank's rows is in place
+  for (int e = tid; e < own * (kDwN / 4); e += kDwThreads) {
+    const int r = e / (kDwN / 4);
+    const int c = n0 + (e % (kDwN / 4)) * 4;
+    const int k = m0 + rank * own + r;
+    if (k >= H || c >= H4) continue;
+    const float* src = recv + static_cast<size_t>(r) * kDwRecvStride + (c - n0);
+    float4 v = *reinterpret_cast<const float4*>(src);
+    for (int p = 1; p < parts; ++p) {
+      const float4 w = *reinterpret_cast<const float4*>(src + static_cast<size_t>(p) * own *
+                                                                kDwRecvStride);
       v.x += w.x;
       v.y += w.y;
       v.z += w.z;
       v.w += w.w;
     }
-    dw[i] = v;
+    *reinterpret_cast<float4*>(dw + (static_cast<size_t>(d) * H + k) * H4 + c) = v;
   }
 }
 
-// Parts of the dW_hh reduction: about two CTAs a streaming multiprocessor
-// (one is resident at a time; the next one's loads start as the last
-// finishes), each part at least 16 stages long.
-int dw_splits(int T, int ND, int B, int H) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 1;
-  const int tiles = ((4 * H + kDwN - 1) / kDwN) * ((H + kDwM - 1) / kDwM) * ND;
-  const int steps = ((T - 1) * B + kDwK - 1) / kDwK;
-  int splits = (2 * sms + tiles - 1) / tiles;
-  if (splits > steps / 16) splits = steps / 16;
-  return splits < 1 ? 1 : splits;
+// cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint
+// (no link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A 4-D tensor map of x (T, ND, B, C) as (C, B, ND, T), elements of
+// `bytes` (4: float32, 2: bf16), boxes of (128 / bytes, bbox, 1, tbox),
+// 128-byte swizzled, zeros outside.
+int dw_map(CUtensorMap* map, const void* x, int bytes, int T, int ND, int B, int C, int bbox,
+           int tbox) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                                    reinterpret_cast<void**>(&encode),
+                                                    cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return static_cast<int>(err != cudaSuccess ? err : cudaErrorSymbolNotFound);
+    }
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(B),
+                              static_cast<cuuint64_t>(ND), static_cast<cuuint64_t>(T)};
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * bytes;
+  const cuuint64_t strides[3] = {row, row * B, row * B * ND};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / bytes), static_cast<cuuint32_t>(bbox),
+                             1, static_cast<cuuint32_t>(tbox)};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(
+      map, bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(x), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The sweep, then the dW_hh launch in the plan's parts a cluster and
+// stages of tbox steps x bbox rows (ops/lstm_seq_train.py:dw_plan).
 template <typename T>
-int launch_bwd(const BwdParams& p, float* dw, float* dw_part, int splits,
+int launch_bwd(const BwdParams& p, float* dw, int parts, int bbox, int tbox,
                cudaStream_t stream) {
   const int H = p.H;
   const int unit_groups = (H + kBwdUnits - 1) / kBwdUnits;
@@ -900,21 +1029,33 @@ int launch_bwd(const BwdParams& p, float* dw, float* dw_part, int splits,
                            stream, kBwdWideThreads, kBwdCluster);
   }
   if (rc != 0) return rc;
-  const int steps = ((p.T - 1) * p.B + kDwK - 1) / kDwK;
-  const int split_steps = (steps + splits - 1) / splits;
-  const dim3 dgrid((4 * H + kDwN - 1) / kDwN, (H + kDwM - 1) / kDwM, p.ND * splits);
-  rc = static_cast<int>(cudaFuncSetAttribute(&lstm_seq_dw_kernel<T>,
+  const int nbc = (p.B + bbox - 1) / bbox;
+  const int steps = (p.T - 1 + tbox - 1) / tbox * nbc;
+  const int tiles = ((4 * H + kDwN - 1) / kDwN) * ((H + kDwM - 1) / kDwM) * p.ND;
+  CUtensorMap map_h, map_g;
+  rc = dw_map(&map_h, p.h_keep, 4, p.T, p.ND, p.B, H, bbox, tbox);
+  if (rc == 0) rc = dw_map(&map_g, p.gbuf, 2, p.T, p.ND, p.B, 4 * H, bbox, tbox);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(&lstm_seq_dw_kernel,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(kDwSmem)));
   if (rc != 0) return rc;
-  lstm_seq_dw_kernel<T><<<dgrid, kDwThreads, kDwSmem, stream>>>(
-      p.h_keep, static_cast<const T*>(p.dxproj), dw, dw_part, split_steps, p.T, p.ND, p.B, H);
-  if (splits > 1) {
-    const size_t n4 = static_cast<size_t>(p.ND) * H * H;  // ND x H x 4H floats / 4
-    const int blocks = static_cast<int>((n4 + kThreads - 1) / kThreads);
-    lstm_seq_dw_sum_kernel<<<blocks < 1024 ? blocks : 1024, kThreads, 0, stream>>>(
-        reinterpret_cast<float4*>(dw), reinterpret_cast<const float4*>(dw_part), splits, n4);
-  }
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = parts;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * parts);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = kDwSmem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  rc = static_cast<int>(cudaLaunchKernelEx(&cfg, lstm_seq_dw_kernel, map_h, map_g, dw, parts,
+                                           (steps + parts - 1) / parts, steps, nbc, bbox,
+                                           tbox, H));
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -924,8 +1065,8 @@ extern "C" const char* vct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Largest H both kernels take, and the largest their narrow forms take
-// (the wide forms run above it).
+// Largest H both kernels take, and the largest the narrow backward sweep
+// takes (the wide sweep runs above it).
 extern "C" int vct_lstm_seq_train_max_hidden() { return vct::kMaxWideHidden; }
 extern "C" int vct_lstm_seq_train_narrow_max_hidden() { return vct::kMaxHidden; }
 
@@ -935,8 +1076,8 @@ static bool bad_shape(int T, int ND, int B, int H) {
 }
 
 // Forward with residuals. hbuf is (2, ND, B, H) bf16 and sync (ND, B)
-// unsigned scratch, both uninitialised; ring: the wide form's h chunk
-// slots (ops/lstm_seq.py:fwd_wide_plan), ignored by the narrow form.
+// unsigned scratch, both uninitialised; ring: the h chunk slots of the
+// plan (ops/lstm_seq.py:fwd_wide_plan).
 // Returns a cudaError_t: 0 when the launches were accepted.
 extern "C" int vct_lstm_seq_train_fwd(
     const void* xproj, int xproj_is_bf16, const void* w_hh, const float* mask,
@@ -965,24 +1106,23 @@ extern "C" int vct_lstm_seq_train_fwd(
                        : vct::launch_fwd<float, true>(p, st);
 }
 
-// How many parts the dW_hh reduction is split into: dw_part of
-// vct_lstm_seq_train_bwd holds that many less one (ND, H, 4H) float32.
-extern "C" int vct_lstm_seq_train_dw_splits(int T, int ND, int B, int H) {
-  return vct::dw_splits(T, ND, B, H);
-}
-
 // Backward sweep, then the dW_hh product. douts, dh_last and dc_last
-// (float32) may be null for zeros; gbuf is (2, ND, B, 4H) bf16, sync
-// (ND, B) unsigned and dw_part (splits - 1, ND, H, 4H) float32 scratch,
-// all uninitialised; at H > 600 gact, c_keep and douts 16-byte aligned
-// (the wide sweep stages them by 16-byte copies). Returns a cudaError_t.
+// (float32) may be null for zeros; gbuf is (T, ND, B, 4H) bf16 (the
+// sweep's bf16 dgates of every step, which the dW_hh launch reads) and
+// sync (ND, B) unsigned scratch, both uninitialised; h_keep 16-byte
+// aligned (the dW_hh launch stages it by 16-byte copies), and at H > 600
+// gact, c_keep and douts too (the wide sweep's). Returns a cudaError_t.
 extern "C" int vct_lstm_seq_train_bwd(
     const void* gact, int is_bf16, const float* h_keep, const float* c_keep,
     const void* w_hh, const float* mask, const void* douts, const float* dh_last,
-    const float* dc_last, void* gbuf, void* sync, void* dxproj, float* dw, float* dw_part,
-    int splits, int T, int ND, int B, int H, void* stream) {
-  if (bad_shape(T, ND, B, H) || splits < 1 || (splits > 1 && dw_part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+    const float* dc_last, void* gbuf, void* sync, void* dxproj, float* dw, int T, int ND, int B,
+    int H, int dw_parts, int dw_bbox, int dw_tbox, void* stream) {
+  // The dW_hh plan: parts a power of two dividing the tile's rows, up to
+  // the cluster limit; a stage's box within its kDwK rows.
+  const bool bad_plan = dw_parts < 1 || dw_parts > vct::kDwMaxParts ||
+                        (dw_parts & (dw_parts - 1)) != 0 || dw_bbox < 1 || dw_bbox > B ||
+                        dw_tbox < 1 || dw_bbox * dw_tbox > vct::kDwK;
+  if (bad_shape(T, ND, B, H) || bad_plan) return static_cast<int>(cudaErrorInvalidValue);
   vct::BwdParams p = {};
   p.gact = gact;
   p.h_keep = h_keep;
@@ -1000,6 +1140,6 @@ extern "C" int vct_lstm_seq_train_bwd(
   p.B = B;
   p.H = H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? vct::launch_bwd<__nv_bfloat16>(p, dw, dw_part, splits, st)
-                 : vct::launch_bwd<float>(p, dw, dw_part, splits, st);
+  return is_bf16 ? vct::launch_bwd<__nv_bfloat16>(p, dw, dw_parts, dw_bbox, dw_tbox, st)
+                 : vct::launch_bwd<float>(p, dw, dw_parts, dw_bbox, dw_tbox, st);
 }

@@ -54,8 +54,9 @@ KERNEL_WRAPPERS = (lstm_seq, topk2d_lse, lstm_seq_train_fwd, lstm_seq_train_bwd,
                    int8_matmul_residual_requant)
 
 
-# Wrappers with a second form of their kernel (the recurrences' wide forms,
-# H past 600), counted apart as ``<name>_wide`` besides in ``<name>``.
+# The recurrences, whose launches past H = 600 (the wide encoder's, where
+# the backward sweep takes its wide form) are counted apart as
+# ``<name>_wide`` besides in ``<name>``.
 WIDE_FORMS = (lstm_seq, lstm_seq_train_fwd, lstm_seq_train_bwd)
 
 

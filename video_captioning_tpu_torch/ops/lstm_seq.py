@@ -8,9 +8,9 @@ or None. On a CUDA tensor ``lstm_seq`` launches the persistent kernel in
 ``lstm_seq_reference``, the plain PyTorch version of the same numeric
 contract: bf16 h and W_hh in the recurrent product with float32 sums,
 float32 gates and state, padded steps carry the state and emit 0. The
-kernel takes H a multiple of 8 up to 1024: its narrow form up to 600, its
-wide form above; ``lstm_seq.wide_launches`` counts the wide form's
-launches among ``lstm_seq.launches``. ``fwd_wide_plan`` is the wide
+kernel takes H a multiple of 8 up to 1024, one tile for every H;
+``lstm_seq.wide_launches`` counts its launches past H = 600 (the wide
+encoder's) among ``lstm_seq.launches``. ``fwd_wide_plan`` is the
 forward's launch plan (shared with ``lstm_seq_train``'s forward).
 """
 
@@ -26,9 +26,9 @@ from .build import check_launch, load_library, tracing
 
 Tensor = torch.Tensor
 
-# The wide forward's plan (csrc/lstm_seq_fwd.cuh: FwdWide, kMaxRing,
-# fwd_smem_bytes; launch_recurrence's row groups and slices).
-NARROW_MAX_HIDDEN = 600  # kMaxHidden
+# The forward's plan (csrc/lstm_seq_fwd.cuh: Fwd, kMaxRing, fwd_smem_bytes;
+# launch_recurrence's row groups and slices).
+NARROW_MAX_HIDDEN = 600  # kMaxHidden: the narrow backward sweep's largest H
 WIDE_UNITS = 16          # hidden units a CTA
 WIDE_ROWS = 32           # batch rows a chunk of h
 WIDE_THREADS = 512       # one epilogue item a thread: WIDE_UNITS x WIDE_ROWS
@@ -41,7 +41,7 @@ CARD_SMS = 132           # an H100 SXM's SMs
 
 
 def fwd_wide_smem(H: int, nb: int, ring: int) -> int:
-    """Shared memory of a wide forward CTA (fwd_smem_bytes): the ring's
+    """Shared memory of a forward CTA (fwd_smem_bytes): the ring's
     mbarriers, ``ring`` slots of WIDE_ROWS bf16 h rows (stride kpad + 8),
     the WIDE_KW warps' partial sums and the float32 h and c of nb rows."""
     kpad = -(-H // 16) * 16
@@ -51,7 +51,7 @@ def fwd_wide_smem(H: int, nb: int, ring: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def fwd_wide_plan(H: int, B: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
-    """The wide forward's launch plan at 600 < H <= 1024: ``unit_groups``
+    """The forward's launch plan at every H up to 1024: ``unit_groups``
     CTAs of WIDE_UNITS units (WIDE_THREADS threads) a direction and row
     group, one CTA an SM (W_hh in registers), so ND x row_groups x
     unit_groups <= sms; the most row groups of at least WIDE_MIN_ROWS rows
@@ -89,9 +89,8 @@ def fwd_wide_plan(H: int, B: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
 
 
 def fwd_ring(H: int, B: int, ND: int) -> int:
-    """The ``ring`` argument of the forward launches: the wide plan's, 0
-    for the narrow form."""
-    return fwd_wide_plan(H, B, ND)["ring"] if H > NARROW_MAX_HIDDEN else 0
+    """The ``ring`` argument of the forward launches: the plan's."""
+    return fwd_wide_plan(H, B, ND)["ring"]
 
 
 def lstm_seq_reference(
@@ -156,16 +155,15 @@ def _kernel_lib() -> ctypes.CDLL:
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    for limit in (lib.vct_lstm_seq_max_hidden, lib.vct_lstm_seq_narrow_max_hidden):
-        limit.argtypes = []
-        limit.restype = ctypes.c_int
+    lib.vct_lstm_seq_max_hidden.argtypes = []
+    lib.vct_lstm_seq_max_hidden.restype = ctypes.c_int
     return lib
 
 
 def kernel_max_hidden(train: bool = False) -> int:
     """The largest H the recurrence kernels take (``kMaxWideHidden``,
-    csrc/lstm_seq_fwd.cuh: their narrow forms up to ``kMaxHidden``, their
-    wide forms above), read from the built library: ``lstm_seq``'s, or
+    csrc/lstm_seq_fwd.cuh; the backward sweep's narrow form up to
+    ``kMaxHidden``, its wide form above), read from the built library: ``lstm_seq``'s, or
     ``lstm_seq_train``'s with ``train``. Builds the library on first use."""
     if train:
         from .lstm_seq_train import _kernel_lib as train_lib
@@ -230,10 +228,10 @@ def lstm_seq(
         )
     check_launch(lib, rc, "lstm_seq")
     lstm_seq.launches += 1
-    if H > lib.vct_lstm_seq_narrow_max_hidden():
+    if H > NARROW_MAX_HIDDEN:
         lstm_seq.wide_launches += 1
     return outs, (h_last, c_last)
 
 
 lstm_seq.launches = 0
-lstm_seq.wide_launches = 0  # of them, the wide form's (H past the narrow limit)
+lstm_seq.wide_launches = 0  # of them, those past H = 600 (the wide encoder's)

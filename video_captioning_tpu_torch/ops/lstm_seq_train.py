@@ -11,11 +11,14 @@ its plain PyTorch version below, which follows the kernel bodies step by
 step. The numeric contract is the file header of ``csrc/lstm_seq_train.cu``:
 bf16 operands with float32 sums in both recurrent products and in dW_hh,
 float32 gates, state and residuals, dxproj the float32 dgates cast to
-xproj's type. Both kernels take H a multiple of 8 up to 1024 (narrow forms
-up to 600, wide forms above); ``wide_launches`` on each wrapper counts the
-wide form's launches among its ``launches``. ``bwd_wide_plan`` mirrors the wide
+xproj's type. Both kernels take H a multiple of 8 up to 1024 (the forward
+one tile for every H, the backward sweep a narrow form up to 600 and a wide
+form above); ``wide_launches`` on each wrapper counts its launches past
+H = 600 among its ``launches``. ``bwd_wide_plan`` mirrors the wide
 backward sweep's launch plan, which the C launcher picks (its rows, ring of
-dgates stages and shared memory), for the CPU tests.
+dgates stages and shared memory), for the CPU tests; ``dw_plan`` is the
+dW_hh launch's plan (its stages and the cluster's parts), which the wrapper
+passes to the C entry.
 """
 
 from __future__ import annotations
@@ -116,6 +119,40 @@ def bwd_wide_plan(H: int, B: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
                 ctas=ND * groups * ug)
 
 
+# The dW_hh launch (csrc/lstm_seq_train.cu: lstm_seq_dw_kernel, its kDw*
+# constants and kDwSmem), which takes its plan from ``dw_plan``.
+DW_M, DW_N, DW_K = 128, 256, 64  # a CTA's tile of (H, 4H) and a stage's rows at most
+DW_RING = 3                      # stages in flight
+DW_MAX_PARTS = 8                 # CTAs of a cluster that split the stages (kDwMaxParts)
+DW_MIN_STEPS = 4                 # stages a part takes at least
+# Stages of 8 boxes of DW_K rows x 128 bytes (4 of bf16 dgates, 4 of
+# float32 h); the parts' exchange (rows of DW_N + 8 floats) aliases them;
+# a ring's mbarriers and 1024 bytes of alignment.
+DW_SMEM = max(DW_RING * 8 * DW_K * 128, DW_M * (DW_N + 8) * 4) + 8 * DW_RING + 1024
+
+
+def dw_plan(T: int, B: int, H: int, ND: int = 2, sms: int = CARD_SMS) -> dict:
+    """The dW_hh launch's plan: ``tiles`` CTA tiles of DW_M x DW_N of each
+    direction's (H, 4H) product; the reduction's rows
+    (t - 1, b) for t >= 1 in ``steps`` stages of ``tbox`` steps x ``bbox``
+    rows (all B rows of DW_K // B steps when B < DW_K, else DW_K rows of one
+    step, ``nbc`` boxes a step), split over ``parts`` CTAs of a thread block
+    cluster (a power of two up to DW_MAX_PARTS: the most whose ``ctas`` fit
+    ``sms`` at one CTA an SM, each part at least DW_MIN_STEPS stages),
+    ``part_steps`` stages a part; each rank adds the parts of its ``own``
+    rows of the tile in rank order."""
+    bbox, tbox = (B, DW_K // B) if B < DW_K else (DW_K, 1)
+    nbc = -(-B // bbox)
+    tiles = -(-4 * H // DW_N) * -(-H // DW_M) * ND
+    steps = -(-(T - 1) // tbox) * nbc
+    parts = 1
+    while parts < DW_MAX_PARTS and tiles * parts * 2 <= sms and steps >= parts * 2 * DW_MIN_STEPS:
+        parts *= 2
+    return dict(tiles=tiles, bbox=bbox, tbox=tbox, nbc=nbc, steps=steps, parts=parts,
+                part_steps=-(-steps // parts), ctas=tiles * parts, own=DW_M // parts,
+                smem=DW_SMEM)
+
+
 def _bf16_exact(x: Tensor) -> Tensor:
     """x rounded to bf16 and held in float32: exact products, float32 sums."""
     return x.to(torch.bfloat16).float()
@@ -196,14 +233,16 @@ def lstm_seq_train_bwd_reference(
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    lib = load_library("lstm_seq_train")
+    return _typed(load_library("lstm_seq_train"))
+
+
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/lstm_seq_train.cu) with its entries' types."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vct_lstm_seq_train_fwd.argtypes = [p, i] + [p] * 10 + [i] * 5 + [p]
     lib.vct_lstm_seq_train_fwd.restype = i
-    lib.vct_lstm_seq_train_bwd.argtypes = [p, i] + [p] * 12 + [i] * 5 + [p]
+    lib.vct_lstm_seq_train_bwd.argtypes = [p, i] + [p] * 11 + [i] * 7 + [p]
     lib.vct_lstm_seq_train_bwd.restype = i
-    lib.vct_lstm_seq_train_dw_splits.argtypes = [i] * 4
-    lib.vct_lstm_seq_train_dw_splits.restype = i
     for limit in (lib.vct_lstm_seq_train_max_hidden, lib.vct_lstm_seq_train_narrow_max_hidden):
         limit.argtypes = []
         limit.restype = i
@@ -219,6 +258,11 @@ def _cuda_lib(xproj: Tensor, what: str) -> ctypes.CDLL:
     if H % 8 or H > top:
         raise ValueError(f"{what} kernel takes H a multiple of 8 up to {top}, got {H}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _mask_f32(mask: Optional[Tensor]) -> Optional[Tensor]:
@@ -264,13 +308,13 @@ def lstm_seq_train_fwd(
         )
     check_launch(lib, rc, "lstm_seq_train_fwd")
     lstm_seq_train_fwd.launches += 1
-    if H > lib.vct_lstm_seq_train_narrow_max_hidden():
+    if H > NARROW_MAX_HIDDEN:
         lstm_seq_train_fwd.wide_launches += 1
     return outs, h_last, c_last, gact, h_keep, c_keep
 
 
 lstm_seq_train_fwd.launches = 0
-lstm_seq_train_fwd.wide_launches = 0  # of them, the wide form's
+lstm_seq_train_fwd.wide_launches = 0  # of them, those past H = 600 (the wide encoder's)
 
 
 def lstm_seq_train_bwd(
@@ -301,28 +345,28 @@ def lstm_seq_train_bwd(
     h_keep, c_keep = h_keep.contiguous(), c_keep.contiguous()
     # A missing cotangent goes to the kernel as a null pointer (zeros).
     douts = None if douts is None else douts.to(dt).contiguous()
-    # The wide sweep stages gact, c_keep and douts by 16-byte copies.
-    if H > NARROW_MAX_HIDDEN:
-        gact, c_keep, douts = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
-                               for x in (gact, c_keep, douts))
+    # The dW_hh launch stages h_keep by 16-byte copies, and the wide sweep
+    # gact, c_keep and douts.
+    staged = (h_keep, gact, c_keep, douts) if H > NARROW_MAX_HIDDEN else (h_keep,)
+    h_keep, *rest = (x if x is None or x.data_ptr() % 16 == 0 else x.clone() for x in staged)
+    if rest:
+        gact, c_keep, douts = rest
     dh_last = None if dh_last is None else dh_last.to(torch.float32).contiguous()
     dc_last = None if dc_last is None else dc_last.to(torch.float32).contiguous()
-    gbuf = torch.empty((2, ND, B, H4), dtype=torch.bfloat16, device=dev)
+    # The sweep's bf16 dgates, a slot a step: its exchange, then the dW_hh
+    # launch's operand.
+    gbuf = torch.empty((T, ND, B, H4), dtype=torch.bfloat16, device=dev)
     sync = torch.empty((ND, B), dtype=torch.int32, device=dev)
     dxproj = torch.empty((T, ND, B, H4), dtype=dt, device=dev)
     dw = torch.empty((ND, H, H4), **f32)
     mask_f = _mask_f32(mask)
+    plan = dw_plan(T, B, H, ND, _card_sms(dev))
     with torch.cuda.device(dev):
-        # The dW_hh reduction runs in parts; all but the first land here and
-        # are summed into dw in a fixed order.
-        splits = lib.vct_lstm_seq_train_dw_splits(T, ND, B, H)
-        dw_part = torch.empty((splits - 1, ND, H, H4), **f32)
         rc = lib.vct_lstm_seq_train_bwd(
             gact.data_ptr(), int(dt == torch.bfloat16), h_keep.data_ptr(), c_keep.data_ptr(),
             w_hh.data_ptr(), _ptr(mask_f), _ptr(douts), _ptr(dh_last), _ptr(dc_last),
-            gbuf.data_ptr(), sync.data_ptr(), dxproj.data_ptr(), dw.data_ptr(),
-            _ptr(dw_part) if splits > 1 else None, splits, T, ND, B, H,
-            torch.cuda.current_stream(dev).cuda_stream,
+            gbuf.data_ptr(), sync.data_ptr(), dxproj.data_ptr(), dw.data_ptr(), T, ND, B, H,
+            plan["parts"], plan["bbox"], plan["tbox"], torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(lib, rc, "lstm_seq_train_bwd")
     lstm_seq_train_bwd.launches += 1
