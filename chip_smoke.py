@@ -100,8 +100,9 @@ exits non-zero without printing the final result line:
    the CPU with the plain versions (loss and every gradient compared), 10
    steps on one fixed batch that must lower the loss, and a one-off
    profile of one step at B = 32 and B = 128;
-7. the CNN backbones: ``fused_bottleneck`` at every stage's identity
-   block at B = 32 (float32; bfloat16 at stages 1 and 4), ``matmul_bias_act``
+7. the CNN backbones: ``fused_bottleneck`` at its edge shapes and every
+   stage's identity block at B = 32 in float32 and bfloat16 (each plan's
+   cluster, channels a CTA and active-cluster count printed), ``matmul_bias_act``
    at stage 1's conv3 with its three epilogues (graph-replay device time
    beside the F.linear + add + ReLU composite's, the bound and the share of
    it reached), ``conv1x1`` at stride 2 and CONV1X1_EDGE_SHAPES in float32
@@ -114,7 +115,8 @@ exits non-zero without printing the final result line:
    extraction slice: ``cli.preprocess.VideoFeatureExtractor`` over 2 clips
    of 80 seeded 224 x 224 frames (standing in for the OpenCV decoder) with
    VGG16 and ResNet50 ``folded``, ``fused``, ``fused_s2d``, ``int8`` without
-   and with ``int8_conv1x1_pallas`` and ``fused`` in bfloat16, numpy-seeded
+   and with ``int8_conv1x1_pallas``, and ``fused`` and ``folded`` in
+   bfloat16 (the two side by side in one run), numpy-seeded
    weights: launch counts read around each run, the first 4 frames held
    against the CPU plain versions, one B = 32 forward timed, two profiled,
    the dataset CSV written and one VGG16 clip captioned by the LSTM default
@@ -269,9 +271,9 @@ from video_captioning_tpu_torch.models.weights import init_params_numpy, state_d
 from video_captioning_tpu_torch.ops import build, launch_counts, reset_launch_counts
 from video_captioning_tpu_torch.ops.attention import bahdanau_attend, bahdanau_attend_reference
 from video_captioning_tpu_torch.ops.bottleneck import (
+    card_plan,
     fused_bottleneck,
     fused_bottleneck_reference,
-    kernel_plan,
 )
 from video_captioning_tpu_torch.ops.conv1x1 import (
     conv1x1,
@@ -1932,12 +1934,15 @@ def check_fused_bottleneck(device: str, card: str) -> dict:
             fwd = forward.setdefault(dtype, {"kernel": 0.0, "cudnn": 0.0})
             fwd["kernel"] += n * dev
             fwd["cudnn"] += n * lib_dev
-            plan = kernel_plan(x, Cm) if device == "cuda" else None
+            plan = card_plan(x, Cm) if device == "cuda" else None
+            item = ("" if plan is None else
+                    f"clusters of {plan['cluster']} CTAs of {plan['slice']} channels, "
+                    f"{plan['active_clusters']} clusters at once, {plan['waves']} wave(s); ")
             tc = (f", {res['tf32x3_bound_ms']:.4f} ms (3xTF32 tensor cores, "
                   f"{res['tf32x3_bound_by']})" if f32 else "")
             print(f"[kernels] fused_bottleneck stage {stage} (B={B}, {H}x{H}, C={C}, Cm={Cm}) "
                   f"{dtype}: max err over the largest |output| {err:.3g} (tol "
-                  f"{CNN_RTOL[dtype]}), two launches bitwise equal; work item {plan}; kernel "
+                  f"{CNN_RTOL[dtype]}), two launches bitwise equal; {item}work item {plan}; kernel "
                   f"{ms:.4f} ms (device {dev:.4f} ms, CUDA graph), plain {plain_ms:.4f} ms, "
                   f"cuDNN unfused block {lib_ms:.4f} ms (device {lib_dev:.4f} ms); bound "
                   f"{res['bound_ms']:.4f} ms ({'float32 CUDA cores' if f32 else 'bf16'}, "
@@ -2224,7 +2229,8 @@ def extraction_variants() -> list:
             ("resnet50 fused_s2d", "resnet50", "fused_s2d", "float32", False),
             ("resnet50 int8", "resnet50", "int8", "float32", False),
             ("resnet50 int8 + int8_conv1x1_pallas", "resnet50", "int8", "float32", True),
-            ("resnet50 fused bf16", "resnet50", "fused", "bfloat16", False)]
+            ("resnet50 fused bf16", "resnet50", "fused", "bfloat16", False),
+            ("resnet50 folded bf16", "resnet50", "folded", "bfloat16", False)]
 
 
 def expected_cnn_launches(variant: str, flag: bool, forwards: int) -> dict:
@@ -2362,10 +2368,12 @@ def run_extraction(card: str, device: str = "cuda", n_clips: int = 2, frames_per
                 if not ok:
                     raise AssertionError(f"{label}: card vs CPU out of tolerance: {what}")
             if device == "cuda":
-                fused, folded = (out["forward_ms"][f"resnet50 {v}"] for v in ("fused", "folded"))
-                print(f"[extract] one B={batch_size} ResNet50 forward in this run: fused "
-                      f"{fused:.3f} ms, folded {folded:.3f} ms (fused / folded "
-                      f"{fused / folded:.3f}; {card})")
+                for tag in ("", " bf16"):
+                    fused, folded = (out["forward_ms"][f"resnet50 {v}{tag}"]
+                                     for v in ("fused", "folded"))
+                    print(f"[extract] one B={batch_size} ResNet50{tag} forward in this run: "
+                          f"fused {fused:.3f} ms, folded {folded:.3f} ms (fused / folded "
+                          f"{fused / folded:.3f}; {card})")
             vgg_dir = Path(tmp) / "vgg16_xla"
             csv_path = Path(tmp) / "dataset.csv"
             cli_preprocess.create_dataset_csv(videos, vgg_dir, Path(tmp) / "captions.txt",
