@@ -107,11 +107,13 @@ exits non-zero without printing the final result line:
    beside the F.linear + add + ReLU composite's, the bound and the share of
    it reached), ``conv1x1`` at stride 2 and CONV1X1_EDGE_SHAPES in float32
    and bfloat16 (every launch twice, bitwise equal), both int8 kernels at
-   eight small odd shapes, stage 1's 1x1 shapes and the last block's
-   (exactly equal to their plain versions, two launches bitwise equal),
-   then at the 17 shapes of a B = 32 forward, device time
-   against ``torch._int_mm`` by CUDA-graph replay, summed over its 32
-   launches beside the bound; then the
+   eight small odd shapes under every plan ``int8_plan`` weighs, stage 1's
+   1x1 shapes and the last block's (exactly equal to their plain versions,
+   two launches bitwise equal), then at the 17 shapes of a B = 32 forward,
+   each plan forced in turn and bitwise equal to the launcher's choice,
+   device time against ``torch._int_mm`` by CUDA-graph replay, summed over
+   its 32 launches beside the bound, and at B = 16 each plan forced beside
+   the launcher's choice; then the
    extraction slice: ``cli.preprocess.VideoFeatureExtractor`` over 2 clips
    of 80 seeded 224 x 224 frames (standing in for the OpenCV decoder) with
    VGG16 and ResNet50 ``folded``, ``fused``, ``fused_s2d``, ``int8`` without
@@ -281,7 +283,11 @@ from video_captioning_tpu_torch.ops.conv1x1 import (
     matmul_bias_act_reference,
 )
 from video_captioning_tpu_torch.ops.int8_matmul import (
+    PLAN_KEYS as INT8_PLAN_KEYS,
     _launch as int8_launch,
+    active_ctas as int8_active_ctas,
+    card_plan as int8_card_plan,
+    int8_candidates,
     int8_matmul_requant,
     int8_matmul_requant_reference,
     int8_matmul_residual_requant,
@@ -2077,12 +2083,25 @@ INT8_FORWARD_SHAPES = (
     ("requant", 1568, 2048, 512, True, 2), ("residual", 1568, 512, 2048, True, 1),
     ("residual", 1568, 512, 2048, False, 1),
 )
+# The same at B = 16: the tail batch of a clip's 80 frames (32 + 32 + 16).
+INT8_TAIL_SHAPES = tuple((name, M // 2, K, N, int8_out, launches)
+                         for name, M, K, N, int8_out, launches in INT8_FORWARD_SHAPES)
 
 
-# The tile shapes the int8 launcher picks from, by the index that forces one,
-# and the build whose requant divides every output.
-INT8_TILES = ("64x64", "128x64")
+# The build whose requant divides every output.
 INT8_DIVIDE_ALL = ("VCT_INT8_DIVIDE_ALL=1",)
+
+
+def int8_plans(M: int, K: int, N: int, residual: bool, int8_out: bool) -> list:
+    """Every plan the int8 launcher weighs on this card (``int8_candidates``
+    on K as the wrapper pads it), its choice first."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return int8_candidates(M, K + (-K % 16), N, residual, int8_out, sms, int8_active_ctas(0))
+
+
+def int8_plan_label(p: dict) -> str:
+    return (f"tile {p['tile']} stages {p['stages']} grid {p['grid']} "
+            f"({p['per_sm']} an SM, waves {p['waves']}, est {p['cost_us']:.1f} us)")
 
 
 def _int8_calls(name: str, xq, wq, scale, bias, idq, s_id: float, so, relu: bool = True):
@@ -2122,13 +2141,19 @@ def check_int8_matmul(device: str, card: str) -> tuple:
     (M = 100352, K = 256, N = 64) with int8 and float32 out, the residual
     kernel at stage 1's conv3 (M = 100352, K = 64, N = 256) with int8 out
     and at the last block (M = 1568, K = 512, N = 2048) with float32 out.
-    Then the 17 shapes of one B = 32 forward, kernel against
-    ``torch._int_mm``, both as CUDA-graph replays (device against device),
-    with each tile shape the launcher can pick forced in turn (and bitwise
-    equal to its choice). The returned entries time kernel and
+    At every odd shape both kernels also run under each plan the launcher
+    weighs (``int8_plans``), forced in turn. Then the 17 shapes of one
+    B = 32 forward, kernel against ``torch._int_mm``, both as CUDA-graph
+    replays (device against device), each printed with its plan and its
+    share of the bound, with each plan the launcher weighs and the build
+    that divides every output forced in turn (each bitwise equal to its
+    choice); then the same at B = 16 (``INT8_TAIL_SHAPES``, each plan
+    forced, the launcher's choice beside the fastest). The returned entries
+    time kernel and
     ``torch._int_mm`` alike, with CUDA events; the device times are
     printed."""
     s_out, s_id = 0.1, 0.03
+    n_plans = 0
     for M, K, N in INT8_EDGE_SHAPES:
         xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=60)
         buf = torch.empty(M * K + 1, dtype=torch.int8, device=device)
@@ -2145,16 +2170,24 @@ def check_int8_matmul(device: str, card: str) -> tuple:
                     _int8_equal("requant", (M, K, N, relu), so, fn, ref)
                 fn = _int8_calls("residual", x, wq, scale, bias, idq, s_id, so)[0]
                 ref = _int8_calls("residual", xq, wq, scale, bias, idq, s_id, so)[1]
-                want = _int8_equal("residual", (M, K, N), so, fn, ref)
-                for tile, label in enumerate(INT8_TILES):
-                    got = int8_launch(x, wq, scale, bias, idq, s_id, so, True, tile=tile)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"int8 residual ({M}, {K}, {N}) s_out={so} tile "
-                                             f"{label}: differs from the plain version")
+                want_res = _int8_equal("residual", (M, K, N), so, fn, ref)
+                if x is not xq:
+                    continue
+                # Every plan the launcher weighs, forced in turn, for both kernels.
+                want_req = _int8_calls("requant", xq, wq, scale, bias, idq, s_id, so)[1]()
+                for name, want, res_in in (("requant", want_req, None),
+                                           ("residual", want_res, idq)):
+                    for p in int8_plans(M, K, N, res_in is not None, so is not None):
+                        got = int8_launch(xq, wq, scale, bias, res_in, s_id, so, True, plan=p)
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"int8 {name} ({M}, {K}, {N}) s_out={so} "
+                                                 f"{int8_plan_label(p)}: differs from the plain "
+                                                 f"version")
+                        n_plans += 1
     print(f"[kernels] int8 kernels at {len(INT8_EDGE_SHAPES)} odd shapes "
           f"{list(INT8_EDGE_SHAPES)}, int8 out (s_out 0.1 and 0.004) and float32 out, relu on "
-          f"and off, aligned and unaligned xq, the residual kernel with each tile forced: "
-          f"equal to the plain versions, two launches bitwise equal")
+          f"and off, aligned and unaligned xq, both kernels under each of their plans forced "
+          f"({n_plans} launches): equal to the plain versions, two launches bitwise equal")
     out = {}
     for name, M, K, N, so in (("requant", 100352, 256, 64, s_out),
                               ("requant", 100352, 256, 64, None),
@@ -2180,43 +2213,60 @@ def check_int8_matmul(device: str, card: str) -> tuple:
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {res['bound_ms'] / dev:.3f} of it "
               f"reached) ({card})")
         out.setdefault(name, res)
-    totals = {"kernel": 0.0, "bound": 0.0, "int_mm": 0.0, "divide": 0.0}
-    for name, M, K, N, int8_out, launches in INT8_FORWARD_SHAPES:
+    totals = {"kernel": 0.0, "bound": 0.0, "int_mm": 0.0, "divide": 0.0, "tail": 0.0,
+              "tail_fastest": 0.0}
+    for batch, name, M, K, N, int8_out, launches in (
+            [(32, *shape) for shape in INT8_FORWARD_SHAPES]
+            + [(16, *shape) for shape in INT8_TAIL_SHAPES]):
         xq, wq, scale, bias, idq = int8_inputs(device, M, K, N, seed=62)
         so = s_out if int8_out else None
+        residual = name == "residual"
         fn, ref = _int8_calls(name, xq, wq, scale, bias, idq, s_id, so)
         _int8_equal(name, (M, K, N), so, fn, ref)
         got = fn()
         dev = graph_ms(fn)
         lib_dev = graph_ms(lambda: torch._int_mm(xq, wq.t()))
         b = _int8_bound(name, M, K, N, int8_out)
-        totals["kernel"] += launches * dev
-        totals["bound"] += launches * b["bound_ms"]
-        totals["int_mm"] += launches * lib_dev
-        variants = [(label, dict(tile=t)) for t, label in enumerate(INT8_TILES)]
-        if int8_out:  # float32 out has no requant
+        plans = int8_plans(M, K, N, residual, int8_out)
+        chosen = tuple(plans[0][k] for k in INT8_PLAN_KEYS)
+        if int8_card_plan(M, K, N, residual, int8_out, 0) != chosen:
+            raise AssertionError(f"int8 {name} ({M}, {K}, {N}): the launcher's plan is not the "
+                                 f"first candidate")
+        variants = [(int8_plan_label(p), dict(plan=p)) for p in plans]
+        if int8_out and batch == 32:  # float32 out has no requant
             variants.append(("divide every output", dict(defines=INT8_DIVIDE_ALL)))
         forced = {}
         for label, kw in variants:
             call = lambda: int8_launch(  # noqa: E731
-                xq, wq, scale, bias, idq if name == "residual" else None, s_id, so, True, **kw)
+                xq, wq, scale, bias, idq if residual else None, s_id, so, True, **kw)
             if not torch.equal(call(), got):
                 raise AssertionError(f"int8 {name} ({M}, {K}, {N}) {label}: differs from the "
                                      f"kernel")
             forced[label] = graph_ms(call)
-        totals["divide"] += launches * forced.get("divide every output", dev)
-        print(f"[kernels] int8 forward shape: {name} ({M}, {K}, {N}) "
+        fastest = min(forced[int8_plan_label(p)] for p in plans)
+        if batch == 32:
+            totals["kernel"] += launches * dev
+            totals["bound"] += launches * b["bound_ms"]
+            totals["int_mm"] += launches * lib_dev
+            totals["divide"] += launches * forced.get("divide every output", dev)
+        else:
+            totals["tail"] += launches * dev
+            totals["tail_fastest"] += launches * fastest
+        print(f"[kernels] int8 {'forward' if batch == 32 else 'tail-batch (B = 16)'} shape: "
+              f"{name} ({M}, {K}, {N}) "
               f"{'int8' if int8_out else 'float32'} out x{launches}: kernel device {dev:.4f} ms "
-              f"(forced: {', '.join(f'{k} {v:.4f}' for k, v in forced.items())}), "
-              f"torch._int_mm device {lib_dev:.4f} ms, "
+              f"under {int8_plan_label(plans[0])}, torch._int_mm device {lib_dev:.4f} ms, "
               f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bound_ms'] / dev:.3f} of it "
-              f"reached) ({card})")
+              f"reached); fastest forced plan {fastest:.4f} ms; forced: "
+              f"{'; '.join(f'{k}: {v:.4f}' for k, v in forced.items())} ({card})")
         del xq, wq, scale, bias, idq
     n = sum(s[-1] for s in INT8_FORWARD_SHAPES)
     print(f"[kernels] int8 forward, {n} launches at {len(INT8_FORWARD_SHAPES)} shapes "
           f"(sum of launches x device ms, CUDA graphs): kernels {totals['kernel']:.4f} ms, "
-          f"bound {totals['bound']:.4f} ms, torch._int_mm {totals['int_mm']:.4f} ms; with the "
-          f"divide on every output {totals['divide']:.4f} ms ({card})")
+          f"bound {totals['bound']:.4f} ms ({totals['bound'] / totals['kernel']:.3f} of it "
+          f"reached), torch._int_mm {totals['int_mm']:.4f} ms; with the divide on every output "
+          f"{totals['divide']:.4f} ms; at B = 16 the launcher's plans {totals['tail']:.4f} ms, "
+          f"the fastest forced plan at each shape {totals['tail_fastest']:.4f} ms ({card})")
     return out["requant"], out["residual"]
 
 

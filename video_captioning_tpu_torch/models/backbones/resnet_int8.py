@@ -150,7 +150,21 @@ def int8_run_params(qp, device) -> Dict:
     the forward runs on: each ``q`` becomes ``m``, the (Cout, kh*kw*Cin)
     int8 matrix in (dy, dx, ci) order (a fc's (Cin, Cout) its transpose),
     with its kernel size ``k``; scales and biases float32 on ``device``;
-    scalar scales (``s_in`` beside a VGG16 layer's ``q`` too) Python floats."""
+    scalar scales (``s_in`` beside a VGG16 layer's ``q`` too) Python floats.
+    Each ResNet50 block's conv1 and conv3 also keep ``scale_x``, their
+    ``scale`` times their input's scale (``s_in``, ``s_y2``): the dequant
+    scale the int8 kernels take, made once here by the float32 product a
+    call would make, on the same device, so with the same bits."""
+    run = _run_tree(qp, device)
+    if isinstance(run, dict):
+        for blocks in run.get("stages", ()):
+            for block in blocks:
+                for conv, s_x in (("conv1", "s_in"), ("conv3", "s_y2")):
+                    block[conv]["scale_x"] = block[conv]["scale"] * block[s_x]
+    return run
+
+
+def _run_tree(qp, device):
     if isinstance(qp, dict):
         if "q" in qp:
             q = torch.from_numpy(np.array(qp["q"]))
@@ -158,14 +172,14 @@ def int8_run_params(qp, device) -> Dict:
                 k, m = q.shape[0], q.permute(3, 0, 1, 2).reshape(q.shape[3], -1)
             else:
                 k, m = None, q.t()
-            rest = {name: int8_run_params(v, device) for name, v in qp.items()
+            rest = {name: _run_tree(v, device) for name, v in qp.items()
                     if name not in ("q", "scale", "b")}
             vec = {name: torch.from_numpy(np.array(qp[name], np.float32)).to(device)
                    for name in ("scale", "b")}
             return {**rest, **vec, "m": m.contiguous().to(device), "k": k}
-        return {k: int8_run_params(v, device) for k, v in qp.items()}
+        return {k: _run_tree(v, device) for k, v in qp.items()}
     if isinstance(qp, (list, tuple)):
-        return [int8_run_params(v, device) for v in qp]
+        return [_run_tree(v, device) for v in qp]
     return float(np.asarray(qp))
 
 
@@ -204,17 +218,16 @@ def _maxpool_i8(xq: Tensor, k: int, stride: int, pad: int) -> Tensor:
     return y.to(torch.int8).permute(0, 2, 3, 1).contiguous()
 
 
-def _mm1x1(xq: Tensor, w: Dict, s_x: float, s_out: Optional[float], relu: bool) -> Tensor:
+def _mm1x1(xq: Tensor, w: Dict, s_out: Optional[float], relu: bool) -> Tensor:
     B, H, W, _ = xq.shape
-    out = int8_matmul_requant(xq.reshape(B * H * W, -1), w["m"], w["scale"] * s_x, w["b"],
+    out = int8_matmul_requant(xq.reshape(B * H * W, -1), w["m"], w["scale_x"], w["b"],
                               s_out=s_out, relu=relu)
     return out.reshape(B, H, W, -1)
 
 
-def _mm1x1_res(xq: Tensor, w: Dict, s_x: float, idq: Tensor, s_id: float,
-               s_out: Optional[float]) -> Tensor:
+def _mm1x1_res(xq: Tensor, w: Dict, idq: Tensor, s_id: float, s_out: Optional[float]) -> Tensor:
     B, H, W, _ = xq.shape
-    out = int8_matmul_residual_requant(xq.reshape(B * H * W, -1), w["m"], w["scale"] * s_x,
+    out = int8_matmul_residual_requant(xq.reshape(B * H * W, -1), w["m"], w["scale_x"],
                                        w["b"], idq.reshape(B * H * W, -1), s_id, s_out=s_out)
     return out.reshape(B, H, W, -1)
 
@@ -242,7 +255,7 @@ def apply_resnet50_int8(run: Dict, images: Tensor, *, use_pallas_1x1: bool = Fal
             else:
                 s_next = None  # the final block feeds the float pool directly
             if use_pallas_1x1:
-                yq = _mm1x1(xq, block["conv1"], s_x, block["s_y1"], relu=True)
+                yq = _mm1x1(xq, block["conv1"], block["s_y1"], relu=True)
             else:
                 y = _deq(conv_i8(xq, block["conv1"]), s_x, block["conv1"])
                 yq = requant(F.relu(y), block["s_y1"])
@@ -250,7 +263,7 @@ def apply_resnet50_int8(run: Dict, images: Tensor, *, use_pallas_1x1: bool = Fal
             yq = requant(F.relu(y), block["s_y2"])
             if use_pallas_1x1 and "downsample" not in block:
                 # conv3 + the int8 identity join + ReLU + requant in one pass.
-                out = _mm1x1_res(yq, block["conv3"], block["s_y2"], xq, s_x, s_next)
+                out = _mm1x1_res(yq, block["conv3"], xq, s_x, s_next)
                 if last:
                     return out.mean(dim=(1, 2))
                 s_x, xq = s_next, out
@@ -258,7 +271,7 @@ def apply_resnet50_int8(run: Dict, images: Tensor, *, use_pallas_1x1: bool = Fal
             if use_pallas_1x1:
                 # Downsample block: conv3 in the kernel with float32 out; the
                 # join is float32 because the downsampled identity is.
-                y = _mm1x1(yq, block["conv3"], block["s_y2"], None, relu=False)
+                y = _mm1x1(yq, block["conv3"], None, relu=False)
             else:
                 y = _deq(conv_i8(yq, block["conv3"]), block["s_y2"], block["conv3"])
             if "downsample" in block:

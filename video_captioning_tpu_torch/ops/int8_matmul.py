@@ -13,15 +13,19 @@ an FMA), so the kernel in ``csrc/int8_matmul.cu`` equals the plain version
 exactly. XLA fuses an FMA into the JAX epilogue, so against the JAX package
 an entry can differ by one int8 step.
 
-The kernel runs its products on the int8 tensor cores, which take K in
-16-byte steps from 16-byte aligned rows; the wrapper zero-pads K where a
-shape or pointer does not allow that (``pad_k16``), which is exact.
+The kernel runs its products on the int8 tensor cores (``wgmma`` fed by
+the TMA), which take K in 16-byte steps from 16-byte aligned rows; the
+wrapper zero-pads K where a shape or pointer does not allow that
+(``pad_k16``), which is exact. ``int8_plan`` picks the kernel's tile, the
+ring depth and the CTAs from the CTAs the card runs at once
+(``active_ctas``); the C entry validates the plan.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -57,25 +61,29 @@ def requant(y: Tensor, s_out: float) -> Tensor:
     return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
 
 
-def _epilogue(acc: Tensor, scale: Tensor, bias: Tensor, relu: bool,
-              s_out: Optional[float]) -> Tensor:
+def epilogue(acc: Tensor, scale: Tensor, bias: Tensor, s_out: Optional[float],
+             relu: bool = True, idq: Optional[Tensor] = None, s_id: float = 0.0) -> Tensor:
+    """The requant epilogue on an exact int32 sum, in the TPU kernel's order:
+    ``float(acc) * scale + bias``, ``+ float(idq) * s_id`` with a residual
+    (always followed by ReLU), ReLU, then ``requant`` at ``s_out`` (or
+    float32 out when it is None)."""
     y = acc.float() * scale + bias
-    if relu:
+    if idq is not None:
+        y = y + idq.float() * s_id
+    if relu or idq is not None:
         y = torch.relu(y)
     return y if s_out is None else requant(y, s_out)
 
 
 def int8_matmul_requant_reference(xq: Tensor, wq: Tensor, scale: Tensor, bias: Tensor,
                                   s_out: Optional[float] = None, relu: bool = True) -> Tensor:
-    return _epilogue(int_matmul(xq, wq), scale, bias, relu, s_out)
+    return epilogue(int_matmul(xq, wq), scale, bias, s_out, relu)
 
 
 def int8_matmul_residual_requant_reference(xq: Tensor, wq: Tensor, scale: Tensor, bias: Tensor,
                                            idq: Tensor, s_id: float,
                                            s_out: Optional[float] = None) -> Tensor:
-    y = int_matmul(xq, wq).float() * scale + bias
-    y = torch.relu(y + idq.float() * s_id)  # residual joins are always followed by ReLU
-    return y if s_out is None else requant(y, s_out)
+    return epilogue(int_matmul(xq, wq), scale, bias, s_out, idq=idq, s_id=s_id)
 
 
 def _check(xq: Tensor, wq: Tensor, scale: Tensor, bias: Tensor, idq: Optional[Tensor]) -> None:
@@ -116,20 +124,182 @@ def pad_k16(xq: Tensor, wq: Tensor) -> tuple:
     return tuple(padded)
 
 
+# The kernel's shapes (csrc/int8_matmul.cu): tiles (rows, columns) by the
+# index a plan names, 64 rows a consumer warpgroup; K stages of 64 bytes
+# through a ring of 2 to MAX_STAGES slots; TILE_SLOTS tiles' columns and
+# residual ahead; the shared memory a CTA may take at 1 to 4 CTAs an SM
+# (228 KB an SM, less 1 KB a CTA, shared; 227 KB at most).
+TILES = ((128, 64), (64, 64))
+STAGE_K = 64
+MAX_STAGES = 16
+TILE_SLOTS = 4
+SMEM_PER_CTA = {1: 232448, 2: 115712, 3: 76800, 4: 57344}
+_HEAD = 2048  # the barriers and the slack that aligns the dynamic base
+
+# The cost model (plan_cost), in clocks of an SM at 1.755 GHz: the int8
+# tensor cores' dense rate (multiply-adds a clock an SM) and the card's
+# bytes a clock from device memory (both from the data sheet); then,
+# fitted to the times of every plan check_int8_matmul forces at the 17
+# forward shapes on an NVIDIA H100 80GB HBM3 (probe_int8.py --fit): the
+# bytes a clock an SM takes from L2 through the TMA, the least a K stage
+# takes in a CTA's serial chain (a load round trip over the stages in
+# flight), a tile's fixed part of that chain (the wait for its products,
+# its barriers), an epilogue's clocks an output on an SM (int8 and float32
+# out) with EPI_WARPS consumer warps or more on it, and a launch's fixed
+# cost (with the ramp of its first tiles).
+MACS_PER_CLOCK = 4270.0
+HBM_BYTES = 1900.0
+L2_BYTES = 64.0
+STAGE_LATENCY = 1390.0
+TILE_CLOCKS = 1790.0
+EPI_INT8, EPI_F32 = 0.34, 0.11
+EPI_WARPS = 14.0
+LAUNCH_CLOCKS = 18800.0
+CLOCK_GHZ = 1.755
+
+
+def smem_bytes(tile: int, stages: int, residual: bool, out_int8: bool) -> int:
+    """Shared memory of a launch, as the kernel lays it out: the ring, the
+    output staging (the tile's rows, padded by 16 bytes), TILE_SLOTS tiles'
+    scale and bias columns and idq (``csrc/int8_matmul.cu:smem_bytes``)."""
+    bm, bn = TILES[tile]
+    return (_HEAD + stages * (bm + bn) * STAGE_K + bm * (bn * (1 if out_int8 else 4) + 16)
+            + TILE_SLOTS * 2 * bn * 4 + (TILE_SLOTS * bm * bn if residual else 0))
+
+
+def smem_bytes_per_stage(tile: int) -> int:
+    bm, bn = TILES[tile]
+    return (bm + bn) * STAGE_K
+
+
+def tile_count(M: int, N: int, tile: int) -> int:
+    bm, bn = TILES[tile]
+    return -(-M // bm) * -(-N // bn)
+
+
+def plan_cost(M: int, K: int, N: int, residual: bool, out_int8: bool, tile: int, stages: int,
+              per_sm: int, ctas: int, sms: int) -> float:
+    """Estimated clocks of a launch of ``ctas`` persistent CTAs: rounds of
+    tiles (a CTA walks ceil(tiles / ctas) of them), each the longest of an
+    SM's L2 bytes (its CTAs' K stages), its epilogues (at the rate its
+    consumer warps reach) and a CTA's serial chain of K stages; no less
+    than the bytes of device memory; plus the launch."""
+    bm, bn = TILES[tile]
+    kstages = -(-K // STAGE_K)
+    tiles = tile_count(M, N, tile)
+    on_sm = min(per_sm, -(-ctas // sms))  # CTAs sharing an SM
+    rounds = -(-tiles // ctas)
+    warps = on_sm * bm // 64 * 4
+    epi = bm * bn * (EPI_INT8 if out_int8 else EPI_F32)
+    epi = on_sm * epi * max(1.0, EPI_WARPS / warps)
+    l2 = on_sm * kstages * (bm + bn) * STAGE_K / L2_BYTES
+    chain = (kstages * max(STAGE_LATENCY / min(stages, kstages), bm * bn * STAGE_K / MACS_PER_CLOCK)
+             + TILE_CLOCKS)
+    hbm = (M * K + N * K + M * N * (1 if out_int8 else 4) + (M * N if residual else 0)) / HBM_BYTES
+    return max(rounds * max(l2, epi, chain), hbm) + LAUNCH_CLOCKS
+
+
+@functools.lru_cache(maxsize=512)
+def _candidates(M: int, K: int, N: int, residual: bool, out_int8: bool, sms: int,
+                active: tuple) -> tuple:
+    counts = dict(active)
+    found, seen = [], set()
+    for tile in range(len(TILES)):
+        tiles = tile_count(M, N, tile)
+        for per_sm, budget in SMEM_PER_CTA.items():
+            n = counts.get((tile, per_sm), 0)
+            fixed = smem_bytes(tile, 0, residual, out_int8)
+            stages = min(MAX_STAGES, (budget - fixed) // smem_bytes_per_stage(tile))
+            # More CTAs an SM only where the card runs more of them.
+            if n < 1 or stages < 2 or n <= counts.get((tile, per_sm - 1), 0):
+                continue
+            ctas = min(tiles, n)
+            key = (tile, stages, ctas)
+            if key in seen:
+                continue
+            seen.add(key)
+            cost = plan_cost(M, K, N, residual, out_int8, tile, stages, per_sm, ctas, sms)
+            found.append(dict(tile=tile, stages=stages, grid=ctas, per_sm=per_sm, active=n,
+                              waves=-(-tiles // n),
+                              smem_bytes=smem_bytes(tile, stages, residual, out_int8),
+                              cost_us=cost / CLOCK_GHZ / 1e3))
+    if not found:
+        raise ValueError(f"int8 matmul: no plan fits the card for ({M}, {K}, {N})")
+    return tuple(sorted(found, key=lambda p: p["cost_us"]))
+
+
+def int8_candidates(M: int, K: int, N: int, residual: bool, out_int8: bool, sms: int,
+                    active: Mapping) -> list:
+    """Every plan ``int8_plan`` weighs, least ``plan_cost`` first."""
+    return [dict(p) for p in _candidates(M, K, N, residual, out_int8, sms,
+                                         tuple(sorted(active.items())))]
+
+
+def int8_plan(M: int, K: int, N: int, residual: bool, out_int8: bool, sms: int,
+              active: Mapping) -> dict:
+    """The kernel's plan for xq (M, K) (K a multiple of 16) times wq (N, K)
+    on a card of ``sms`` SMs that runs ``active[(tile, per_sm)]`` CTAs of
+    that tile at once at per_sm CTAs an SM: for each tile of TILES and one
+    to four CTAs an SM (more only where the card runs more CTAs), the
+    deepest ring (up to MAX_STAGES) that fits the shared memory and as many
+    CTAs as run at once (at most one a tile), the one with the least
+    ``plan_cost``. Returns tile, stages, grid (what the C entry takes, in
+    that order), per_sm, active, waves (of CTAs: ceil(tiles / active)),
+    smem_bytes and cost_us."""
+    return dict(_candidates(M, K, N, residual, out_int8, sms,
+                            tuple(sorted(active.items())))[0])
+
+
+PLAN_KEYS = ("tile", "stages", "grid")
+
+
 def _kernel_lib(defines: tuple = ()) -> ctypes.CDLL:
     lib = load_library("int8_matmul", defines)
     fn = lib.vct_int8_matmul_requant
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    lib.vct_int8_matmul_active_ctas.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.vct_int8_matmul_active_ctas.restype = ctypes.c_int
     return lib
 
 
-def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu, tile: int = -1,
+@functools.lru_cache(maxsize=16)
+def active_ctas(device_index: int, defines: tuple = ()) -> Dict[tuple, int]:
+    """CTAs of each tile's kernel that card runs at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its SMs) at the
+    shared memory a CTA may take at one to four CTAs an SM:
+    {(tile, per_sm): CTAs}. Also allows every kernel of the build its
+    shared memory, once, so no launch sets an attribute."""
+    lib = _kernel_lib(defines)
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    out = {}
+    with torch.cuda.device(device_index):
+        for tile in range(len(TILES)):
+            for per_sm, budget in SMEM_PER_CTA.items():
+                n = ctypes.c_int(0)
+                rc = lib.vct_int8_matmul_active_ctas(tile, budget, ctypes.byref(n))
+                check_launch(lib, rc, "int8 matmul active CTAs")
+                out[(tile, per_sm)] = n.value * sms
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def card_plan(M: int, K: int, N: int, residual: bool, out_int8: bool, device_index: int,
+              defines: tuple = ()) -> tuple:
+    """``int8_plan`` on that card, as the C entry's plan array (cached per
+    shape, form and card, so a launch pays one lookup)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    plan = int8_plan(M, K, N, residual, out_int8, sms, active_ctas(device_index, defines))
+    return tuple(plan[k] for k in PLAN_KEYS)
+
+
+def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu, plan: Optional[Mapping] = None,
             defines: tuple = ()) -> Tensor:
-    """One kernel launch. ``tile`` -1 lets the C launcher pick the tile
-    shape, 0 or 1 forces 64 x 64 or 128 x 64, and ``defines`` picks a
-    variant build, to time them against each other."""
+    """One kernel launch. ``plan`` None takes ``int8_plan``'s on the card; a
+    plan (a dict with PLAN_KEYS, for example one of ``int8_candidates``)
+    forces it, and ``defines`` picks a variant build, to time them against
+    each other."""
     lib = _kernel_lib(defines)
     xq, wq = pad_k16(xq, wq)
     M, K = xq.shape
@@ -138,13 +308,19 @@ def _launch(xq, wq, scale, bias, idq, s_id, s_out, relu, tile: int = -1,
                       device=xq.device)
     if out.numel() == 0:
         return out
+    index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
+    if plan is None:
+        args = card_plan(M, K, N, idq is not None, s_out is not None, index, defines)
+    else:
+        active_ctas(index, defines)  # the build's shared memory allowed
+        args = tuple(plan[k] for k in PLAN_KEYS)
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
         rc = lib.vct_int8_matmul_requant(
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             idq.data_ptr() if idq is not None else None, float(s_id),
             1.0 if s_out is None else float(s_out), out.data_ptr(),
-            M, K, N, int(relu), int(s_out is not None), tile, stream)
+            M, K, N, int(relu), int(s_out is not None), (ctypes.c_int * 3)(*args), stream)
     check_launch(lib, rc, "int8 matmul")
     return out
 
